@@ -1,0 +1,495 @@
+"""Unified conjugate-exponential VB engine: Model x Topology (main slice).
+
+Port of `repro.core.engine` for the single-array executor.  Every estimator
+of the paper is the same per-iteration kernel — each node runs a VBE step
++ local VBM optimum to get phi*_i (Eq. 18) — followed by a topology rule
+that turns the stack {phi*_i} into the next iterate:
+
+* Eq. 20   fusion-centre average                `FusionCenter.combine`
+* Eq. 22/29 Robbins-Monro step size eta_t       `eta_schedule` / `Schedule`
+* Eq. 27a  natural-gradient step                `_CombineTopology.step`
+* Eq. 27b  diffusion combine                    `Diffusion.combine`
+* Eq. 38a  ADMM primal update                   `ADMMConsensus.step`
+* Eq. 38b  projection onto Omega                `ADMMConsensus.step`
+* Eq. 39   ADMM dual ascent                     `ADMMConsensus.step`
+* Eq. 40   kappa_t dual-step ramp               `kappa_schedule`
+* Eq. 46   KL performance metric                `kl_to_reference`
+
+Sessions: `vb_init` returns a `VBState` (phi, absolute iteration t, the
+topology carry — the ADMM duals — and the last diagnostics); `vb_run`
+advances it with a Python step loop (the reference's `lax.scan`).  Every
+per-iteration quantity is a function of the absolute t, so
+`vb_run(s, a + b)` equals `vb_run(vb_run(s, a)[0], b)` bit for bit.
+`run_vb` is the one-shot wrapper.
+
+The node axis is a plain tensor axis throughout (no Python loop over
+nodes).  Options of the reference that this port does not carry yet raise
+`NotImplementedError` naming the ROADMAP item that ports them.
+"""
+from __future__ import annotations
+
+import copy
+import dataclasses
+from typing import Any, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import device as device_lib
+
+
+def _not_ported(what: str, item: int):
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP.md, Queue 1 "
+        f"item {item})")
+
+
+# ---------------------------------------------------------------------------
+# Step-size schedules (Eqs. 29 and 40)
+# ---------------------------------------------------------------------------
+def eta_schedule(t, tau: float, d0: float = 1.0):
+    """eta_t = 1 / (d0 + tau * t); satisfies Robbins-Monro (Eq. 22).
+
+    >>> [round(eta_schedule(t, tau=0.5), 3) for t in (1.0, 2.0, 10.0)]
+    [0.667, 0.5, 0.167]
+    """
+    return 1.0 / (d0 + tau * t)
+
+
+def kappa_schedule(t, xi: float = 0.05):
+    """kappa_t = 1 - 1/(1 + xi t)^2 ramps the ADMM dual step (Eq. 40).
+
+    >>> kappa_schedule(1.0) < 0.15, kappa_schedule(99.0) > 0.95
+    (True, True)
+    """
+    return 1.0 - 1.0 / (1.0 + xi * t) ** 2
+
+
+class Schedule(NamedTuple):
+    """eta_t of the natural-gradient step (27a).  `eta_fixed=1.0` is the
+    one-shot estimators (cVB / noncoop / nsg-dVB), `None` the paper's
+    Robbins-Monro schedule.
+
+    >>> round(Schedule(tau=0.2).eta(0), 4), ONE_SHOT.eta(0)
+    (0.8333, 1.0)
+    """
+
+    tau: float = 0.2
+    d0: float = 1.0
+    eta_fixed: Optional[float] = None
+
+    def eta(self, t: int) -> float:
+        if self.eta_fixed is not None:
+            return float(self.eta_fixed)
+        return eta_schedule(t + 1.0, self.tau, self.d0)
+
+
+ONE_SHOT = Schedule(eta_fixed=1.0)
+
+
+def _as_tensor(a) -> torch.Tensor:
+    return a if isinstance(a, torch.Tensor) else torch.as_tensor(
+        np.asarray(a))
+
+
+def _no_links(link_drop, link_mask_fn):
+    if link_drop or link_mask_fn is not None:
+        raise _not_ported("time-varying links (link_drop / link_mask_fn)",
+                          8)
+
+
+# ---------------------------------------------------------------------------
+# Topologies / combiners
+# ---------------------------------------------------------------------------
+class _CombineTopology:
+    """Topologies of the form: (27a) varphi_i = phi_i + eta (phi*_i - phi_i),
+    then a linear combine of {varphi_i}.  `step` returns
+    (phi_next, carry_next, diag); diag is None for combine topologies."""
+
+    uses_schedule = True
+    emits_diagnostics = False
+
+    def to(self, device) -> "_CombineTopology":
+        """Copy with every tensor attribute on `device`."""
+        new = copy.copy(self)
+        for name, val in vars(self).items():
+            if isinstance(val, torch.Tensor):
+                setattr(new, name, val.to(device))
+        return new
+
+    def init_carry(self, phi0: torch.Tensor, model=None):
+        return None
+
+    def init_diag(self, model, phi0: torch.Tensor):
+        return None
+
+    def combine(self, varphi: torch.Tensor, *, t=None) -> torch.Tensor:
+        raise NotImplementedError
+
+    def step(self, model, phi, carry, phi_star, t: int, schedule: Schedule):
+        if schedule.eta_fixed == 1.0:
+            varphi = phi_star                       # one-shot: jump to phi*
+        else:
+            varphi = phi + schedule.eta(t) * (phi_star - phi)   # Eq. 27a
+        return self.combine(varphi, t=t), carry, None
+
+
+class FusionCenter(_CombineTopology):
+    """Centralised reference: phi <- mean_i phi*_i exactly (Eq. 20).
+
+    >>> FusionCenter().combine(torch.tensor([[0.0, 2.0], [2.0, 4.0]])
+    ...                        ).tolist()
+    [[1.0, 3.0], [1.0, 3.0]]
+    """
+
+    def combine(self, varphi, *, t=None):
+        return varphi.mean(0).expand_as(varphi)
+
+
+class Isolated(_CombineTopology):
+    """No communication (noncoop-VB): every node keeps its own iterate."""
+
+    def combine(self, varphi, *, t=None):
+        return varphi
+
+
+class Diffusion(_CombineTopology):
+    """Diffusion combine phi_i <- sum_j w_ij varphi_j (Eq. 27b) with a
+    dense row-stochastic (N, N) weight matrix (e.g. Eq. 47).
+
+    >>> W = torch.tensor([[0.5, 0.5], [0.5, 0.5]])
+    >>> Diffusion(W).combine(torch.tensor([[0.0], [4.0]])).tolist()
+    [[2.0], [2.0]]
+    """
+
+    def __init__(self, weights, *, link_drop: float = 0.0,
+                 link_seed: int = 0, link_mask_fn=None):
+        _no_links(link_drop, link_mask_fn)
+        if hasattr(weights, "graph"):
+            raise _not_ported("sparse SparseWeights combines", 11)
+        self.weights = _as_tensor(weights)
+
+    def combine(self, varphi, *, t=None):
+        return self.weights.to(varphi.dtype) @ varphi
+
+
+class RingDiffusion(_CombineTopology):
+    """Diffusion on the cycle graph — not ported yet."""
+
+    def __init__(self, *args, **kwargs):
+        raise _not_ported("RingDiffusion", 8)
+
+
+class ConsensusDiagnostics(NamedTuple):
+    """Per-iteration observability record of `ADMMConsensus` (stacked
+    along a leading time axis on `VBRun.consensus_diag`).
+
+    primal_resid : RMS norm of the Eq. 39 disagreement.
+    dual_resid : RMS norm of rho (phi^t - phi^{t-1}).
+    rho : the penalty.
+    kappa : the dual step-size ramp applied (Eq. 40).
+    clip_count : nodes whose Eq. 38b projection moved the iterate.
+    reset_count : nodes whose duals were reset (0: plain Algorithm 2).
+    dual_on : 1.0 once the dual ascent is active (always, when plain).
+    link_frac : fraction of the graph's links alive (1.0: static).
+    """
+
+    primal_resid: torch.Tensor
+    dual_resid: torch.Tensor
+    rho: torch.Tensor
+    kappa: torch.Tensor
+    clip_count: torch.Tensor
+    reset_count: torch.Tensor
+    dual_on: torch.Tensor
+    link_frac: torch.Tensor
+
+
+class ADMMConsensus(_CombineTopology):
+    """Consensus ADMM in natural-parameter space, Algorithm 2 verbatim.
+
+    Per iteration and node i with neighbours N_i (|N_i| = d_i):
+
+      (38a) phi_i <- [phi*_i - 2 lam_i + rho sum_{j in N_i}(phi_i + phi_j)]
+                     / (1 + 2 rho d_i)
+      (38b) phi_i <- Proj_Omega(phi_i)                  (if project=True)
+      (39)  lam_i <- lam_i + kappa_t rho/2 sum_{j in N_i}(phi_i - phi_j)
+      (40)  kappa_t = 1 - 1/(1 + xi t)^2
+
+    `lam_max` clips each dual coordinate to +-lam_max |phi*_i|.  The
+    reference's adaptive-penalty subsystem (adaptive_rho, per_block,
+    dual_warmup, dual_reset) is not ported yet and raises.  Algorithm 2
+    has no natural-gradient step, so `schedule` does not apply.
+    """
+
+    uses_schedule = False
+    emits_diagnostics = True
+
+    def __init__(self, adj, rho: float = 0.5, xi: float = 0.05,
+                 project: bool = True, lam_max: float | None = None,
+                 adaptive_rho: bool = False, per_block: bool = False,
+                 dual_warmup: bool | str = "auto",
+                 dual_reset: float | None | str = "auto",
+                 clip_tol: float = 1e-9, link_drop: float = 0.0,
+                 link_seed: int = 0, link_mask_fn=None):
+        _no_links(link_drop, link_mask_fn)
+        warmup = adaptive_rho if dual_warmup == "auto" else bool(dual_warmup)
+        reset = ((0.0 if adaptive_rho else None) if dual_reset == "auto"
+                 else dual_reset)
+        if adaptive_rho or per_block or warmup or reset is not None:
+            raise _not_ported("the adaptive ADMM options (adaptive_rho, "
+                              "per_block, dual_warmup, dual_reset)", 8)
+        if not isinstance(adj, (torch.Tensor, np.ndarray)):
+            raise _not_ported("sparse SparseGraph consensus", 11)
+        self.adj = _as_tensor(adj)
+        self.rho = rho
+        self.xi = xi
+        self.project = project
+        self.lam_max = lam_max
+        self.clip_tol = clip_tol
+
+    def init_carry(self, phi0, model=None):
+        return torch.zeros_like(phi0)                 # duals lambda_i
+
+    def init_diag(self, model, phi0):
+        z = phi0.new_zeros(())
+        zi = torch.zeros((), dtype=torch.int32, device=phi0.device)
+        return ConsensusDiagnostics(
+            primal_resid=z, dual_resid=z.clone(),
+            rho=phi0.new_tensor(self.rho), kappa=z.clone(),
+            clip_count=zi, reset_count=zi.clone(), dual_on=z.clone(),
+            link_frac=phi0.new_ones(()))
+
+    @staticmethod
+    def _norm(z: torch.Tensor) -> torch.Tensor:
+        """RMS norm of the (N, P) stack z."""
+        sq = (z * z).sum(0)
+        return torch.sqrt(sq.sum() / (z.shape[0] * z.shape[1]))
+
+    def step(self, model, phi, carry, phi_star, t: int, schedule: Schedule):
+        lam, rho = carry, self.rho
+        adj = self.adj.to(phi.dtype)
+        deg = adj.sum(1)                              # |N_i|
+        # (38a) primal
+        phi_hat = (phi_star - 2.0 * lam
+                   + rho * (deg[:, None] * phi + adj @ phi))
+        phi_hat = phi_hat / (1.0 + 2.0 * rho * deg)[:, None]
+        phi_new = model.project_to_domain(phi_hat) if self.project \
+            else phi_hat                              # (38b)
+        # (39) dual ascent with the kappa_t ramp (40)
+        kappa = kappa_schedule(t + 1.0, self.xi)
+        resid = deg[:, None] * phi_new - adj @ phi_new
+        lam_new = lam + kappa * rho / 2.0 * resid
+        if self.lam_max is not None:
+            bound = self.lam_max * phi_star.abs()
+            lam_new = torch.clamp(lam_new, -bound, bound)
+        clip_count = ((phi_new - phi_hat).abs().amax(1) > self.clip_tol
+                      ).sum().to(torch.int32)
+        diag = ConsensusDiagnostics(
+            primal_resid=self._norm(resid),
+            dual_resid=self._norm(rho * (phi_new - phi)),
+            rho=phi.new_tensor(rho), kappa=phi.new_tensor(kappa),
+            clip_count=clip_count,
+            reset_count=torch.zeros((), dtype=torch.int32,
+                                    device=phi.device),
+            dual_on=phi.new_ones(()), link_frac=phi.new_ones(()))
+        return phi_new, lam_new, diag
+
+
+# ---------------------------------------------------------------------------
+# Metrics (Eq. 46) + run result
+# ---------------------------------------------------------------------------
+def kl_to_reference(model, phi_nodes: torch.Tensor,
+                    ref_phi: Optional[torch.Tensor]) -> torch.Tensor:
+    """Per-node KL to the ground-truth posterior (Eq. 46), (N,).
+
+    `ref_phi` may be (P,) or a (n_refs, P) stack (component permutations
+    of a mixture reference): the min over the stack is reported.  All
+    nodes x references are evaluated as one batched computation.
+    """
+    if ref_phi is None:
+        return phi_nodes.new_zeros(phi_nodes.shape[0])
+    ref = ref_phi[None] if ref_phi.dim() == 1 else ref_phi
+    return model.kl(phi_nodes[:, None, :], ref[None, :, :]).amin(1)
+
+
+class VBRun(NamedTuple):
+    phi: torch.Tensor           # (N, P) final natural parameters per node
+    kl_mean: torch.Tensor       # (T,)   mean_i KL(q_i || ground truth)
+    kl_std: torch.Tensor        # (T,)
+    kl_nodes: torch.Tensor      # (T, N) per-node trajectory
+    consensus_err: Any = None   # (T,)   mean_i ||phi_i - mean_j phi_j||^2
+    consensus_diag: Any = None  # ConsensusDiagnostics (ADMM topologies)
+
+
+# ---------------------------------------------------------------------------
+# Sessions + explicit state
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class VBSession:
+    """The static half of a VB session: model x topology x
+    hyperparameters, plus the per-node data buffers (on the run's
+    device)."""
+
+    model: Any
+    data: Any
+    topology: Any
+    schedule: Schedule
+    replication: float
+    ref_phi: Optional[torch.Tensor]
+    diagnostics: bool
+    metric_nodes: Optional[int]
+
+
+@dataclasses.dataclass(frozen=True)
+class VBState:
+    """Per-iteration state of a VB session.
+
+    phi : (N, P) current natural parameters per node.
+    t : ABSOLUTE iteration count (a Python int; every per-iteration
+        quantity — eta_t, kappa_t — is a function of it).
+    carry : topology carry (ADMM duals lambda_i), else None.
+    diag : most recent `ConsensusDiagnostics` (ADMM), else None.
+    session : the static `VBSession`.
+
+    The arrays correspond to the reference checkpoint's `.phi`, `.t`,
+    `.carry` and `.diag.<field>` entries (checkpoint/ckpt.py).
+    """
+
+    phi: torch.Tensor
+    t: int
+    carry: Any = None
+    diag: Any = None
+    session: Optional[VBSession] = None
+
+    def replace(self, **kw) -> "VBState":
+        return dataclasses.replace(self, **kw)
+
+
+def vb_init(model, data, topology, *, schedule: Schedule = Schedule(),
+            replication: float | None = None,
+            init_phi: Optional[torch.Tensor] = None,
+            ref_phi: Optional[torch.Tensor] = None,
+            executor=None, backend=None, minibatch=None,
+            diagnostics: bool = True, metric_nodes: Optional[int] = None,
+            device=None) -> VBState:
+    """Open a VB session and return its t=0 `VBState`.  Parameters are
+    `run_vb`'s (minus `n_iters`)."""
+    dev = device_lib.resolve(device)
+    if executor is not None:
+        raise _not_ported("the mesh executor (executor=)", 14)
+    if minibatch is not None:
+        raise _not_ported("streaming minibatches (minibatch=)", 10)
+    model_dev = getattr(model, "device", dev)
+    if torch.device(model_dev) != dev:
+        raise ValueError(f"the model lives on {model_dev}, the run was "
+                         f"asked for {dev}; build it with device={dev}")
+    if backend is not None:
+        with_backend = getattr(model, "with_backend", None)
+        if with_backend is None:
+            raise ValueError(
+                f"{type(model).__name__} does not support compute-backend "
+                "selection (no with_backend method)")
+        from repro_torch.core import backends as backends_lib
+        resolved = backends_lib.resolve(backend)
+        if not resolved.supports(model):
+            raise ValueError(
+                f"backend {resolved.name!r} does not support "
+                f"{type(model).__name__} (Backend.supports returned False)")
+        model = with_backend(resolved)
+    if not topology.uses_schedule and schedule != Schedule():
+        raise ValueError(
+            f"{type(topology).__name__} has no natural-gradient step "
+            "(Eq. 27a); it ignores `schedule` — pass the default")
+    data = tuple(_as_tensor(a).to(dev) for a in data)
+    topology = topology.to(dev)
+    n_nodes = data[0].shape[0]
+    if replication is None:
+        replication = float(n_nodes)
+    if init_phi is None:
+        init_phi = model.init_phi().expand(n_nodes, model.flat_dim)
+    init_phi = _as_tensor(init_phi).to(dev)
+    if ref_phi is not None:
+        ref_phi = _as_tensor(ref_phi).to(dev)
+    session = VBSession(model, data, topology, schedule, float(replication),
+                        ref_phi, diagnostics, metric_nodes)
+    return VBState(
+        phi=init_phi, t=0, carry=topology.init_carry(init_phi, model),
+        diag=topology.init_diag(model, init_phi) if diagnostics else None,
+        session=session)
+
+
+def vb_run(state: VBState, n_iters: int) -> tuple[VBState, VBRun]:
+    """Advance a session `n_iters` (>= 1) iterations; returns
+    (state', VBRun) where the run covers the iterations of THIS call.
+    Nothing in the loop waits for the device."""
+    ses = state.session
+    if ses is None:
+        raise ValueError("VBState has no session attached — create states "
+                         "with vb_init(...)")
+    if n_iters < 1:
+        raise ValueError(f"n_iters must be >= 1: {n_iters}")
+    model, topology = ses.model, ses.topology
+    phi, carry = state.phi, state.carry
+    kls, msds, diags = [], [], []
+    for t in range(state.t, state.t + n_iters):
+        phi_star = model.local_optimum(ses.data, phi, ses.replication)
+        phi, carry, diag = topology.step(model, phi, carry, phi_star, t,
+                                         ses.schedule)
+        phi_m = phi if ses.metric_nodes is None else phi[:ses.metric_nodes]
+        kls.append(kl_to_reference(model, phi_m, ses.ref_phi))
+        if ses.diagnostics:
+            msds.append(((phi - phi.mean(0)) ** 2).mean())
+            diags.append(diag)
+    kls = torch.stack(kls)
+    stacked = None
+    if diags and diags[-1] is not None:
+        stacked = type(diags[-1])(*(torch.stack(f) for f in zip(*diags)))
+    state_new = state.replace(phi=phi, t=state.t + n_iters, carry=carry,
+                              diag=diags[-1] if ses.diagnostics
+                              else state.diag)
+    run = VBRun(phi=phi, kl_mean=kls.mean(1),
+                kl_std=kls.std(1, correction=0), kl_nodes=kls,
+                consensus_err=torch.stack(msds) if ses.diagnostics
+                else None,
+                consensus_diag=stacked)
+    return state_new, run
+
+
+def vb_step(state: VBState) -> VBState:
+    """Advance a session by ONE iteration (= `vb_run(state, 1)[0]`)."""
+    return vb_run(state, 1)[0]
+
+
+def run_vb(model, data, topology, *, n_iters: int,
+           schedule: Schedule = Schedule(), replication: float | None = None,
+           init_phi: Optional[torch.Tensor] = None,
+           ref_phi: Optional[torch.Tensor] = None, executor=None,
+           backend=None, minibatch=None, diagnostics: bool = True,
+           metric_nodes: Optional[int] = None, device=None) -> VBRun:
+    """Run distributed VB: `model` on `data` over `topology`.
+
+    model : ConjugateExpModel (core/model.py), built on `device`
+    data : per-node data tuple (x (N, T, D), mask (N, T)); moved to device
+    topology : FusionCenter | Isolated | Diffusion | ADMMConsensus
+    n_iters : number of VB iterations
+    schedule : eta_t of the natural-gradient step (27a); `ONE_SHOT` for
+        the jump-to-optimum estimators
+    replication : likelihood replication factor (App. A); default N
+    init_phi : (N, P) initial naturals; default the prior at every node
+    ref_phi : (P,) or (n_refs, P) reference for the Eq. 46 metric
+    backend : per-run compute backend ("reference" | "fused" | a
+        `core.backends.Backend`); None keeps the model's own.  Raises if
+        the backend does not support the model.
+    diagnostics : also record the per-iteration consensus error
+    metric_nodes : evaluate the Eq. 46 metric on the first rows only
+    device : where the run executes; None = CUDA (raises without a card)
+    executor, minibatch : not ported yet (raise NotImplementedError)
+
+    Exactly `vb_run(vb_init(<same arguments>), n_iters)[1]`.
+    """
+    state = vb_init(model, data, topology, schedule=schedule,
+                    replication=replication, init_phi=init_phi,
+                    ref_phi=ref_phi, executor=executor, backend=backend,
+                    minibatch=minibatch, diagnostics=diagnostics,
+                    metric_nodes=metric_nodes, device=device)
+    return vb_run(state, n_iters)[1]

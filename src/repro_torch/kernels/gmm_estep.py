@@ -1,0 +1,213 @@
+"""Fused GMM VBE step (responsibilities + sufficient statistics).
+
+Port of `repro.kernels.gmm_estep`.  The per-node VBE hot loop of the
+paper's application is O(T * K * D^2): per data point a quadratic form per
+component, a row softmax, then three accumulations (R_k, sum r x,
+sum r x x^T).  On the card it runs as one hand-written CUDA kernel
+(`csrc/gmm_estep.cu`, one pass over x, statistics accumulated on chip and
+written once); its design and bound are in the source's header note.
+
+Inputs are the per-component terms of `core.gmm.estep_terms`:
+  log_prior (N,K)  Wn (N,K,D,D)=nu W  b (N,K,D)=nu W m  c (N,K)=D/beta+nu mWm
+and an optional per-component `shift` s (N,K,D): the step then works in
+each component's coordinates y = x - s_k (terms from
+`estep_terms(q, shift=s)`) and returns centred statistics, sum r y and
+sum r y y^T.  Without a shift it is exactly the reference kernel.  The
+engine centres on the component means, which keeps f32 statistics well
+conditioned at deployment scale (see `core.gmm.posterior_from_stats`).
+
+`gmm_estep_nodes` is the wrapper: it validates the inputs, then launches
+the kernel for CUDA tensors and runs the plain PyTorch version
+(`gmm_estep_nodes_plain`, the same function written as batched tensor
+ops) for CPU tensors.  Nothing falls back: a CUDA tensor launches the
+kernel or raises.  `gmm_estep_nodes.launches` counts the kernel launches.
+
+Contracts, shared by the kernel and the plain version:
+* x streams as f32 or bf16 (one kernel instance each); an f64 x is cast
+  to f32, as the TPU kernel does.  mask has x's dtype.  Products and
+  statistics are f32.
+* `return_r=False` never allocates or writes r.
+* Statistics are BIT-invariant to trailing mask-zero padding of the point
+  axis, and two launches on the same inputs are bit-identical (no
+  atomics; summation order independent of T).
+* `replication` scales the statistics at emit; a Python float, so no
+  host sync.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.expfam import ordered_sum
+
+#: points each thread takes per tile (kPts in csrc/gmm_estep.cu)
+POINTS_PER_THREAD = 4
+#: the kernel is instantiated for D = 1..MAX_D
+MAX_D = 8
+#: shared memory a block may use on Hopper
+MAX_SMEM_BYTES = 227 * 1024
+
+_X_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _lib():
+    from repro_torch.kernels import build
+    lib = build.load("gmm_estep")
+    fn = lib.gmm_estep_nodes_launch
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def smem_bytes(K: int, D: int, block_t: int) -> int:
+    """Dynamic shared memory of one block: the node's terms and shift plus
+    one statistics slot of K * (1 + D + D(D+1)/2) floats per warp."""
+    n_warps = block_t // POINTS_PER_THREAD // 32
+    stats = K * (1 + D + D * (D + 1) // 2)
+    return 4 * (2 * K + 2 * K * D + K * D * D + n_warps * stats)
+
+
+def _check(x, mask, log_prior, Wn, b, c, shift, block_t):
+    """Validate and normalise the inputs; returns (x, mask) in the
+    streaming dtype.  Raises on what the kernel does not take."""
+    if x.dim() != 3:
+        raise ValueError(f"x must be (N, T, D): {tuple(x.shape)}")
+    N, T, D = x.shape
+    if x.dtype == torch.float64:
+        x = x.float()
+        if mask.dtype == torch.float64:
+            mask = mask.float()
+    if x.dtype not in _X_DTYPES:
+        raise TypeError(f"x must be float32, bfloat16 or float64: {x.dtype}")
+    if mask.dtype != x.dtype:
+        raise TypeError(f"mask dtype {mask.dtype} != x dtype {x.dtype}")
+    if tuple(mask.shape) != (N, T):
+        raise ValueError(f"mask must be {(N, T)}: {tuple(mask.shape)}")
+    K = log_prior.shape[-1] if log_prior.dim() == 2 else -1
+    want = {"log_prior": (log_prior, (N, K)), "Wn": (Wn, (N, K, D, D)),
+            "b": (b, (N, K, D)), "c": (c, (N, K))}
+    if shift is not None:
+        want["shift"] = (shift, (N, K, D))
+    for name, (a, shape) in want.items():
+        if tuple(a.shape) != shape or K < 1:
+            raise ValueError(f"{name} must be {shape}: {tuple(a.shape)}")
+        if a.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32: {a.dtype}")
+    for name, a in (("x", x), ("mask", mask), *((n, a) for n, (a, _) in
+                                                 want.items())):
+        if a.device != x.device:
+            raise ValueError(f"{name} is on {a.device}, x on {x.device}")
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not 1 <= D <= MAX_D:
+        raise ValueError(f"the kernel takes 1 <= D <= {MAX_D}: D={D}")
+    step = POINTS_PER_THREAD * 32
+    if block_t % step or not step <= block_t <= 256 * POINTS_PER_THREAD:
+        raise ValueError(f"block_t must be a multiple of {step} in "
+                         f"[{step}, {256 * POINTS_PER_THREAD}]: {block_t}")
+    if smem_bytes(K, D, block_t) > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"K={K}, D={D}, block_t={block_t} needs "
+            f"{smem_bytes(K, D, block_t)} B of shared memory; a Hopper "
+            f"block has {MAX_SMEM_BYTES}")
+    return x, mask
+
+
+def _launch(x, mask, log_prior, Wn, b, c, shift, replication, block_t,
+            return_r):
+    N, T, D = x.shape
+    K = log_prior.shape[-1]
+    r = (torch.empty((N, T, K), dtype=torch.float32, device=x.device)
+         if return_r else None)
+    stats = torch.empty((N, K + K * D + K, D), dtype=torch.float32,
+                        device=x.device)
+    if N > 0:
+        err = _lib()(x.data_ptr(), mask.data_ptr(), log_prior.data_ptr(),
+                     Wn.data_ptr(), b.data_ptr(), c.data_ptr(),
+                     None if shift is None else shift.data_ptr(),
+                     r.data_ptr() if return_r else None, stats.data_ptr(),
+                     N, T, K, D, block_t, float(replication),
+                     int(x.dtype == torch.bfloat16),
+                     smem_bytes(K, D, block_t),
+                     torch.cuda.current_stream(x.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"gmm_estep_nodes kernel launch failed: "
+                               f"cudaError {err}")
+        gmm_estep_nodes.launches += 1
+    return r, stats
+
+
+def _unpack_stats(stats, K, D):
+    N = stats.shape[0]
+    sum_x = stats[:, 0:K, :]
+    sum_xx = stats[:, K:K + K * D, :].reshape(N, K, D, D)
+    R = stats[:, K + K * D:, 0]
+    return R, sum_x, sum_xx
+
+
+def gmm_estep_nodes(x, mask, log_prior, Wn, b, c, replication=1.0, *,
+                    shift=None, block_t: int = 512, return_r: bool = True):
+    """Whole-network fused VBE step: x (N, T, D), mask (N, T) and per-node
+    terms.  Returns (r (N, T, K) or None, R (N, K), sum_x (N, K, D),
+    sum_xx (N, K, D, D)), the statistics scaled by `replication` (and
+    centred on `shift`, when given).
+
+    CUDA tensors launch the kernel; CPU tensors run the plain version.
+    """
+    x, mask = _check(x, mask, log_prior, Wn, b, c, shift, block_t)
+    if x.device.type == "cpu":
+        return gmm_estep_nodes_plain(x, mask, log_prior, Wn, b, c,
+                                     replication, shift=shift,
+                                     return_r=return_r)
+    if x.device.type != "cuda":
+        raise ValueError(f"no gmm_estep kernel for device {x.device}")
+    r, stats = _launch(x, mask, log_prior, Wn, b, c, shift, replication,
+                       block_t, return_r)
+    return (r, *_unpack_stats(stats, log_prior.shape[-1], x.shape[-1]))
+
+
+gmm_estep_nodes.launches = 0
+
+
+def gmm_estep(x, mask, log_prior, Wn, b, c, *, block_t: int = 512):
+    """Single-node view: x (T, D), mask (T,).  Returns (r (T, K), R (K,),
+    sum_x (K, D), sum_xx (K, D, D)), unreplicated."""
+    r, R, sum_x, sum_xx = gmm_estep_nodes(
+        x[None], mask[None], log_prior[None], Wn[None], b[None], c[None],
+        block_t=block_t)
+    return r[0], R[0], sum_x[0], sum_xx[0]
+
+
+# ---------------------------------------------------------------------------
+# The plain PyTorch version (CPU path of the wrapper; the card's oracle)
+# ---------------------------------------------------------------------------
+def gmm_estep_nodes_plain(x, mask, log_prior, Wn, b, c, replication=1.0, *,
+                          shift=None, return_r: bool = True):
+    """The kernel's function as batched tensor ops (the reference oracle
+    `repro.kernels.ref.gmm_estep_nodes`, f32 products), with the
+    statistics folded through `ordered_sum` so that they are bit-invariant
+    to trailing mask-zero padding, like the kernel's."""
+    y = x.float()[:, :, None, :]                                  # (N,T,1,D)
+    if shift is not None:
+        y = y - shift[:, None]                                    # (N,T,K,D)
+    quad = torch.einsum("ntkd,nkde,ntke->ntk", y.expand(-1, -1, Wn.shape[1],
+                                                        -1), Wn, y)
+    cross = (y * b[:, None]).sum(-1)
+    log_rho = log_prior[:, None, :] - 0.5 * (quad - 2.0 * cross
+                                             + c[:, None, :])
+    r = torch.softmax(log_rho, dim=-1) * mask.float()[..., None]
+    ry = r[..., None] * y                                         # (N,T,K,D)
+    R = ordered_sum(r, dim=1) * replication
+    sum_x = ordered_sum(ry, dim=1) * replication
+    sum_xx = ordered_sum(ry[..., None] * y[..., None, :], dim=1) * replication
+    return (r if return_r else None), R, sum_x, sum_xx
+
+
+def gmm_estep_plain(x, mask, log_prior, Wn, b, c):
+    """Single-node view of `gmm_estep_nodes_plain`."""
+    r, R, sum_x, sum_xx = gmm_estep_nodes_plain(
+        x[None], mask[None], log_prior[None], Wn[None], b[None], c[None])
+    return r[0], R[0], sum_x[0], sum_xx[0]

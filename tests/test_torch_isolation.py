@@ -1,0 +1,120 @@
+"""The port stands alone: no jax, no repro; the card unless told otherwise;
+no silent fallback; unported options raise."""
+import os
+import pkgutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.core import algorithms, backends, blocks, engine, expfam
+from repro_torch.core import model as model_lib
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_import_pulls_in_neither_jax_nor_repro():
+    mods = sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, "repro_torch."))
+    assert "repro_torch.kernels.gmm_estep" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('ok', len(sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def _tiny():
+    prior = expfam.noninformative_prior(3, 2, beta0=0.1, w0_scale=10.0)
+    x = torch.zeros(4, 10, 2, dtype=torch.float64)
+    mask = torch.ones(4, 10, dtype=torch.float64)
+    return prior, x, mask
+
+
+def test_default_device_is_cuda(monkeypatch):
+    """Without a card, entry points called without device= raise; the CPU
+    runs only when asked for."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    prior, x, mask = _tiny()
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        model_lib.GMMModel(prior)
+    mdl = model_lib.GMMModel(prior, device="cpu")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        engine.run_vb(mdl, (x, mask), engine.FusionCenter(), n_iters=1)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        algorithms.run_cvb(x, mask, prior, n_iters=1, K=3, D=2)
+    run = engine.run_vb(mdl, (x, mask), engine.FusionCenter(), n_iters=1,
+                        device="cpu")
+    assert run.phi.device.type == "cpu"
+
+
+class _OtherModel(blocks.BlockModel):
+    """A conjugate-exponential model the fused GMM kernel cannot run."""
+
+    def __init__(self):
+        self.prior = np.zeros(3)
+        self.blocks = (blocks.DirichletBlock(3),)
+
+    def split_hyper(self, q):
+        return (q[None],)
+
+    def join_hyper(self, parts):
+        return parts[0][0]
+
+    def local_optimum(self, data, phi_nodes, replication):
+        return phi_nodes
+
+
+def test_fused_backend_on_unsupported_model_raises():
+    prior, x, mask = _tiny()
+    with pytest.raises(ValueError, match="does not support"):
+        engine.vb_init(_OtherModel(), (x, mask), engine.Isolated(),
+                       backend="fused", device="cpu")
+    wide = expfam.noninformative_prior(2, 9)
+    with pytest.raises(ValueError, match="does not support"):
+        engine.vb_init(model_lib.GMMModel(wide, device="cpu"),
+                       (torch.zeros(2, 5, 9), torch.ones(2, 5)),
+                       engine.Isolated(), backend="fused", device="cpu")
+    assert backends.FusedBackend().supports(
+        model_lib.GMMModel(prior, device="cpu"))
+
+
+def test_unported_options_raise():
+    prior, x, mask = _tiny()
+    mdl = model_lib.GMMModel(prior, device="cpu")
+    adj = torch.ones(4, 4) - torch.eye(4)
+    cases = [
+        (lambda: engine.vb_init(mdl, (x, mask), engine.Isolated(),
+                                executor=object(), device="cpu"), "item 14"),
+        (lambda: engine.vb_init(mdl, (x, mask), engine.Isolated(),
+                                minibatch=object(), device="cpu"), "item 10"),
+        (lambda: engine.Diffusion(adj, link_drop=0.1), "item 8"),
+        (lambda: engine.Diffusion(adj, link_mask_fn=lambda t: adj),
+         "item 8"),
+        (lambda: engine.ADMMConsensus(adj, adaptive_rho=True), "item 8"),
+        (lambda: engine.ADMMConsensus(adj, per_block=True), "item 8"),
+        (lambda: engine.ADMMConsensus(adj, dual_reset=0.5), "item 8"),
+        (lambda: engine.ADMMConsensus(adj, link_drop=0.2), "item 8"),
+        (lambda: engine.RingDiffusion(), "item 8"),
+        (lambda: engine.ADMMConsensus(object()), "item 11"),
+        (lambda: algorithms.run_dvb_admm(x, mask, adj, prior, n_iters=1,
+                                         K=3, D=2, adaptive_rho=True,
+                                         device="cpu"), "item 8"),
+    ]
+    for fn, item in cases:
+        with pytest.raises(NotImplementedError, match=item):
+            fn()
+    with pytest.raises(ValueError, match="natural-gradient"):
+        engine.vb_init(mdl, (x, mask), engine.ADMMConsensus(adj),
+                       schedule=engine.ONE_SHOT, device="cpu")

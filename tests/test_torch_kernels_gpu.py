@@ -1,0 +1,122 @@
+"""The CUDA kernel against its plain PyTorch version, on the card.
+
+Marked `gpu`; each test takes the `cuda` fixture, which skips when there
+is no card (decided inside the fixture, never at import or collection).
+On a machine with a card:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
+
+Tolerances are those of tests/test_kernels.py: r atol 2e-5; R rtol 1e-4;
+sum_x rtol 1e-4 / atol 5e-4; sum_xx rtol 1e-3 / atol 5e-3.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import algorithms, expfam, gmm, network, refperm
+from repro_torch.data import synthetic
+from repro_torch.kernels import gmm_estep as ge
+from repro_torch.kernels import ops
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode (its "
+                    "plain version is tested in test_torch_gmm_estep.py)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _args(N, T, K, D, dev, seed=0, dtype=torch.float32):
+    g = np.random.default_rng(seed)
+    x = g.normal(size=(N, T, D)) * 2
+    mask = (g.random((N, T)) > 0.2).astype(float)
+    A = g.normal(size=(N, K, D, D)) * 0.3
+    Wn = np.einsum("nkij,nklj->nkil", A, A) + np.eye(D)
+    terms = [g.normal(size=(N, K)), Wn, g.normal(size=(N, K, D)),
+             g.uniform(1, 3, (N, K))]
+    f = lambda a, dt=torch.float32: torch.tensor(a, dtype=dt, device=dev)
+    return (f(x, dtype), f(mask, dtype), *map(f, terms))
+
+
+def _check(got, want):
+    r, R, sx, sxx = got
+    rr, RR, sxr, sxxr = want
+    if r is not None:
+        torch.testing.assert_close(r, rr, rtol=0, atol=2e-5)
+    torch.testing.assert_close(R, RR, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(sx, sxr, rtol=1e-4, atol=5e-4)
+    torch.testing.assert_close(sxx, sxxr, rtol=1e-3, atol=5e-3)
+
+
+@pytest.mark.parametrize("N,T,K,D", [
+    (1, 100, 3, 2), (1, 257, 4, 5), (1, 64, 2, 8), (1, 500, 6, 3),
+    (4, 300, 32, 3), (64, 4096, 3, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("return_r", [True, False])
+@pytest.mark.parametrize("centred", [False, True])
+def test_kernel_matches_plain(cuda, N, T, K, D, dtype, return_r, centred):
+    a = _args(N, T, K, D, cuda, seed=T, dtype=dtype)
+    shift = (torch.randn(N, K, D, device=cuda, generator=torch.Generator(
+        cuda).manual_seed(T)) if centred else None)
+    got = ops.gmm_estep_nodes(*a, 3.0, shift=shift, return_r=return_r)
+    want = ge.gmm_estep_nodes_plain(*a, 3.0, shift=shift,
+                                    return_r=return_r)
+    torch.cuda.synchronize()
+    assert (got[0] is None) == (not return_r)
+    _check(got, want)
+
+
+@pytest.mark.parametrize("centred", [False, True])
+def test_bit_invariance_and_determinism(cuda, centred):
+    x, mask, *terms = _args(16, 1000, 3, 2, cuda, seed=1)
+    shift = torch.full((16, 3, 2), 1.5, device=cuda) if centred else None
+    kw = dict(shift=shift, return_r=False)
+    base = ops.gmm_estep_nodes(x, mask, *terms, 7.0, **kw)
+    again = ops.gmm_estep_nodes(x, mask, *terms, 7.0, **kw)
+    for pad in (1, 24, 3000):
+        xp = torch.cat([x, x.new_zeros(16, pad, 2)], 1)
+        mp = torch.cat([mask, mask.new_zeros(16, pad)], 1)
+        got = ops.gmm_estep_nodes(xp, mp, *terms, 7.0, **kw)
+        for g, w in zip(got[1:], base[1:]):
+            assert torch.equal(g, w)
+    for g, w in zip(again[1:], base[1:]):
+        assert torch.equal(g, w)
+
+
+def test_large_shared_memory_opt_in(cuda):
+    """K=200, D=8 needs ~200 KB of shared memory: above the 48 KB default,
+    so the launch opts in; the result still matches."""
+    a = _args(2, 300, 200, 8, cuda, seed=3)
+    assert ge.smem_bytes(200, 8, 512) > 48 * 1024
+    _check(ops.gmm_estep_nodes(*a), ge.gmm_estep_nodes_plain(*a))
+
+
+def test_launch_counter_and_engine_parity(cuda):
+    """A fused run launches the kernel once per iteration and matches the
+    reference backend's KL trajectory at rtol 1e-4 (f32)."""
+    K, D, N = 3, 2, 20
+    data = synthetic.paper_synthetic(n_nodes=N, n_per_node=200, seed=2,
+                                     dtype=np.float32)
+    prior = expfam.noninformative_prior(K, D, beta0=0.1, w0_scale=10.0,
+                                        dtype=torch.float32)
+    adj, _ = network.random_geometric_graph(N, seed=4)
+    W = network.nearest_neighbor_weights(adj).float()
+    ref = refperm.permuted_refs(gmm.ground_truth_posterior(
+        *data.flat, prior, K))
+    x, mask = data.x.to(cuda), data.mask.to(cuda)
+    runs = {}
+    for backend in ("fused", "reference"):
+        before = ops.gmm_estep_nodes.launches
+        runs[backend] = algorithms.run_dsvb(
+            x, mask, W, prior, n_iters=12, K=K, D=D, ref_phi=ref,
+            backend=backend)
+        launched = ops.gmm_estep_nodes.launches - before
+        assert launched == (12 if backend == "fused" else 0)
+    torch.testing.assert_close(runs["fused"].kl_mean,
+                               runs["reference"].kl_mean, rtol=1e-4,
+                               atol=1e-4)
