@@ -25,10 +25,22 @@ never JAX or the JAX package, and prints one JSON line per phase:
    (fused kernel) against CPU (plain version);
 6. profile — device-busy time by kernel over ten fused dSVB iterations
    against the host wall clock (torch.profiler);
+7. lm_kernel_vs_plain — flash_attention and ssd_scan against their plain
+   versions (and flash against scaled_dot_product_attention) at the
+   tests/test_kernels.py shapes, the causality case and the full-width
+   prefill shapes; two launches on the same inputs bit-identical;
+8. lm_serve_yi_6b / lm_serve_mamba2_370m — the LM serving path
+   (Engine.generate with the kernels) for the published configs at full
+   width and depth in bf16: 4 requests of 2048-token prompts, 32 greedy
+   tokens; one kernel launch per layer; the last-position logits against
+   the non-kernel path; at depth 4 in f32, logits at rtol 1e-3 and the
+   first 8 greedy tokens equal; prefill ms, ms per decode step, tokens/s,
+   the kernel's ms against its bound and the library's, peak memory;
 
-then the kernels line and, last, {"ok": true, "device": {...}}.  Any
-failure raises and exits non-zero before the last line.  Without a card
-it fails at once.
+then the kernels line, the card's name and power limit and, last,
+{"ok": true, "device": {...}}.  Each path runs with every launch count set
+to 0 just before it and read just after.  Any failure raises and exits
+non-zero before the last line.  Without a card it fails at once.
 """
 from __future__ import annotations
 
@@ -45,6 +57,7 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.configs.gmm_sensor import GMMSensorConfig  # noqa: E402
 from repro_torch.core import algorithms, expfam, gmm, network  # noqa: E402
 from repro_torch.core import refperm  # noqa: E402
@@ -52,11 +65,18 @@ from repro_torch.core.engine import kl_to_reference  # noqa: E402
 from repro_torch.core.model import GMMModel  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.kernels import build, gmm_estep, ops  # noqa: E402
+from repro_torch.kernels import flash_attention, ssd_scan  # noqa: E402
+from repro_torch.models import mamba2  # noqa: E402
+from repro_torch.models import model as lm_model  # noqa: E402
+from repro_torch.serving import admission, engine  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, f32 outside the
-# tensor cores
+# tensor cores, bf16 on the tensor cores (dense)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+PEAK_BF16_FLOP_PER_S = 989e12
+
+KERNELS = ("gmm_estep", "flash_attention", "ssd_scan")
 
 # The main path: the paper's experiment at deployment size (ISSUE/PERF.md)
 N_NODES, N_PER_NODE, SEED = 1000, 4096, 0
@@ -65,6 +85,18 @@ ITERS = {"cvb": 50, "noncoop": 50, "nsg_dvb": 50, "dsvb": 200,
 # tests/test_kernels.py tolerances: r, R, sum_x, sum_xx
 TOL = {"r": (0.0, 2e-5), "R": (1e-4, 1e-4), "sum_x": (1e-4, 5e-4),
        "sum_xx": (1e-3, 5e-3)}
+
+
+def zero_launches():
+    """Set every kernel's launch count to 0 (just before a path runs)."""
+    for fn in (ops.gmm_estep_nodes, ops.flash_attention, ops.ssd_scan):
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {"gmm_estep_nodes": ops.gmm_estep_nodes.launches,
+            "flash_attention": ops.flash_attention.launches,
+            "ssd_scan": ops.ssd_scan.launches}
 
 
 def emit(phase: str, **fields):
@@ -135,14 +167,18 @@ def phase_device() -> dict:
 # ---------------------------------------------------------------------------
 def _ptxas_table(report: str) -> list:
     """ptxas -v's registers / spills / shared memory per kernel instance
-    (gmm_estep_nodes_kernel<D, x dtype>)."""
+    (gmm_estep_nodes_kernel<D, x dtype>, flash_attention_kernel<hd,
+    dtype>, ssd_scan_kernel<dtype>)."""
     rows, cur = [], None
     for ln in report.splitlines():
-        m = re.search(r"Compiling entry function '.*?kernelILi(\d+)E(\w+?)E",
-                      ln)
+        m = re.search(r"Compiling entry function '.*?(gmm_estep_nodes|"
+                      r"flash_attention|ssd_scan)_kernelI(?:Li(\d+)E)?"
+                      r"(\w+?)E", ln)
         if m:
-            cur = {"D": int(m.group(1)),
-                   "x": "bf16" if "bfloat16" in m.group(2) else "f32"}
+            cur = {"x": "bf16" if "bfloat16" in m.group(3) else "f32"}
+            if m.group(2):
+                cur["D" if m.group(1) == "gmm_estep_nodes" else "hd"] = int(
+                    m.group(2))
             rows.append(cur)
         elif cur is not None:
             for key, pat in (("registers", r"Used (\d+) registers"),
@@ -156,10 +192,16 @@ def _ptxas_table(report: str) -> list:
 
 
 def phase_build():
-    built = build.build("gmm_estep", force=True)
-    emit("build", kernel="gmm_estep", seconds=round(built.seconds, 3),
-         library=os.path.relpath(built.path, HERE),
-         ptxas=_ptxas_table(built.report))
+    """Every kernel from its source: one nvcc process each, all started
+    together."""
+    t0 = time.perf_counter()
+    built = build.build_all(KERNELS, force=True)
+    wall = time.perf_counter() - t0
+    for name in KERNELS:
+        emit("build", kernel=name, seconds=round(built[name].seconds, 3),
+             library=os.path.relpath(built[name].path, HERE),
+             ptxas=_ptxas_table(built[name].report))
+    emit("build_all", kernels=list(KERNELS), wall_seconds=round(wall, 3))
 
 
 # ---------------------------------------------------------------------------
@@ -306,7 +348,7 @@ def phase_main_path(inst, dev) -> dict:
     _estimate("cvb", *inst, "fused", 2, dev)
     torch.cuda.synchronize()
     results, ms_per_iter = {}, {}
-    ops.gmm_estep_nodes.launches = 0              # the main path's window
+    zero_launches()                               # the main path's window
     for name, n_iters in ITERS.items():
         before = ops.gmm_estep_nodes.launches
         torch.cuda.synchronize()
@@ -432,30 +474,451 @@ def phase_small_vs_cpu(dev):
 # ---------------------------------------------------------------------------
 # 6. where an iteration's time goes (torch.profiler, device activity)
 # ---------------------------------------------------------------------------
-def phase_profile(inst, dev, n_iters: int = 10):
-    """Trace `n_iters` fused dSVB iterations: device-busy time by kernel
-    against the host wall clock (the profiler's own overhead inflates the
-    wall time, so the idle share is an upper bound)."""
+def profile_window(fn) -> dict:
+    """Trace fn() (then a synchronize): device-busy time by kernel against
+    the host wall clock (the profiler's own overhead inflates the wall
+    time, so the idle share is an upper bound).  Only device-side events
+    count (kernels, copies, sets): a host op such as aten::mm reports its
+    kernels' time as its own device time too, and CUPTI's "Command Buffer
+    Full" marks the host waiting on a full launch queue, not device
+    work."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    _estimate("dsvb", *inst, "fused", 2, dev)
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _estimate("dsvb", *inst, "fused", n_iters, dev)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.key_averages()
-              if e.self_device_time_total > 0]
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0
+              and e.key != "Command Buffer Full"]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     top = sorted(events, key=lambda e: e.self_device_time_total,
                  reverse=True)[:8]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "kernels_launched": sum(e.count for e in events),
+            "top": [{"name": e.key[:80],
+                     "device_ms": e.self_device_time_total / 1e3,
+                     "count": e.count} for e in top]}
+
+
+def phase_profile(inst, dev, n_iters: int = 10):
+    """Trace `n_iters` fused dSVB iterations (`profile_window`)."""
+    _estimate("dsvb", *inst, "fused", 2, dev)
+    torch.cuda.synchronize()
     emit("profile", estimator="dsvb", backend="fused", n_iters=n_iters,
-         wall_ms=wall_ms, device_busy_ms=busy_ms,
-         device_idle_share=1.0 - busy_ms / wall_ms,
-         kernels_launched=sum(e.count for e in events),
-         top=[{"name": e.key[:80], "device_ms": e.self_device_time_total
-               / 1e3, "count": e.count} for e in top])
+         **profile_window(lambda: _estimate("dsvb", *inst, "fused", n_iters,
+                                            dev)))
+
+
+# ---------------------------------------------------------------------------
+# 7. the LM kernels against their plain versions
+# ---------------------------------------------------------------------------
+# the LM serving path: 4 requests, 2048-token prompts, 32 greedy tokens
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32
+# decode steps traced by the profiler after the timed ones
+LM_PROFILE_STEPS = 4
+# tests/test_kernels.py tolerances: flash by dtype; ssd at the sweep
+# shapes (unit-scale outputs).  At Mamba-2's full prefill shape no absolute
+# bar follows from those: |y| reaches tens, and the plain version's gates
+# exp(cum_l - cum_l') take the difference of cumsums over its 256-step
+# chunk, ~|cum| eps_f32 relative (the kernel's 64-step chunk is better
+# conditioned).  There both are measured against an f64 evaluation of the
+# same inputs (mamba2.ssd_chunked in float64): the kernel's max abs error,
+# for y and for the state, must be at most twice the plain version's.
+FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+SSD_ATOL = 5e-5
+SSD_VS_PLAIN = 2.0
+# bf16: the kernel path and the non-kernel path round attention (or the
+# SSD scan) differently (the kernels keep P and the sums in f32 and round
+# the output once; the plain path rounds the softmax weights, the intra
+# products and y_inter to bf16), and the difference compounds over 32-48
+# residual layers into percents of the logits (a CPU run of the smoke
+# widths at full depth: 2% for 32 attention layers, 5% for 48 SSD layers).
+# No fixed bar follows from that, so both bf16 paths are measured against
+# an f32 evaluation of the same weights (non-kernel path): the kernel
+# path's relative L2 error of the last-position logits must be at most
+# twice the non-kernel path's.  The tight check is the f32 one (rtol 1e-3).
+LM_BF16_VS_PLAIN = 2.0
+
+
+def _flash_bound(B, S, Hq, Hkv, hd, window, elem):
+    """(bound ms, by, flops, bytes) of one flash launch: the keys each
+    query row reaches (causal, within the window), 4 hd flops per (row,
+    key) (QK^T and PV); q, k, v read once, o written once."""
+    i = np.arange(S)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros_like(i)
+    flops = 4 * B * Hq * hd * int((i - lo + 1).sum())
+    n_bytes = elem * (2 * B * S * Hq * hd + 2 * B * S * Hkv * hd)
+    peak = PEAK_BF16_FLOP_PER_S if elem == 2 else PEAK_F32_FLOP_PER_S
+    bound = {"bytes": n_bytes / PEAK_BYTES_PER_S * 1e3,
+             "operations": flops / peak * 1e3}
+    by = max(bound, key=bound.get)
+    return bound[by], by, flops, n_bytes
+
+
+def _ssd_bound(B, S, H, P, N, elem):
+    """(bound ms, by, flops, bytes) of one ssd_scan launch at the kernel's
+    own chunk L: per chunk and head, the causal half of C B^T (N each) and
+    of the intra product (P each), C state and B^T x (N P each); x, Bm,
+    Cm, dt, A read once, y and the final f32 state written once."""
+    L = ssd_scan.KERNEL_CHUNK
+    tri = L * (L + 1) // 2
+    flops = B * H * (-(-S // L)) * 2 * (tri * N + tri * P + 2 * L * N * P)
+    n_bytes = (elem * (2 * B * S * H * P + 2 * B * S * N) + 4 * B * S * H
+               + 4 * H + 4 * B * H * P * N)
+    peak = PEAK_BF16_FLOP_PER_S if elem == 2 else PEAK_F32_FLOP_PER_S
+    bound = {"bytes": n_bytes / PEAK_BYTES_PER_S * 1e3,
+             "operations": flops / peak * 1e3}
+    by = max(bound, key=bound.get)
+    return bound[by], by, flops, n_bytes
+
+
+def _sdpa(q, k, v, window=0):
+    """torch's scaled_dot_product_attention on the (B, S, H, hd) layout,
+    k/v repeated to the query heads first (the library yardstick and the
+    second oracle; never on the port's path)."""
+    g = q.shape[2] // k.shape[2]
+    kr, vr = (torch.repeat_interleave(a, g, dim=2).transpose(1, 2)
+              for a in (k, v))
+    if window:
+        S = q.shape[1]
+        i = torch.arange(S, device=q.device)[:, None]
+        j = torch.arange(S, device=q.device)[None, :]
+        out = torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), kr, vr, attn_mask=(j <= i) & (j > i - window))
+    else:
+        out = torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), kr, vr, is_causal=True)
+    return out.transpose(1, 2)
+
+
+def _flash_case(B, S, Hq, Hkv, hd, dtype, window, dev, gen, k=None,
+                v=None, q=None):
+    rn = lambda *s: torch.randn(*s, generator=gen, device=dev).to(dtype)
+    q = rn(B, S, Hq, hd) if q is None else q
+    k = rn(B, S, Hkv, hd) if k is None else k
+    v = rn(B, S, Hkv, hd) if v is None else v
+    got = ops.flash_attention(q, k, v, window=window)
+    again = ops.flash_attention(q, k, v, window=window)
+    want = flash_attention.flash_attention_plain(q, k, v, window=window)
+    lib = _sdpa(q, k, v, window)
+    torch.cuda.synchronize()
+    atol = FLASH_ATOL[dtype]
+    for ref, name in ((want, "plain"), (lib, "sdpa")):
+        torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                                   atol=atol, msg=lambda m: f"{name}: {m}")
+    if not torch.equal(got, again):
+        raise AssertionError("flash_attention: two launches differ")
+    return got, {"shape": [B, S, Hq, Hkv, hd], "dtype": str(dtype)[6:],
+                 "window": window, "atol": atol,
+                 "max_abs_err": float((got.float() - want.float()).abs()
+                                      .max()),
+                 "max_abs_err_sdpa": float((got.float() - lib.float()).abs()
+                                           .max())}
+
+
+def _ssd_inputs(B, S, H, P, N, dtype, dev, gen):
+    rn = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    return (rn(B, S, H, P).to(dtype),
+            torch.nn.functional.softplus(rn(B, S, H)),
+            -torch.exp(rn(H) * 0.5), (rn(B, S, N) * 0.3).to(dtype),
+            (rn(B, S, N) * 0.3).to(dtype))
+
+
+def _ssd_case(B, S, H, P, N, chunk, dtype, dev, gen, full=False):
+    """The kernel against its plain version: at atol SSD_ATOL, or (`full`)
+    both against an f64 evaluation, the kernel's error within SSD_VS_PLAIN
+    times the plain version's."""
+    args = _ssd_inputs(B, S, H, P, N, dtype, dev, gen)
+    y, h = ops.ssd_scan(*args, chunk=chunk)
+    y2, h2 = ops.ssd_scan(*args, chunk=chunk)
+    yp, hp = ssd_scan.ssd_scan_plain(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    if not (torch.equal(y, y2) and torch.equal(h, h2)):
+        raise AssertionError("ssd_scan: two launches differ")
+    case = {"shape": [B, S, H, P, N], "chunk": chunk,
+            "dtype": str(dtype)[6:],
+            "max_abs_err": float(max((y.float() - yp.float()).abs().max(),
+                                     (h - hp).abs().max())),
+            "max_abs_y": float(yp.float().abs().max())}
+    if not full:
+        for name, g, w in (("y", y, yp), ("state", h, hp)):
+            torch.testing.assert_close(g.float(), w.float(), rtol=0,
+                                       atol=SSD_ATOL,
+                                       msg=lambda m: f"ssd {name}: {m}")
+        case["atol"] = SSD_ATOL
+        return case
+    y64, h64 = mamba2.ssd_chunked(*(a.double() for a in args), chunk)
+    for name, g, w, ref in (("y", y, yp, y64), ("state", h, hp, h64)):
+        err_k = float((g.double() - ref).abs().max())
+        err_p = float((w.double() - ref).abs().max())
+        case[f"{name}_err_vs_f64"] = {"kernel": err_k, "plain": err_p}
+        if err_k > SSD_VS_PLAIN * err_p:
+            raise AssertionError(f"ssd {name} at {case['shape']} "
+                                 f"{case['dtype']}: kernel error vs f64 "
+                                 f"{err_k} > {SSD_VS_PLAIN} x plain {err_p}")
+    case["bar_ratio_vs_plain"] = SSD_VS_PLAIN
+    return case
+
+
+def phase_lm_kernel_vs_plain(dev) -> dict:
+    gen = torch.Generator(dev).manual_seed(0)
+    flash = []
+    for B, S, Hq, Hkv, hd in ((2, 64, 4, 2, 32), (1, 128, 2, 1, 64),
+                              (2, 96, 4, 4, 16), (1, 256, 8, 2, 128)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for window in (0, 32):
+                flash.append(_flash_case(B, S, Hq, Hkv, hd, dtype, window,
+                                         dev, gen)[1])
+    # causality: keys and values past S/2 do not move the first half
+    q, k, v = (torch.randn(1, 64, 2, 32, generator=gen, device=dev)
+               for _ in range(3))
+    out1 = _flash_case(1, 64, 2, 2, 32, torch.float32, 0, dev, gen, k, v,
+                       q)[0]
+    k2, v2 = k.clone(), v.clone()
+    k2[:, 32:], v2[:, 32:] = 99.0, -99.0
+    out2 = ops.flash_attention(q, k2, v2)
+    torch.testing.assert_close(out1[:, :32], out2[:, :32], rtol=0,
+                               atol=1e-5)
+    causality = float((out1[:, :32] - out2[:, :32]).abs().max())
+    # the Yi-6B prefill shape
+    main = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        case = _flash_case(LM_BATCH, LM_PROMPT, 32, 4, 128, dtype, 0, dev,
+                           gen)[1]
+        flash.append(case)
+        main[dtype] = case["max_abs_err"]
+    ssd = [_ssd_case(*shape, torch.float32, dev, gen)
+           for shape in ((2, 64, 4, 16, 8, 16), (1, 128, 2, 32, 16, 32),
+                         (2, 64, 2, 8, 4, 64), (1, 96, 3, 16, 8, 32))]
+    ssd_main = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        case = _ssd_case(LM_BATCH, LM_PROMPT, 32, 64, 128, 256, dtype, dev,
+                         gen, full=True)
+        ssd.append(case)
+        ssd_main[dtype] = case["max_abs_err"]
+    emit("lm_kernel_vs_plain", flash_attention=flash,
+         causality_max_abs_diff=causality, ssd_scan=ssd,
+         launches_bit_equal=True)
+    return {"flash_attention": main[torch.bfloat16],
+            "ssd_scan": ssd_main[torch.bfloat16]}
+
+
+# ---------------------------------------------------------------------------
+# 8. the LM serving path at full width
+# ---------------------------------------------------------------------------
+def _requests(cfg, n_new, seed=0):
+    rng = np.random.default_rng(seed)
+    return [engine.Request(rng.integers(0, cfg.vocab_size, LM_PROMPT)
+                           .astype(np.int32), n_new)
+            for _ in range(LM_BATCH)]
+
+
+def _last_logits(cfg, lm, toks, use_kernels):
+    logits, _ = engine.make_prefill_step(cfg, use_kernels=use_kernels)(
+        lm, toks)
+    return logits[:, -1].float()
+
+
+def _rel_l2(a, b) -> float:
+    return float((a - b).norm() / b.norm())
+
+
+def _f32_logits(cfg, lm, toks):
+    """Last-position logits of the same weights evaluated in f32 on the
+    non-kernel path (the bf16 paths' common reference)."""
+    c32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    lm32 = lm_model.LM(c32, device=toks.device, init=False)
+    with torch.no_grad():
+        for p32, p in zip(lm32.parameters(), lm.parameters()):
+            p32.copy_(p)
+    with torch.inference_mode():
+        out = _last_logits(c32, lm32, toks, False)
+    del lm32
+    torch.cuda.empty_cache()
+    return out
+
+
+def _f32_depth4(cfg, dev) -> dict:
+    """The published widths at depth 4 in f32: kernel path against the
+    non-kernel path, last-position logits at rtol 1e-3 and the first 8
+    greedy tokens equal."""
+    c4 = cfg.replace(n_layers=4, param_dtype="float32",
+                     compute_dtype="float32")
+    lm = lm_model.init_params(c4, torch.Generator(dev).manual_seed(1),
+                              device=dev)
+    reqs = _requests(c4, 8, seed=1)
+    toks = torch.as_tensor(admission.right_aligned_batch(
+        [r.prompt for r in reqs]), dtype=torch.int64, device=dev)
+    with torch.inference_mode():
+        got = _last_logits(c4, lm, toks, True)
+        want = _last_logits(c4, lm, toks, False)
+    # rtol 1e-3 per logit; logits near zero are held to 1e-3 of the
+    # logits' RMS (an absolute floor on the scale of the vector)
+    atol = 1e-3 * float(want.pow(2).mean().sqrt())
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=atol)
+    outs = [engine.Engine(c4, lm, max_seq=LM_PROMPT + 8, use_kernels=uk,
+                          device=dev).generate(reqs) for uk in (True, False)]
+    same = all(np.array_equal(a, b) for a, b in zip(*outs))
+    if not same:
+        raise AssertionError(f"{cfg.name} depth 4 f32: greedy tokens of "
+                             f"the kernel and non-kernel paths differ")
+    return {"layers": 4, "dtype": "float32", "logits_rtol": 1e-3,
+            "logits_atol": atol,
+            "max_abs_diff": float((got - want).abs().max()),
+            "rel_l2": _rel_l2(got, want), "greedy_8_equal": same}
+
+
+def phase_lm_serve(arch: str, kernel: str, dev) -> dict:
+    """The port's LM serving path for a published config at full width
+    and depth (bf16): Engine.generate with the kernels, launch counts
+    around it, then its timings and the non-kernel comparison."""
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    lm = lm_model.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                              device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    reqs = _requests(cfg, LM_NEW)
+    # warm-up outside the window (library handles, the kernels' load)
+    engine.Engine(cfg, lm, max_seq=64 + 2, use_kernels=True,
+                  device=dev).generate([engine.Request(r.prompt[:64], 2)
+                                        for r in reqs])
+    eng = engine.Engine(cfg, lm, max_seq=LM_PROMPT + LM_NEW,
+                        use_kernels=True, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()                               # the path's window
+    t0 = time.perf_counter()
+    outs = eng.generate(reqs)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = read_launches()                    # read just after
+    peak = torch.cuda.max_memory_allocated()
+    st = eng.stats()
+    ok_tokens = all(o.shape == (LM_PROMPT + LM_NEW,) and o.min() >= 0
+                    and o.max() < cfg.vocab_size for o in outs)
+    want = {k: 0 for k in launches}
+    want[kernel] = cfg.n_layers
+    if launches != want or st.slices != LM_NEW or not ok_tokens:
+        raise AssertionError(f"{arch}: launches {launches} (want {want}), "
+                             f"{st.slices} decode steps, tokens ok "
+                             f"{ok_tokens}")
+
+    # prefill alone, then LM_NEW decode steps on its cache (host clock,
+    # synchronised; each step ends in the host read of its token, as in
+    # the engine)
+    toks = torch.as_tensor(admission.right_aligned_batch(
+        [r.prompt for r in reqs]), dtype=torch.int64, device=dev)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = engine.make_prefill_step(cfg, use_kernels=True)(
+            lm, toks)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        finite = bool(torch.isfinite(logits).all())
+        got = logits[:, -1].float()
+        end = LM_PROMPT + LM_NEW
+        state = {"cache": engine._splice_cache(cfg, lm_model.init_cache(
+            cfg, LM_BATCH, end + LM_PROFILE_STEPS, torch.float32,
+            device=dev), cache, LM_PROMPT),
+            "cur": engine._sample(logits, 0.0, None)}
+        del cache, logits
+        decode = engine.make_decode_step(cfg)
+
+        def steps(first, last):
+            for t in range(first, last):
+                out, state["cache"] = decode(lm, state["cur"],
+                                             state["cache"], t)
+                state["cur"] = engine._sample(out, 0.0, None)
+                state["cur"].cpu()
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps(LM_PROMPT, end)
+        decode_ms = (time.perf_counter() - t0) * 1e3 / LM_NEW
+        prof_decode = profile_window(
+            lambda: steps(end, end + LM_PROFILE_STEPS))
+        del state
+        prof_prefill = profile_window(lambda: engine.make_prefill_step(
+            cfg, use_kernels=True)(lm, toks))
+        want_logits = _last_logits(cfg, lm, toks, False)
+    ref = _f32_logits(cfg, lm, toks)
+    if not finite:
+        raise AssertionError(f"{arch}: non-finite prefill logits")
+    bf16 = {"rel_l2_kernel_vs_plain": _rel_l2(got, want_logits),
+            "rel_l2_kernel_vs_f32": _rel_l2(got, ref),
+            "rel_l2_plain_vs_f32": _rel_l2(want_logits, ref),
+            "bar_ratio": LM_BF16_VS_PLAIN,
+            "argmax_equal_share": float((got.argmax(-1) == want_logits
+                                         .argmax(-1)).float().mean())}
+    if bf16["rel_l2_kernel_vs_f32"] > (LM_BF16_VS_PLAIN
+                                       * bf16["rel_l2_plain_vs_f32"]):
+        raise AssertionError(f"{arch}: bf16 kernel path less accurate than "
+                             f"the non-kernel path: {bf16}")
+    del lm, want_logits, got, ref
+    torch.cuda.empty_cache()
+    f32 = _f32_depth4(cfg, dev)
+    torch.cuda.empty_cache()
+    return {"arch": arch, "layers": cfg.n_layers, "dtype": cfg.param_dtype,
+            "batch": LM_BATCH, "prompt": LM_PROMPT, "new_tokens": LM_NEW,
+            "init_s": init_s, "launches": launches,
+            "decode_steps": st.slices, "finite": finite,
+            "generate_s": gen_s,
+            "generate_tokens_per_s": LM_BATCH * LM_NEW / gen_s,
+            "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+            "decode_tokens_per_s": LM_BATCH / decode_ms * 1e3,
+            "profile_prefill": prof_prefill,
+            "profile_decode": {"steps": LM_PROFILE_STEPS, **prof_decode},
+            "max_memory_allocated": peak,
+            "vs_non_kernel_bf16": bf16,
+            "f32_depth4": f32}
+
+
+def _time_flash(dev) -> dict:
+    """flash_attention at the Yi-6B prefill shape: the kernel (CUDA events
+    after a warm-up), its plain version and SDPA, beside the bound."""
+    gen = torch.Generator(dev).manual_seed(2)
+    shape = (LM_BATCH, LM_PROMPT, 32, 4, 128)
+    B, S, Hq, Hkv, hd = shape
+    q, k, v = (torch.randn(B, S, h, hd, generator=gen, device=dev)
+               .to(torch.bfloat16) for h in (Hq, Hkv, Hkv))
+    ms = time_ms(lambda: ops.flash_attention(q, k, v), 10)
+    plain_ms = time_ms(lambda: flash_attention.flash_attention_plain(
+        q, k, v), 3)
+    g = Hq // Hkv
+    kr, vr = (torch.repeat_interleave(a, g, dim=2).transpose(1, 2)
+              for a in (k, v))
+    qt = q.transpose(1, 2)
+    library_ms = time_ms(lambda: torch.nn.functional
+                         .scaled_dot_product_attention(qt, kr, vr,
+                                                       is_causal=True), 10)
+    bound, by, flops, n_bytes = _flash_bound(*shape, 0, 2)
+    return {"shape": list(shape), "dtype": "bfloat16", "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound, "bound_by": by, "flops": flops,
+            "bytes": n_bytes, "achieved_TFLOPs": flops / ms / 1e9}
+
+
+def _time_ssd(dev) -> dict:
+    """ssd_scan at the Mamba-2 370M prefill shape (bf16 x): the kernel
+    (CUDA events after a warm-up) and its plain version, beside the
+    bound.  No single PyTorch call computes the SSD scan."""
+    gen = torch.Generator(dev).manual_seed(3)
+    shape = (LM_BATCH, LM_PROMPT, 32, 64, 128)
+    args = _ssd_inputs(*shape, torch.bfloat16, dev, gen)
+    ms = time_ms(lambda: ops.ssd_scan(*args, chunk=256), 10)
+    plain_ms = time_ms(lambda: ssd_scan.ssd_scan_plain(*args, chunk=256), 3)
+    bound, by, flops, n_bytes = _ssd_bound(*shape, 2)
+    return {"shape": list(shape), "dtype": "bfloat16", "chunk": 256,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": bound, "bound_by": by, "flops": flops,
+            "bytes": n_bytes, "achieved_GBps": n_bytes / ms / 1e6}
 
 
 def main():
@@ -474,6 +937,19 @@ def main():
     mp = phase_main_path(inst, dev)
     phase_small_vs_cpu(dev)
     phase_profile(inst, dev)
+    del inst, x, mask
+    torch.cuda.empty_cache()
+
+    lm_err = phase_lm_kernel_vs_plain(dev)
+    yi = phase_lm_serve("yi_6b", "flash_attention", dev)
+    yi["flash_attention"] = fa = _time_flash(dev)
+    yi["flash_share_of_prefill"] = yi["layers"] * fa["ms"] / yi["prefill_ms"]
+    emit("lm_serve_yi_6b", **yi)
+    mb = phase_lm_serve("mamba2_370m", "ssd_scan", dev)
+    mb["ssd_scan"] = sd = _time_ssd(dev)
+    mb["ssd_share_of_prefill"] = mb["layers"] * sd["ms"] / mb["prefill_ms"]
+    emit("lm_serve_mamba2_370m", **mb)
+
     print(json.dumps({"kernels": [{
         "name": "gmm_estep_nodes", "route": "cuda",
         "source": "src/repro_torch/csrc/gmm_estep.cu",
@@ -481,7 +957,23 @@ def main():
         "launches": mp["launches"], "max_abs_err": mp["max_abs_err"],
         "max_err": mp["max_abs_err"], "ms": mp["ms"],
         "plain_ms": mp["plain_ms"], "bound_ms": mp["bound_ms"],
-        "bound_by": mp["bound_by"], "library_ms": None}]}), flush=True)
+        "bound_by": mp["bound_by"], "library_ms": None}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:84",
+        "launches": yi["launches"]["flash_attention"],
+        "max_abs_err": lm_err["flash_attention"],
+        "max_err": lm_err["flash_attention"], "ms": fa["ms"],
+        "plain_ms": fa["plain_ms"], "bound_ms": fa["bound_ms"],
+        "bound_by": fa["bound_by"], "library_ms": fa["library_ms"]}, {
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:74",
+        "launches": mb["launches"]["ssd_scan"],
+        "max_abs_err": lm_err["ssd_scan"], "max_err": lm_err["ssd_scan"],
+        "ms": sd["ms"], "plain_ms": sd["plain_ms"],
+        "bound_ms": sd["bound_ms"], "bound_by": sd["bound_by"],
+        "library_ms": None}]}), flush=True)
     print(dev_info["smi"], flush=True)
     print(json.dumps({"ok": True, "device": dev_info["info"]}), flush=True)
 

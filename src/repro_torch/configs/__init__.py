@@ -1,0 +1,4 @@
+from repro_torch.configs.base import (  # noqa: F401
+    ARCH_IDS, INPUT_SHAPES, ModelConfig, ShapeConfig, all_configs,
+    get_config, get_smoke_config,
+)

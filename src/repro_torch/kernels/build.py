@@ -8,6 +8,7 @@ imported, and nothing outside the repository's sources goes into a build.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -64,6 +65,14 @@ def build(name: str, *, force: bool = False) -> Built:
                            f"{' '.join(cmd)}\n{report}")
     os.replace(tmp, out)
     return Built(out, seconds, report)
+
+
+def build_all(names, *, force: bool = False) -> dict[str, Built]:
+    """Build several kernels at once: one nvcc process per source, all
+    started together.  Returns {name: Built}; raises the first failure."""
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        futures = {n: pool.submit(build, n, force=force) for n in names}
+        return {n: f.result() for n, f in futures.items()}
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,0 +1,141 @@
+"""Blocked online-softmax (flash) attention with the GQA head index.
+
+Port of `repro.kernels.flash_attention` together with the GQA wrapper of
+`repro.kernels.ops.flash_attention`: q (B, S, Hq, hd), k/v (B, S, Hkv, hd)
+-> (B, S, Hq, hd) in q's dtype, with causal and sliding-`window` masks.  On
+the card it runs as one hand-written CUDA kernel
+(`csrc/flash_attention.cu`); its design and bound are in the source's
+header note.  The kernel reads kv head `hq // (Hq / Hkv)` for query head
+`hq`: the GQA repeat is an index, never a copy.
+
+`flash_attention` is the wrapper: it validates the inputs, then launches
+the kernel for CUDA tensors and runs the plain PyTorch version
+(`flash_attention_plain`, materialised f32 logits) for CPU tensors.
+Nothing falls back: a CUDA tensor launches the kernel or raises.
+`flash_attention.launches` counts the kernel launches.
+
+Contracts, shared by the kernel and the plain version:
+* f32 or bf16 in and out (q, k, v one dtype); logits, softmax and the
+  accumulator in f32.
+* A masked logit is -1e30 (not -inf) and the normaliser is
+  max(l, 1e-30), as in the TPU kernel, so a row with nothing unmasked
+  gives zeros, not NaN.
+* Two launches on the same inputs are bit-identical (no atomics).
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+#: head dims the kernel is instantiated for (tests/test_kernels.py's sweep
+#: and Yi-6B's 128)
+HEAD_DIMS = (16, 32, 64, 128)
+#: query rows per block and keys per tile (kBQ, kBK in the source)
+BLOCK_Q = BLOCK_K = 64
+#: shared memory a block may use on Hopper
+MAX_SMEM_BYTES = 227 * 1024
+NEG_INF = -1e30
+
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _lib():
+    from repro_torch.kernels import build
+    fn = build.load("flash_attention").flash_attention_launch
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def smem_bytes(hd: int) -> int:
+    """Dynamic shared memory of one block: Q and K tiles transposed
+    (strides BLOCK_Q + 4, BLOCK_K + 1), the V tile and the P tile."""
+    return 4 * (hd * (BLOCK_Q + 4) + hd * (BLOCK_K + 1) + BLOCK_K * hd
+                + BLOCK_K * (BLOCK_Q + 4))
+
+
+def _check(q, k, v, window):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"q, k, v must be (B, S, H, hd): {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, S, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    if tuple(k.shape) != (B, S, Hkv, hd) or tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"k and v must be {(B, S, Hkv, hd)}: "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if Hkv < 1 or Hq % Hkv:
+        raise ValueError(f"Hq={Hq} must be a multiple of Hkv={Hkv}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"q must be float32 or bfloat16: {q.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"k, v dtypes {k.dtype}, {v.dtype} != q's {q.dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"the kernel takes hd in {HEAD_DIMS}: hd={hd}")
+    if window < 0:
+        raise ValueError(f"window must be >= 0: {window}")
+    for name, a in (("q", q), ("k", k), ("v", v)):
+        if a.device != q.device:
+            raise ValueError(f"{name} is on {a.device}, q on {q.device}")
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if smem_bytes(hd) > MAX_SMEM_BYTES:
+        raise ValueError(f"hd={hd} needs {smem_bytes(hd)} B of shared "
+                         f"memory; a Hopper block has {MAX_SMEM_BYTES}")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """q (B, S, Hq, hd), k/v (B, S, Hkv, hd) -> (B, S, Hq, hd), logits
+    scaled by 1/sqrt(hd).
+
+    CUDA tensors launch the kernel; CPU tensors run the plain version.
+    """
+    _check(q, k, v, window)
+    B, S, Hq, hd = q.shape
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash_attention kernel for device {q.device}")
+    out = torch.empty_like(q)
+    if B * S:
+        err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     out.data_ptr(), B, S, Hq, k.shape[2], hd,
+                     int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(hd),
+                     int(causal), int(window),
+                     torch.cuda.current_stream(q.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"flash_attention kernel launch failed: "
+                               f"cudaError {err}")
+        flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The plain PyTorch version (CPU path of the wrapper; the card's oracle)
+# ---------------------------------------------------------------------------
+def flash_attention_plain(q, k, v, *, causal: bool = True,
+                          window: int = 0):
+    """The kernel's function with materialised f32 logits (the oracle
+    `repro.kernels.ref.attention`, -1e30 masking), the GQA repeat written
+    as a grouping of the query heads."""
+    B, S, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    qg = q.float().reshape(B, S, Hkv, Hq // Hkv, hd)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) / math.sqrt(hd)
+    i = torch.arange(S, device=q.device)[:, None]
+    j = torch.arange(S, device=q.device)[None, :]
+    ok = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= j <= i
+    if window > 0:
+        ok &= j > i - window
+    logits = torch.where(ok, logits, NEG_INF)
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", w, v.float())
+    return out.reshape(B, S, Hq, hd).to(q.dtype)

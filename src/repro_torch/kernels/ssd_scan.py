@@ -1,0 +1,126 @@
+"""Mamba-2 SSD chunked scan.
+
+Port of `repro.kernels.ssd_scan` (wrapper `repro.kernels.ops.ssd_scan`):
+x (B, S, H, P), dt (B, S, H), A (H,), Bm/Cm (B, S, N) -> (y (B, S, H, P),
+final state (B, H, P, N)), the scalar-decay SSM
+
+    state_t = exp(dt_t A) state_{t-1} + dt_t B_t x_t^T,   y_t = C_t . state_t
+
+computed chunk by chunk.  On the card it runs as one hand-written CUDA
+kernel (`csrc/ssd_scan.cu`); its design and bound are in the source's
+header note.
+
+`ssd_scan` is the wrapper: it validates the inputs, then launches the
+kernel for CUDA tensors and runs the plain PyTorch version
+(`ssd_scan_plain`, the chunked algorithm of `models.mamba2.ssd_chunked`)
+for CPU tensors.  Nothing falls back: a CUDA tensor launches the kernel or
+raises.  `ssd_scan.launches` counts the kernel launches.
+
+Contracts, shared by the kernel and the plain version:
+* x (and y) f32 or bf16, Bm/Cm in x's dtype, dt and A f32; everything is
+  f32 inside, y is cast to x's dtype once, the final state is f32.
+* `chunk` is the TPU kernel's schedule: S % min(chunk, S) must be 0
+  (ValueError otherwise, like the JAX wrapper's assert).  The result does
+  not depend on it, and the CUDA kernel runs its own internal chunk of
+  KERNEL_CHUNK positions.
+* Two launches on the same inputs are bit-identical (no atomics).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+#: the CUDA kernel's internal chunk (kL in the source)
+KERNEL_CHUNK = 64
+#: shared memory a block may use on Hopper
+MAX_SMEM_BYTES = 227 * 1024
+
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _lib():
+    from repro_torch.kernels import build
+    fn = build.load("ssd_scan").ssd_scan_launch
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def smem_bytes(N: int, P: int) -> int:
+    """Dynamic shared memory of one block: the state, the chunk's x, B and
+    C (odd stride N + 1), the gated L x L matrix and four L-vectors."""
+    L = KERNEL_CHUNK
+    return 4 * (N * P + L * P + 2 * L * (N + 1) + L * L + 4 * L)
+
+
+def _check(x, dt, A, Bm, Cm, chunk):
+    if x.dim() != 4:
+        raise ValueError(f"x must be (B, S, H, P): {tuple(x.shape)}")
+    B, S, H, P = x.shape
+    N = Bm.shape[-1] if Bm.dim() == 3 else -1
+    want = {"dt": (dt, (B, S, H)), "A": (A, (H,)), "Bm": (Bm, (B, S, N)),
+            "Cm": (Cm, (B, S, N))}
+    for name, (a, shape) in want.items():
+        if tuple(a.shape) != shape or N < 1:
+            raise ValueError(f"{name} must be {shape}: {tuple(a.shape)}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"x must be float32 or bfloat16: {x.dtype}")
+    for name, a, dtype in (("dt", dt, torch.float32),
+                           ("A", A, torch.float32), ("Bm", Bm, x.dtype),
+                           ("Cm", Cm, x.dtype)):
+        if a.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}: {a.dtype}")
+    for name, a in (("x", x), *((n, a) for n, (a, _) in want.items())):
+        if a.device != x.device:
+            raise ValueError(f"{name} is on {a.device}, x on {x.device}")
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    L = min(chunk, S)
+    if L < 1 or S % L:
+        raise ValueError(f"S={S} must be a multiple of the chunk {L}")
+    if smem_bytes(N, P) > MAX_SMEM_BYTES:
+        raise ValueError(f"N={N}, P={P} needs {smem_bytes(N, P)} B of "
+                         f"shared memory; a Hopper block has "
+                         f"{MAX_SMEM_BYTES}")
+
+
+def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 128):
+    """x (B,S,H,P), dt (B,S,H), A (H,), Bm/Cm (B,S,N) -> (y (B,S,H,P),
+    final_state (B,H,P,N) f32).
+
+    CUDA tensors launch the kernel; CPU tensors run the plain version.
+    """
+    _check(x, dt, A, Bm, Cm, chunk)
+    if x.device.type == "cpu":
+        return ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"no ssd_scan kernel for device {x.device}")
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    y = torch.empty_like(x)
+    h = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
+    err = _lib()(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+                 Cm.data_ptr(), y.data_ptr(), h.data_ptr(), B, S, H, P, N,
+                 int(x.dtype == torch.bfloat16),
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan kernel launch failed: cudaError {err}")
+    ssd_scan.launches += 1
+    return y, h
+
+
+ssd_scan.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The plain PyTorch version (CPU path of the wrapper; the card's oracle)
+# ---------------------------------------------------------------------------
+def ssd_scan_plain(x, dt, A, Bm, Cm, *, chunk: int = 128):
+    """The kernel's function: the chunked SSD algorithm in f32 (as the TPU
+    kernel computes it), y cast to x's dtype once."""
+    from repro_torch.models.mamba2 import ssd_chunked
+    y, h = ssd_chunked(x.float(), dt.float(), A.float(), Bm.float(),
+                       Cm.float(), chunk)
+    return y.to(x.dtype), h

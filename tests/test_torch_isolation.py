@@ -12,6 +12,9 @@ import torch
 import repro_torch
 from repro_torch.core import algorithms, backends, blocks, engine, expfam
 from repro_torch.core import model as model_lib
+from repro_torch.configs.base import get_smoke_config
+from repro_torch.models import model as lm_lib
+from repro_torch.serving import engine as lm_engine
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -19,7 +22,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_import_pulls_in_neither_jax_nor_repro():
     mods = sorted(m.name for m in pkgutil.walk_packages(
         repro_torch.__path__, "repro_torch."))
-    assert "repro_torch.kernels.gmm_estep" in mods
+    for m in ("repro_torch.kernels.gmm_estep",
+              "repro_torch.kernels.flash_attention",
+              "repro_torch.kernels.ssd_scan", "repro_torch.models.model",
+              "repro_torch.models.mamba2", "repro_torch.serving.engine",
+              "repro_torch.launch.serve", "repro_torch.configs.yi_6b"):
+        assert m in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -57,6 +65,25 @@ def test_default_device_is_cuda(monkeypatch):
     run = engine.run_vb(mdl, (x, mask), engine.FusionCenter(), n_iters=1,
                         device="cpu")
     assert run.phi.device.type == "cpu"
+
+
+def test_lm_entry_points_default_to_cuda(monkeypatch):
+    """The LM entry points (`init_params`/`LM`, `Engine`, `init_cache`)
+    raise without a card unless given device="cpu"."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke_config("yi_6b")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        lm_lib.init_params(cfg)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        lm_lib.LM(cfg)
+    params = lm_lib.init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        lm_engine.Engine(cfg, params)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        lm_lib.init_cache(cfg, 1, 8)
+    e = lm_engine.Engine(cfg, params, device="cpu", max_seq=12)
+    out = e.generate([lm_engine.Request(np.arange(4, dtype=np.int32), 2)])
+    assert out[0].shape == (6,)
 
 
 class _OtherModel(blocks.BlockModel):

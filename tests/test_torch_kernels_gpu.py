@@ -1,4 +1,4 @@
-"""The CUDA kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
 Marked `gpu`; each test takes the `cuda` fixture, which skips when there
 is no card (decided inside the fixture, never at import or collection).
@@ -6,8 +6,9 @@ On a machine with a card:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 
-Tolerances are those of tests/test_kernels.py: r atol 2e-5; R rtol 1e-4;
-sum_x rtol 1e-4 / atol 5e-4; sum_xx rtol 1e-3 / atol 5e-3.
+Tolerances are those of tests/test_kernels.py: gmm_estep r atol 2e-5;
+R rtol 1e-4; sum_x rtol 1e-4 / atol 5e-4; sum_xx rtol 1e-3 / atol 5e-3;
+flash_attention atol 2e-5 (f32) / 2e-2 (bf16); ssd_scan atol 5e-5.
 """
 import numpy as np
 import pytest
@@ -15,8 +16,10 @@ import torch
 
 from repro_torch.core import algorithms, expfam, gmm, network, refperm
 from repro_torch.data import synthetic
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gmm_estep as ge
 from repro_torch.kernels import ops
+from repro_torch.kernels import ssd_scan as ss
 
 pytestmark = pytest.mark.gpu
 
@@ -24,8 +27,9 @@ pytestmark = pytest.mark.gpu
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode (its "
-                    "plain version is tested in test_torch_gmm_estep.py)")
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode (their "
+                    "plain versions are tested in test_torch_gmm_estep.py "
+                    "and test_torch_lm_kernels.py)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
@@ -120,3 +124,48 @@ def test_launch_counter_and_engine_parity(cuda):
     torch.testing.assert_close(runs["fused"].kl_mean,
                                runs["reference"].kl_mean, rtol=1e-4,
                                atol=1e-4)
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,hd", [
+    (2, 64, 4, 2, 32), (1, 128, 2, 1, 64), (2, 96, 4, 4, 16),
+    (1, 256, 8, 2, 128), (1, 1000, 8, 1, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 32])
+def test_flash_attention_matches_plain(cuda, B, S, Hq, Hkv, hd, dtype,
+                                       window):
+    g = torch.Generator(cuda).manual_seed(S + hd)
+    q, k, v = (torch.randn(B, S, h, hd, generator=g, device=cuda).to(dtype)
+               for h in (Hq, Hkv, Hkv))
+    before = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, window=window)
+    again = ops.flash_attention(q, k, v, window=window)
+    assert ops.flash_attention.launches == before + 2
+    want = fa.flash_attention_plain(q, k, v, window=window)
+    torch.cuda.synchronize()
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk,rtol", [
+    (2, 64, 4, 16, 8, 16, 0), (1, 128, 2, 32, 16, 32, 0),
+    (2, 64, 2, 8, 4, 64, 0), (1, 96, 3, 16, 8, 32, 0),
+    # Mamba-2's P, N and chunk: |y| reaches tens, so the f32 bar is
+    # relative there (1e-5, a few ulp of accumulated rounding)
+    (1, 512, 4, 64, 128, 256, 1e-5)])
+def test_ssd_scan_matches_plain(cuda, B, S, H, P, N, chunk, rtol):
+    g = torch.Generator(cuda).manual_seed(S + P)
+    rn = lambda *s: torch.randn(*s, generator=g, device=cuda)
+    x = rn(B, S, H, P)
+    dt = torch.nn.functional.softplus(rn(B, S, H))
+    A = -torch.exp(rn(H) * 0.5)
+    Bm, Cm = rn(B, S, N) * 0.3, rn(B, S, N) * 0.3
+    before = ops.ssd_scan.launches
+    y, h = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    y2, h2 = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    assert ops.ssd_scan.launches == before + 2
+    yp, hp = ss.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, yp, rtol=rtol, atol=5e-5)
+    torch.testing.assert_close(h, hp, rtol=rtol, atol=5e-5)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
