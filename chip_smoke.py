@@ -27,15 +27,18 @@ never JAX or the JAX package, and prints one JSON line per phase:
    against the host wall clock (torch.profiler);
 7. lm_kernel_vs_plain — flash_attention and ssd_scan against their plain
    versions (and flash against scaled_dot_product_attention) at the
-   tests/test_kernels.py shapes, the causality case and the full-width
-   prefill shapes; two launches on the same inputs bit-identical;
+   tests/test_kernels.py shapes, a ragged S = 1000, the causality case and
+   the full-width prefill shapes (bf16 flash runs the tensor-core kernel,
+   f32 the CUDA-core one); two launches on the same inputs bit-identical;
 8. lm_serve_yi_6b / lm_serve_mamba2_370m — the LM serving path
    (Engine.generate with the kernels) for the published configs at full
    width and depth in bf16: 4 requests of 2048-token prompts, 32 greedy
    tokens; one kernel launch per layer; the last-position logits against
    the non-kernel path; at depth 4 in f32, logits at rtol 1e-3 and the
    first 8 greedy tokens equal; prefill ms, ms per decode step, tokens/s,
-   the kernel's ms against its bound and the library's, peak memory;
+   the kernel's ms against its bound and the library's (with its
+   TFLOP/s or GB/s and PR 12's time beside it), the port's own device
+   kernels by name in the prefill profile, peak memory;
 
 then the kernels line, the card's name and power limit and, last,
 {"ok": true, "device": {...}}.  Each path runs with every launch count set
@@ -167,18 +170,22 @@ def phase_device() -> dict:
 # ---------------------------------------------------------------------------
 def _ptxas_table(report: str) -> list:
     """ptxas -v's registers / spills / shared memory per kernel instance
-    (gmm_estep_nodes_kernel<D, x dtype>, flash_attention_kernel<hd,
-    dtype>, ssd_scan_kernel<dtype>)."""
+    (gmm_estep_nodes_kernel<D, x dtype>, flash_wgmma_kernel<hd> (bf16),
+    flash_simt_kernel<hd, f32>, ssd_states_kernel<dtype>, ssd_pass_kernel,
+    ssd_chunk_scan_kernel<dtype>)."""
     rows, cur = [], None
     for ln in report.splitlines():
-        m = re.search(r"Compiling entry function '.*?(gmm_estep_nodes|"
-                      r"flash_attention|ssd_scan)_kernelI(?:Li(\d+)E)?"
-                      r"(\w+?)E", ln)
+        m = re.search(r"Compiling entry function '.*?\d+((?:gmm_estep_nodes|"
+                      r"flash_wgmma|flash_simt|ssd_states|ssd_pass|"
+                      r"ssd_chunk_scan)_kernel)(I?)([^']*)'", ln)
         if m:
-            cur = {"x": "bf16" if "bfloat16" in m.group(3) else "f32"}
+            cur = {"kernel": m.group(1)}
             if m.group(2):
-                cur["D" if m.group(1) == "gmm_estep_nodes" else "hd"] = int(
-                    m.group(2))
+                cur["x"] = "bf16" if "bfloat16" in m.group(3) else "f32"
+                dim = re.match(r"Li(\d+)E", m.group(3))
+                if dim:
+                    cur["D" if m.group(1).startswith("gmm") else "hd"] = int(
+                        dim.group(1))
             rows.append(cur)
         elif cur is not None:
             for key, pat in (("registers", r"Used (\d+) registers"),
@@ -474,14 +481,15 @@ def phase_small_vs_cpu(dev):
 # ---------------------------------------------------------------------------
 # 6. where an iteration's time goes (torch.profiler, device activity)
 # ---------------------------------------------------------------------------
-def profile_window(fn) -> dict:
+def profile_window(fn, named=()) -> dict:
     """Trace fn() (then a synchronize): device-busy time by kernel against
     the host wall clock (the profiler's own overhead inflates the wall
     time, so the idle share is an upper bound).  Only device-side events
     count (kernels, copies, sets): a host op such as aten::mm reports its
     kernels' time as its own device time too, and CUPTI's "Command Buffer
     Full" marks the host waiting on a full launch queue, not device
-    work."""
+    work.  Kernels whose name holds one of the strings in `named` are
+    also listed on their own, whatever their rank."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -500,9 +508,14 @@ def profile_window(fn) -> dict:
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
             "kernels_launched": sum(e.count for e in events),
-            "top": [{"name": e.key[:80],
-                     "device_ms": e.self_device_time_total / 1e3,
-                     "count": e.count} for e in top]}
+            "top": [_kernel_row(e) for e in top],
+            "named": [_kernel_row(e) for e in events
+                      if any(n in e.key for n in named)]}
+
+
+def _kernel_row(e) -> dict:
+    return {"name": e.key[:80], "device_ms": e.self_device_time_total / 1e3,
+            "count": e.count}
 
 
 def phase_profile(inst, dev, n_iters: int = 10):
@@ -543,6 +556,13 @@ SSD_VS_PLAIN = 2.0
 # path's relative L2 error of the last-position logits must be at most
 # twice the non-kernel path's.  The tight check is the f32 one (rtol 1e-3).
 LM_BF16_VS_PLAIN = 2.0
+# the port's own device kernels, listed by name in the prefill profiles
+# (the ssd wrapper launches three: ssd_states, ssd_pass, ssd_chunk_scan)
+PROFILE_NAMED = ("flash_wgmma", "flash_simt", "ssd_")
+# PR 12's kernel times at the same shapes (NVIDIA H100 80GB HBM3, 700 W;
+# the first port's designs), printed beside this run's for comparison
+PR12_FLASH_MS = 9.156639862060548
+PR12_SSD_MS = 3.5714752197265627
 
 
 def _flash_bound(B, S, Hq, Hkv, hd, window, elem):
@@ -669,7 +689,8 @@ def phase_lm_kernel_vs_plain(dev) -> dict:
     gen = torch.Generator(dev).manual_seed(0)
     flash = []
     for B, S, Hq, Hkv, hd in ((2, 64, 4, 2, 32), (1, 128, 2, 1, 64),
-                              (2, 96, 4, 4, 16), (1, 256, 8, 2, 128)):
+                              (2, 96, 4, 4, 16), (1, 256, 8, 2, 128),
+                              (1, 1000, 8, 1, 128)):
         for dtype in (torch.float32, torch.bfloat16):
             for window in (0, 32):
                 flash.append(_flash_case(B, S, Hq, Hkv, hd, dtype, window,
@@ -846,7 +867,7 @@ def phase_lm_serve(arch: str, kernel: str, dev) -> dict:
             lambda: steps(end, end + LM_PROFILE_STEPS))
         del state
         prof_prefill = profile_window(lambda: engine.make_prefill_step(
-            cfg, use_kernels=True)(lm, toks))
+            cfg, use_kernels=True)(lm, toks), named=PROFILE_NAMED)
         want_logits = _last_logits(cfg, lm, toks, False)
     ref = _f32_logits(cfg, lm, toks)
     if not finite:
@@ -902,7 +923,11 @@ def _time_flash(dev) -> dict:
     return {"shape": list(shape), "dtype": "bfloat16", "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound, "bound_by": by, "flops": flops,
-            "bytes": n_bytes, "achieved_TFLOPs": flops / ms / 1e9}
+            "bytes": n_bytes, "achieved_TFLOPs": flops / ms / 1e9,
+            "achieved_GBps": n_bytes / ms / 1e6,
+            "library_TFLOPs": flops / library_ms / 1e9,
+            "pr12_ms": PR12_FLASH_MS,
+            "pr12_TFLOPs": flops / PR12_FLASH_MS / 1e9}
 
 
 def _time_ssd(dev) -> dict:
@@ -918,7 +943,11 @@ def _time_ssd(dev) -> dict:
     return {"shape": list(shape), "dtype": "bfloat16", "chunk": 256,
             "ms": ms, "plain_ms": plain_ms, "library_ms": None,
             "bound_ms": bound, "bound_by": by, "flops": flops,
-            "bytes": n_bytes, "achieved_GBps": n_bytes / ms / 1e6}
+            "bytes": n_bytes, "achieved_GBps": n_bytes / ms / 1e6,
+            "achieved_TFLOPs": flops / ms / 1e9,
+            "scratch_bytes": ssd_scan.scratch_bytes(*shape),
+            "pr12_ms": PR12_SSD_MS,
+            "pr12_GBps": n_bytes / PR12_SSD_MS / 1e6}
 
 
 def main():

@@ -3,7 +3,8 @@
 Each `csrc/<name>.cu` exports a plain `extern "C"` interface.  It is
 compiled on first use with nvcc for Hopper (`sm_90a`) into a shared library
 under `build/repro_torch/` at the repository root, named by the hash of the
-source, and loaded with ctypes.  Nothing is built when a module is
+source and of every shared header `csrc/*.cuh` (so an edited header
+rebuilds), and loaded with ctypes.  Nothing is built when a module is
 imported, and nothing outside the repository's sources goes into a build.
 """
 from __future__ import annotations
@@ -44,12 +45,20 @@ def nvcc() -> str:
     return found
 
 
+def source_digest(name: str) -> str:
+    """Hash of csrc/<name>.cu together with every csrc/*.cuh header."""
+    h = hashlib.sha256()
+    for path in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return h.hexdigest()[:16]
+
+
 def build(name: str, *, force: bool = False) -> Built:
     """Compile csrc/<name>.cu unless the library for this exact source is
     already in BUILD_DIR (or `force`).  Raises with the compiler's output
     on failure."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    digest = source_digest(name)
     out = BUILD_DIR / f"lib{name}_{digest}.so"
     if out.exists() and not force:
         return Built(out, 0.0, "")

@@ -3,10 +3,11 @@
 Port of `repro.kernels.flash_attention` together with the GQA wrapper of
 `repro.kernels.ops.flash_attention`: q (B, S, Hq, hd), k/v (B, S, Hkv, hd)
 -> (B, S, Hq, hd) in q's dtype, with causal and sliding-`window` masks.  On
-the card it runs as one hand-written CUDA kernel
-(`csrc/flash_attention.cu`); its design and bound are in the source's
-header note.  The kernel reads kv head `hq // (Hq / Hkv)` for query head
-`hq`: the GQA repeat is an index, never a copy.
+the card it runs as a hand-written CUDA kernel (`csrc/flash_attention.cu`):
+for bf16 a tensor-core kernel (wgmma products, TMA tile loads), for f32 a
+CUDA-core kernel; their designs and bound are in the source's header
+note.  The kernels read kv head `hq // (Hq / Hkv)` for query head `hq`:
+the GQA repeat is an index, never a copy.
 
 `flash_attention` is the wrapper: it validates the inputs, then launches
 the kernel for CUDA tensors and runs the plain PyTorch version
@@ -32,8 +33,11 @@ import torch
 #: head dims the kernel is instantiated for (tests/test_kernels.py's sweep
 #: and Yi-6B's 128)
 HEAD_DIMS = (16, 32, 64, 128)
-#: query rows per block and keys per tile (kBQ, kBK in the source)
+#: query rows per block and keys per tile of the f32 kernel (simt::kBQ,
+#: kBK in the source); the bf16 kernel's blocks take 128 query rows
 BLOCK_Q = BLOCK_K = 64
+#: K/V ring depth of the bf16 kernel (wg::kStages)
+STAGES_BF16 = 2
 #: shared memory a block may use on Hopper
 MAX_SMEM_BYTES = 227 * 1024
 NEG_INF = -1e30
@@ -51,9 +55,14 @@ def _lib():
     return fn
 
 
-def smem_bytes(hd: int) -> int:
-    """Dynamic shared memory of one block: Q and K tiles transposed
-    (strides BLOCK_Q + 4, BLOCK_K + 1), the V tile and the P tile."""
+def smem_bytes(hd: int, dtype=torch.float32) -> int:
+    """Dynamic shared memory of one block.  f32: Q and K tiles transposed
+    (strides BLOCK_Q + 4, BLOCK_K + 1), the V tile and the P tile.  bf16:
+    the block's two 64-row query tiles, STAGES_BF16 K and V tiles, the
+    mbarriers and 1 KB to align the tiles to the swizzle's 1024 bytes."""
+    if dtype == torch.bfloat16:
+        tiles = (2 + 2 * STAGES_BF16) * 64 * hd * 2
+        return tiles + 8 * (1 + 2 * STAGES_BF16) + 1024
     return 4 * (hd * (BLOCK_Q + 4) + hd * (BLOCK_K + 1) + BLOCK_K * hd
                 + BLOCK_K * (BLOCK_Q + 4))
 
@@ -82,9 +91,12 @@ def _check(q, k, v, window):
             raise ValueError(f"{name} is on {a.device}, q on {q.device}")
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if smem_bytes(hd) > MAX_SMEM_BYTES:
-        raise ValueError(f"hd={hd} needs {smem_bytes(hd)} B of shared "
-                         f"memory; a Hopper block has {MAX_SMEM_BYTES}")
+        if a.device.type == "cuda" and a.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (TMA)")
+    if smem_bytes(hd, q.dtype) > MAX_SMEM_BYTES:
+        raise ValueError(f"hd={hd} needs {smem_bytes(hd, q.dtype)} B of "
+                         f"shared memory; a Hopper block has "
+                         f"{MAX_SMEM_BYTES}")
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):

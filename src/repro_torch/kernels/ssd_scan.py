@@ -6,15 +6,18 @@ final state (B, H, P, N)), the scalar-decay SSM
 
     state_t = exp(dt_t A) state_{t-1} + dt_t B_t x_t^T,   y_t = C_t . state_t
 
-computed chunk by chunk.  On the card it runs as one hand-written CUDA
-kernel (`csrc/ssd_scan.cu`); its design and bound are in the source's
-header note.
+computed chunk by chunk.  On the card it runs as hand-written CUDA
+(`csrc/ssd_scan.cu`): one call launches three kernels, chunk states, state
+passing and chunk scan, through an f32 scratch of per-chunk states that
+the wrapper allocates; their design and bound are in the source's header
+note.
 
 `ssd_scan` is the wrapper: it validates the inputs, then launches the
 kernel for CUDA tensors and runs the plain PyTorch version
 (`ssd_scan_plain`, the chunked algorithm of `models.mamba2.ssd_chunked`)
 for CPU tensors.  Nothing falls back: a CUDA tensor launches the kernel or
-raises.  `ssd_scan.launches` counts the kernel launches.
+raises.  `ssd_scan.launches` counts the wrapper's launches of the
+kernels (one per call, the three passes together).
 
 Contracts, shared by the kernel and the plain version:
 * x (and y) f32 or bf16, Bm/Cm in x's dtype, dt and A f32; everything is
@@ -24,6 +27,8 @@ Contracts, shared by the kernel and the plain version:
   not depend on it, and the CUDA kernel runs its own internal chunk of
   KERNEL_CHUNK positions.
 * Two launches on the same inputs are bit-identical (no atomics).
+* On the card N and P are multiples of 4 (4-wide tiles and loads) and
+  P <= MAX_P (a head's x for a chunk is prefetched in registers).
 """
 from __future__ import annotations
 
@@ -33,6 +38,8 @@ import torch
 
 #: the CUDA kernel's internal chunk (kL in the source)
 KERNEL_CHUNK = 64
+#: the largest head dim P the kernel takes
+MAX_P = 64
 #: shared memory a block may use on Hopper
 MAX_SMEM_BYTES = 227 * 1024
 
@@ -42,17 +49,28 @@ _DTYPES = (torch.float32, torch.bfloat16)
 def _lib():
     from repro_torch.kernels import build
     fn = build.load("ssd_scan").ssd_scan_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def smem_bytes(N: int, P: int) -> int:
-    """Dynamic shared memory of one block: the state, the chunk's x, B and
-    C (odd stride N + 1), the gated L x L matrix and four L-vectors."""
+    """Dynamic shared memory of the larger of the two staged passes' blocks:
+    chunk states (B, the weighted x, three L-vectors) and chunk scan (C
+    and B transposed, B's room reused for h_prev, the gated L x L matrix,
+    x and three L-vectors)."""
     L = KERNEL_CHUNK
-    return 4 * (N * P + L * P + 2 * L * (N + 1) + L * L + 4 * L)
+    states = L * N + L * P + 3 * L
+    scan = N * L + max(N * L, N * P) + L * L + L * P + 3 * L
+    return 4 * max(states, scan)
+
+
+def scratch_bytes(B: int, S: int, H: int, P: int, N: int) -> int:
+    """Device scratch of one call: the f32 per-chunk states (B, n_chunks,
+    H, N, P) and each chunk's last cumsum (B, n_chunks, H)."""
+    nc = -(-S // KERNEL_CHUNK)
+    return 4 * B * nc * H * (N * P + 1)
 
 
 def _check(x, dt, A, Bm, Cm, chunk):
@@ -80,6 +98,9 @@ def _check(x, dt, A, Bm, Cm, chunk):
     L = min(chunk, S)
     if L < 1 or S % L:
         raise ValueError(f"S={S} must be a multiple of the chunk {L}")
+    if x.device.type == "cuda" and (N % 4 or P % 4 or P > MAX_P):
+        raise ValueError(f"the kernel takes N and P in multiples of 4, "
+                         f"P <= {MAX_P}: N={N}, P={P}")
     if smem_bytes(N, P) > MAX_SMEM_BYTES:
         raise ValueError(f"N={N}, P={P} needs {smem_bytes(N, P)} B of "
                          f"shared memory; a Hopper block has "
@@ -99,10 +120,15 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 128):
         raise ValueError(f"no ssd_scan kernel for device {x.device}")
     B, S, H, P = x.shape
     N = Bm.shape[-1]
+    nc = -(-S // KERNEL_CHUNK)
     y = torch.empty_like(x)
     h = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
+    states = torch.empty((B, nc, H, N, P), dtype=torch.float32,
+                         device=x.device)
+    cum_last = torch.empty((B, nc, H), dtype=torch.float32, device=x.device)
     err = _lib()(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-                 Cm.data_ptr(), y.data_ptr(), h.data_ptr(), B, S, H, P, N,
+                 Cm.data_ptr(), y.data_ptr(), h.data_ptr(),
+                 states.data_ptr(), cum_last.data_ptr(), B, S, H, P, N,
                  int(x.dtype == torch.bfloat16),
                  torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:

@@ -117,12 +117,14 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, h0=None):
     # --- chunk summaries:  S_c = sum_l exp(cum_L - cum_l) dt_l B_l x_l ---
     decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)         # (B,nc,L,H)
     wx = (dtc * decay_to_end)[..., None] * xc                 # (B,nc,L,H,P)
+    # at least f32 (the JAX path's cast); an f64 evaluation stays f64
+    acc = torch.promote_types(x.dtype, torch.float32)
     S_c = torch.einsum("bcln,bclhp->bchpn",
-                       *layers.promoted(Bc, wx.float()))
+                       *layers.promoted(Bc, wx.to(acc)))
 
     # --- cross-chunk recurrence over nc (sequential) ---
     chunk_decay = torch.exp(cum[:, :, -1, :])                 # (B,nc,H)
-    h = (torch.zeros((Bb, H, P, N), dtype=torch.float32, device=x.device)
+    h = (torch.zeros((Bb, H, P, N), dtype=acc, device=x.device)
          if h0 is None else h0)
     h_prevs = []
     for c in range(nc):

@@ -8,7 +8,9 @@ On a machine with a card:
 
 Tolerances are those of tests/test_kernels.py: gmm_estep r atol 2e-5;
 R rtol 1e-4; sum_x rtol 1e-4 / atol 5e-4; sum_xx rtol 1e-3 / atol 5e-3;
-flash_attention atol 2e-5 (f32) / 2e-2 (bf16); ssd_scan atol 5e-5.
+flash_attention atol 2e-5 (f32) / 2e-2 (bf16); ssd_scan atol 5e-5 (at
+Mamba-2's full shape: error against f64 at most twice the plain
+version's, as chip_smoke.py holds it).
 """
 import numpy as np
 import pytest
@@ -20,6 +22,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gmm_estep as ge
 from repro_torch.kernels import ops
 from repro_torch.kernels import ssd_scan as ss
+from repro_torch.models import mamba2
 
 pytestmark = pytest.mark.gpu
 
@@ -169,3 +172,71 @@ def test_ssd_scan_matches_plain(cuda, B, S, H, P, N, chunk, rtol):
     torch.testing.assert_close(y, yp, rtol=rtol, atol=5e-5)
     torch.testing.assert_close(h, hp, rtol=rtol, atol=5e-5)
     assert torch.equal(y, y2) and torch.equal(h, h2)
+
+
+def test_flash_attention_yi_6b_prefill_shape(cuda):
+    """The Yi-6B prefill shape in bf16 (the tensor-core kernel's main path):
+    within 2e-2 of the plain version, two launches bit-identical."""
+    g = torch.Generator(cuda).manual_seed(7)
+    q, k, v = (torch.randn(4, 2048, h, 128, generator=g, device=cuda)
+               .to(torch.bfloat16) for h in (32, 4, 4))
+    got = ops.flash_attention(q, k, v)
+    again = ops.flash_attention(q, k, v)
+    want = fa.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=2e-2)
+    assert torch.equal(got, again)
+
+
+def test_ssd_scan_mamba2_prefill_shape(cuda):
+    """The Mamba-2 370M prefill shape in bf16: |y| reaches tens, so the
+    kernel is held, as in chip_smoke.py, against an f64 evaluation of the
+    same inputs: its max error, for y and for the state, at most twice
+    the plain version's.  Two launches bit-identical."""
+    g = torch.Generator(cuda).manual_seed(8)
+    rn = lambda *s: torch.randn(*s, generator=g, device=cuda)
+    x = rn(4, 2048, 32, 64).to(torch.bfloat16)
+    dt = torch.nn.functional.softplus(rn(4, 2048, 32))
+    A = -torch.exp(rn(32) * 0.5)
+    Bm, Cm = ((rn(4, 2048, 128) * 0.3).to(torch.bfloat16) for _ in range(2))
+    args = (x, dt, A, Bm, Cm)
+    y, h = ops.ssd_scan(*args, chunk=256)
+    y2, h2 = ops.ssd_scan(*args, chunk=256)
+    yp, hp = ss.ssd_scan_plain(*args, chunk=256)
+    y64, h64 = mamba2.ssd_chunked(*(a.double() for a in args), 256)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    for got, plain, ref in ((y, yp, y64), (h, hp, h64)):
+        err = (got.double() - ref).abs().max()
+        assert err <= 2 * (plain.double() - ref).abs().max()
+
+
+def test_ssd_scan_counts_one_launch_per_call(cuda):
+    """One wrapper call launches the three passes and counts once."""
+    g = torch.Generator(cuda).manual_seed(9)
+    rn = lambda *s: torch.randn(*s, generator=g, device=cuda)
+    args = (rn(1, 128, 2, 16), torch.nn.functional.softplus(rn(1, 128, 2)),
+            -torch.exp(rn(2)), rn(1, 128, 8), rn(1, 128, 8))
+    for n in range(1, 4):
+        before = ops.ssd_scan.launches
+        for _ in range(n):
+            ops.ssd_scan(*args, chunk=32)
+        assert ops.ssd_scan.launches == before + n
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    """On the card: bf16 flash inputs off a 16-byte boundary (TMA), and
+    ssd head dims past MAX_P or off a multiple of 4, raise before any
+    launch."""
+    buf = torch.zeros(1 + 64 * 2 * 32, dtype=torch.bfloat16, device=cuda)
+    q = buf[1:].view(1, 64, 2, 32)            # contiguous, 2 bytes off
+    k = torch.zeros(1, 64, 2, 32, dtype=torch.bfloat16, device=cuda)
+    before = ops.flash_attention.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.flash_attention(q, k, k)
+    z = lambda *s: torch.zeros(*s, device=cuda)
+    for P, N in ((68, 8), (6, 8), (8, 6)):
+        with pytest.raises(ValueError, match="multiples of 4"):
+            ops.ssd_scan(z(1, 32, 2, P), z(1, 32, 2), z(2), z(1, 32, N),
+                         z(1, 32, N), chunk=32)
+    assert ops.flash_attention.launches == before
