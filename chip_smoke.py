@@ -10,21 +10,26 @@ never JAX or the JAX package, and prints one JSON line per phase:
    (both set off);
 2. build — compiles every kernel from src/repro_torch/csrc with nvcc and
    reports the build seconds and ptxas's registers/shared memory/spills;
-3. kernel_vs_plain — each kernel against its plain PyTorch version on the
-   card, at the tests/test_kernels.py sweep shapes, K=32/D=3 and the main
-   path's shape (f32 and bf16 x), with ragged masks, r on and off and a
-   replication factor; plus bit-equality under trailing zero padding and
-   across two launches;
+3. kernel_vs_plain — gmm_estep_nodes against its plain PyTorch version on
+   the card, at the tests/test_kernels.py sweep shapes, K=4/D=2, K=8/D=1,
+   K=8/D=2, K=32/D=3 and the main path's shape (f32 and bf16 x), with
+   ragged masks, r on and off and a replication factor, each case naming
+   the kernel variant (register or shared-memory path) it ran and the
+   worst share of its tolerance an element used; plus bit-equality under
+   trailing zero padding and across two launches on both paths;
 4. main_path — the paper's five estimators through algorithms.run_* with
    backend="fused" at N=1000 sensors x 4096 points (K=3, D=2): finite
    results, one kernel launch per iteration, cVB and dSVB matched against
    backend="reference", ms per iteration, the kernel's time against its
-   bound, peak device memory, and (reported only) what cVB gives with f32
-   iterates instead of the main path's f64 ones;
+   bound for f32 and bf16 x (the first design's recorded time beside
+   it), its ptxas registers and spills, peak device memory, and
+   (reported only) what cVB gives with f32 iterates instead of the main
+   path's f64 ones;
 5. small_vs_cpu — the same five estimators on a small instance, card
    (fused kernel) against CPU (plain version);
 6. profile — device-busy time by kernel over ten fused dSVB iterations
-   against the host wall clock (torch.profiler);
+   against the host wall clock, and device kernels per iteration
+   (torch.profiler);
 7. lm_kernel_vs_plain — flash_attention and ssd_scan against their plain
    versions (and flash against scaled_dot_product_attention) at the
    tests/test_kernels.py shapes, a ragged S = 1000, the causality case and
@@ -170,13 +175,15 @@ def phase_device() -> dict:
 # ---------------------------------------------------------------------------
 def _ptxas_table(report: str) -> list:
     """ptxas -v's registers / spills / shared memory per kernel instance
-    (gmm_estep_nodes_kernel<D, x dtype>, flash_wgmma_kernel<hd> (bf16),
+    (gmm_estep_regs_kernel<D, x dtype>, gmm_estep_smem_kernel<D, x dtype>,
+    flash_wgmma_kernel<hd> (bf16),
     flash_simt_kernel<hd, f32>, ssd_states_kernel<dtype>, ssd_pass_kernel,
     ssd_chunk_scan_kernel<dtype>)."""
     rows, cur = [], None
     for ln in report.splitlines():
-        m = re.search(r"Compiling entry function '.*?\d+((?:gmm_estep_nodes|"
-                      r"flash_wgmma|flash_simt|ssd_states|ssd_pass|"
+        m = re.search(r"Compiling entry function '.*?\d+((?:gmm_estep_regs|"
+                      r"gmm_estep_smem|flash_wgmma|flash_simt|ssd_states|"
+                      r"ssd_pass|"
                       r"ssd_chunk_scan)_kernel)(I?)([^']*)'", ln)
         if m:
             cur = {"kernel": m.group(1)}
@@ -198,17 +205,19 @@ def _ptxas_table(report: str) -> list:
     return rows
 
 
-def phase_build():
+def phase_build() -> dict:
     """Every kernel from its source: one nvcc process each, all started
-    together."""
+    together.  Returns {kernel: ptxas table}."""
     t0 = time.perf_counter()
     built = build.build_all(KERNELS, force=True)
     wall = time.perf_counter() - t0
+    tables = {name: _ptxas_table(built[name].report) for name in KERNELS}
     for name in KERNELS:
         emit("build", kernel=name, seconds=round(built[name].seconds, 3),
              library=os.path.relpath(built[name].path, HERE),
-             ptxas=_ptxas_table(built[name].report))
+             ptxas=tables[name])
     emit("build_all", kernels=list(KERNELS), wall_seconds=round(wall, 3))
+    return tables
 
 
 # ---------------------------------------------------------------------------
@@ -222,10 +231,11 @@ def _random_terms(N, K, D, dev, rng):
     return [torch.tensor(t, dtype=torch.float32, device=dev) for t in terms]
 
 
-def _compare(got, want) -> float:
+def _compare(got, want) -> tuple:
     """Assert the tests/test_kernels.py tolerances; returns the max
-    absolute error over all outputs."""
-    err = 0.0
+    absolute error over all outputs and the worst share of its bar an
+    element uses, |got - want| / (atol + rtol |want|) (at most 1)."""
+    err = share = 0.0
     for name, g, w in zip(("r", "R", "sum_x", "sum_xx"), got, want):
         if g is None or w is None:
             if (g is None) != (w is None):
@@ -234,16 +244,20 @@ def _compare(got, want) -> float:
         rtol, atol = TOL[name]
         torch.testing.assert_close(g, w, rtol=rtol, atol=atol,
                                    msg=lambda m: f"{name}: {m}")
-        err = max(err, float((g - w).abs().max()))
-    return err
+        diff = (g - w).abs()
+        err = max(err, float(diff.max()))
+        share = max(share, float((diff / (atol + rtol * w.abs())).max()))
+    return err, share
 
 
 def phase_kernel_vs_plain(main_x, main_mask, dev):
     rng = np.random.default_rng(0)
     cases = []
-    # the tests/test_kernels.py sweep shapes, then K=32/D=3
+    # the tests/test_kernels.py sweep shapes, the register path's widest K
+    # at D = 2 and D = 1 and an unaligned T on it, K=8/D=2, then K=32/D=3
     for N, T, K, D in ((1, 100, 3, 2), (1, 257, 4, 5), (1, 64, 2, 8),
-                       (1, 500, 6, 3), (4, 300, 32, 3)):
+                       (1, 500, 6, 3), (3, 1000, 4, 2), (2, 777, 8, 1),
+                       (2, 257, 3, 2), (3, 1000, 8, 2), (4, 300, 32, 3)):
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.tensor(rng.normal(size=(N, T, D)) * 2, dtype=dtype,
                              device=dev)
@@ -252,12 +266,14 @@ def phase_kernel_vs_plain(main_x, main_mask, dev):
             terms = _random_terms(N, K, D, dev, rng)
             for return_r in (True, False):
                 args = (x, mask, *terms, 3.0)
-                err = _compare(
+                err, share = _compare(
                     ops.gmm_estep_nodes(*args, return_r=return_r),
                     gmm_estep.gmm_estep_nodes_plain(*args,
                                                     return_r=return_r))
                 cases.append({"shape": [N, T, K, D], "x": str(dtype)[6:],
-                              "return_r": return_r, "max_abs_err": err})
+                              "variant": gmm_estep.kernel_variant(K, D),
+                              "return_r": return_r, "max_abs_err": err,
+                              "bar_share": share})
     # the main path's shape: its data with a ragged mask (the terms as
     # the tests draw them; the engine's own terms are checked in phase 4)
     N, T = main_mask.shape
@@ -273,13 +289,15 @@ def phase_kernel_vs_plain(main_x, main_mask, dev):
         for return_r, s in ((True, None), (False, None), (True, shift),
                             (False, shift)):
             args = (x, mask, *terms, float(N))
-            err = _compare(
+            err, share = _compare(
                 ops.gmm_estep_nodes(*args, shift=s, return_r=return_r),
                 gmm_estep.gmm_estep_nodes_plain(*args, shift=s,
                                                 return_r=return_r))
             cases.append({"shape": [N, T, 3, 2],
+                          "variant": gmm_estep.kernel_variant(3, 2),
                           "x": str(dtype)[6:], "return_r": return_r,
-                          "shift": s is not None, "max_abs_err": err})
+                          "shift": s is not None, "max_abs_err": err,
+                          "bar_share": share})
     # bit equality: trailing zero padding, and two launches (plain and
     # centred)
     pad_equal = repeat_equal = True
@@ -295,8 +313,24 @@ def phase_kernel_vs_plain(main_x, main_mask, dev):
                          for a, b in zip(base[1:], padded[1:]))
         repeat_equal &= all(torch.equal(a, b)
                             for a, b in zip(base[1:], again[1:]))
+    # the shared-memory path: K=32/D=3 at T = 1000, padded by 1, 24, 3000
+    x, mask = (torch.tensor(a, dtype=torch.float32, device=dev) for a in
+               (rng.normal(size=(8, 1000, 3)), rng.random((8, 1000)) > 0.2))
+    terms = _random_terms(8, 32, 3, dev, rng)
+    base = ops.gmm_estep_nodes(x, mask, *terms, 5.0, return_r=False)
+    again = ops.gmm_estep_nodes(x, mask, *terms, 5.0, return_r=False)
+    repeat_equal &= all(torch.equal(a, b)
+                        for a, b in zip(base[1:], again[1:]))
+    for pad in (1, 24, 3000):
+        padded = ops.gmm_estep_nodes(
+            torch.cat([x, x.new_zeros(8, pad, 3)], 1),
+            torch.cat([mask, mask.new_zeros(8, pad)], 1), *terms, 5.0,
+            return_r=False)
+        pad_equal &= all(torch.equal(a, b)
+                         for a, b in zip(base[1:], padded[1:]))
     torch.cuda.synchronize()
     emit("kernel_vs_plain", tolerance=TOL, cases=cases,
+         worst_bar_share=max(c["bar_share"] for c in cases),
          padding_bit_equal=pad_equal, launches_bit_equal=repeat_equal)
     if not (pad_equal and repeat_equal):
         raise AssertionError("gmm_estep_nodes is not bit-invariant")
@@ -347,7 +381,26 @@ def _estimate(name, cfg, x, mask, adj, W, prior, ref, init_q, backend,
         **kw)
 
 
-def phase_main_path(inst, dev) -> dict:
+def _gmm_bound(x, mask, terms, shift, K, D):
+    """(bound ms, by, bytes, flops) of one gmm_estep_nodes launch without
+    r: x and mask in their dtype, the f32 terms and shift read once, the
+    statistics written once; per point and component: centring, log rho
+    (y'Wy, y.b, combine), softmax, and the R / sum_x / upper-triangle
+    sum_xx accumulations."""
+    N, T = mask.shape
+    n_bytes = (x.numel() * x.element_size()
+               + mask.numel() * mask.element_size()
+               + sum(t.numel() * 4 for t in (*terms, shift))
+               + N * (K + K * D + K) * D * 4)
+    flops = N * T * K * (D + 2 * D * D + 4 * D + 8
+                         + 1 + 2 * D + 3 * D * (D + 1) // 2)
+    bound = {"bytes": n_bytes / PEAK_BYTES_PER_S * 1e3,
+             "operations": flops / PEAK_F32_FLOP_PER_S * 1e3}
+    by = max(bound, key=bound.get)
+    return bound[by], by, n_bytes, flops
+
+
+def phase_main_path(inst, dev, ptxas) -> dict:
     cfg, x, mask, adj, W, prior, ref, init_q = inst
     torch.cuda.reset_peak_memory_stats()
 
@@ -408,36 +461,42 @@ def phase_main_path(inst, dev) -> dict:
     # unreplicated: the tolerances' absolute parts are for unscaled sums
     # (centred sums sit near zero, so replication would scale their
     # rounding past an absolute bar)
-    err = _compare(ops.gmm_estep_nodes(x, mask, *terms, shift=shift),
+    err, share = _compare(ops.gmm_estep_nodes(x, mask, *terms, shift=shift),
                    gmm_estep.gmm_estep_nodes_plain(x, mask, *terms,
                                                    shift=shift))
     args = (x, mask, *terms, float(N_NODES))
-    kernel_ms = graph_time_ms(lambda: ops.gmm_estep_nodes(
-        *args, shift=shift, return_r=False), 20)
+    K, D, T = cfg.K, cfg.D, N_PER_NODE
+    variant = gmm_estep.kernel_variant(K, D)
+    timed = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        xd, md = x.to(dtype), mask.to(dtype)
+        a = (xd, md, *terms, float(N_NODES))
+        ms = graph_time_ms(lambda: ops.gmm_estep_nodes(
+            *a, shift=shift, return_r=False), 20)
+        bound, by, n_bytes, flops = _gmm_bound(xd, md, terms, shift, K, D)
+        timed[name] = {"ms": ms, "bound_ms": bound,
+                       "bound_by": by, "bytes": n_bytes, "flops": flops,
+                       "fraction_of_bound": bound / ms,
+                       "achieved_GBps": n_bytes / ms / 1e6}
     call_ms = time_ms(lambda: ops.gmm_estep_nodes(
         *args, shift=shift, return_r=False), 100)
     plain_ms = time_ms(lambda: gmm_estep.gmm_estep_nodes_plain(
         *args, shift=shift, return_r=False), 10)
-    K, D, T = cfg.K, cfg.D, N_PER_NODE
-    n_bytes = (x.numel() * x.element_size() + mask.numel() * 4
-               + sum(t.numel() * 4 for t in (*terms, shift))
-               + N_NODES * (K + K * D + K) * D * 4)
-    # per point and component: centring, log rho (y'Wy, y.b, combine),
-    # softmax, and the R / sum_x / upper-triangle sum_xx accumulations
-    flops = N_NODES * T * K * (D + 2 * D * D + 4 * D + 8
-                               + 1 + 2 * D + 3 * D * (D + 1) // 2)
-    bound = {"bytes": n_bytes / PEAK_BYTES_PER_S * 1e3,
-             "operations": flops / PEAK_F32_FLOP_PER_S * 1e3}
-    bound_by = max(bound, key=bound.get)
-    emit("main_path_kernel", kernel="gmm_estep_nodes",
-         max_abs_err_engine_terms=err, ms=kernel_ms,
-         call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound[bound_by],
-         bound_by=bound_by, bytes=n_bytes, flops=flops,
-         achieved_GBps=n_bytes / kernel_ms / 1e6,
+    main = timed["f32"]
+    emit("main_path_kernel", kernel="gmm_estep_nodes", variant=variant,
+         max_abs_err_engine_terms=err, bar_share_engine_terms=share,
+         ms=main["ms"], call_ms=call_ms,
+         plain_ms=plain_ms, bound_ms=main["bound_ms"],
+         bound_by=main["bound_by"], fraction_of_bound=main[
+             "fraction_of_bound"], bytes=main["bytes"], flops=main["flops"],
+         achieved_GBps=main["achieved_GBps"], by_dtype=timed,
+         first_design_ms=FIRST_DESIGN_GMM_MS,
+         ptxas=[row for row in ptxas if row["kernel"].startswith("gmm")
+                and row.get("D") == D],
          max_memory_allocated=peak)
     phase_precision(inst, ref_runs["cvb"], dev)
-    return {"launches": launches, "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": bound[bound_by], "bound_by": bound_by,
+    return {"launches": launches, "ms": main["ms"], "plain_ms": plain_ms,
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "max_abs_err": err}
 
 
@@ -522,9 +581,11 @@ def phase_profile(inst, dev, n_iters: int = 10):
     """Trace `n_iters` fused dSVB iterations (`profile_window`)."""
     _estimate("dsvb", *inst, "fused", 2, dev)
     torch.cuda.synchronize()
+    prof = profile_window(lambda: _estimate("dsvb", *inst, "fused", n_iters,
+                                            dev), named=("gmm_estep",))
     emit("profile", estimator="dsvb", backend="fused", n_iters=n_iters,
-         **profile_window(lambda: _estimate("dsvb", *inst, "fused", n_iters,
-                                            dev)))
+         kernels_per_iter=prof["kernels_launched"] / n_iters,
+         device_busy_ms_per_iter=prof["device_busy_ms"] / n_iters, **prof)
 
 
 # ---------------------------------------------------------------------------
@@ -559,6 +620,11 @@ LM_BF16_VS_PLAIN = 2.0
 # the port's own device kernels, listed by name in the prefill profiles
 # (the ssd wrapper launches three: ssd_states, ssd_pass, ssd_chunk_scan)
 PROFILE_NAMED = ("flash_wgmma", "flash_simt", "ssd_")
+# gmm_estep_nodes's time at the main path's call (f32 x, centred, no r)
+# before its redesign: the one-block-per-node design that the
+# shared-memory path keeps, on an NVIDIA H100 80GB HBM3 at 700 W; printed
+# beside this run's
+FIRST_DESIGN_GMM_MS = 0.067259202003479
 # PR 12's kernel times at the same shapes (NVIDIA H100 80GB HBM3, 700 W;
 # the first port's designs), printed beside this run's for comparison
 PR12_FLASH_MS = 9.156639862060548
@@ -952,7 +1018,7 @@ def _time_ssd(dev) -> dict:
 
 def main():
     dev_info = phase_device()
-    phase_build()
+    ptxas = phase_build()
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     inst = _instance(N_NODES, N_PER_NODE, dev)
@@ -963,7 +1029,7 @@ def main():
          data_bytes=x.numel() * 4 + mask.numel() * 4,
          seconds=round(time.perf_counter() - t0, 3))
     phase_kernel_vs_plain(x, mask, dev)
-    mp = phase_main_path(inst, dev)
+    mp = phase_main_path(inst, dev, ptxas["gmm_estep"])
     phase_small_vs_cpu(dev)
     phase_profile(inst, dev)
     del inst, x, mask

@@ -18,9 +18,13 @@ space, only the arithmetic that produces phi* varies:
        statistics) and expfam.pack_natural, batched over nodes in
        `accum_dtype`.
   Data may stream in bf16 (`PrecisionPolicy.data_dtype`) while
-  accumulation stays f32.  The centring is this port's departure from the
-  reference's fused path: the same function, but the reference's expanded
-  form (x'Wn x - 2 x'b + c and sum_xx - R xbar xbar^T) cancels most of an
+  accumulation stays f32.  `stream_data` casts x and mask to the
+  streaming dtype; `engine.vb_init` calls it once per session (through
+  `GMMModel.stream_data`), so an iteration reads the session's cast copy
+  instead of copying the data again.
+  The centring is this port's departure from the reference's fused
+  path: the same function, but the reference's expanded form
+  (x'Wn x - 2 x'b + c and sum_xx - R xbar xbar^T) cancels most of an
   f32 statistic's digits at deployment scale (N=1000 x 4096 points), where
   the Eq. 46 metric of cVB then moves by ~1e-3 between two f32
   implementations (PERF.md, PR 11).
@@ -113,6 +117,16 @@ class FusedBackend:
         return (getattr(model, "kernel_family", None) == "gmm"
                 and getattr(model, "D", 0) <= MAX_D)
 
+    def stream_data(self, x, mask):
+        """x and mask in the kernel's streaming dtype: the policy's
+        `data_dtype`, else f32 for f64 data (the kernel streams f32 or
+        bf16), else x's own.  Already-streamed data pass through without
+        a copy."""
+        dtype = self.precision.data_dtype
+        if dtype is None:
+            dtype = torch.float32 if x.dtype == torch.float64 else x.dtype
+        return x.to(dtype), mask.to(dtype)
+
     def local_vbm_optimum_nodes(self, x, mask, phi_nodes, prior,
                                 replication, K, D):
         from repro_torch.kernels import ops
@@ -124,9 +138,7 @@ class FusedBackend:
         # centre each component on its mean, as the kernel sees it (f32)
         shift = q.m.float().contiguous()
         terms = gmm.estep_terms(q, dtype=torch.float32, shift=shift)
-        if p.data_dtype is not None:
-            x = x.to(p.data_dtype)
-        mask = mask.to(x.dtype)
+        x, mask = self.stream_data(x, mask)
         _, R, sum_x, sum_xx = ops.gmm_estep_nodes(
             x, mask, *(t.contiguous() for t in terms), float(replication),
             shift=shift, block_t=self.block_t, return_r=False)

@@ -328,7 +328,9 @@ class VBRun(NamedTuple):
 class VBSession:
     """The static half of a VB session: model x topology x
     hyperparameters, plus the per-node data buffers (on the run's
-    device)."""
+    device).  `stream_data` is `data` as the model's hot path reads it
+    (`model.stream_data`, e.g. cast once to the fused kernel's streaming
+    dtype), or `data` itself for a model without `stream_data`."""
 
     model: Any
     data: Any
@@ -338,6 +340,7 @@ class VBSession:
     ref_phi: Optional[torch.Tensor]
     diagnostics: bool
     metric_nodes: Optional[int]
+    stream_data: Any
 
 
 @dataclasses.dataclass(frozen=True)
@@ -401,6 +404,9 @@ def vb_init(model, data, topology, *, schedule: Schedule = Schedule(),
             f"{type(topology).__name__} has no natural-gradient step "
             "(Eq. 27a); it ignores `schedule` — pass the default")
     data = tuple(_as_tensor(a).to(dev) for a in data)
+    # the hot path's copy of the data, cast once here, not per iteration
+    stream = getattr(model, "stream_data", None)
+    stream_data = data if stream is None else stream(data)
     topology = topology.to(dev)
     n_nodes = data[0].shape[0]
     if replication is None:
@@ -411,7 +417,7 @@ def vb_init(model, data, topology, *, schedule: Schedule = Schedule(),
     if ref_phi is not None:
         ref_phi = _as_tensor(ref_phi).to(dev)
     session = VBSession(model, data, topology, schedule, float(replication),
-                        ref_phi, diagnostics, metric_nodes)
+                        ref_phi, diagnostics, metric_nodes, stream_data)
     return VBState(
         phi=init_phi, t=0, carry=topology.init_carry(init_phi, model),
         diag=topology.init_diag(model, init_phi) if diagnostics else None,
@@ -432,7 +438,8 @@ def vb_run(state: VBState, n_iters: int) -> tuple[VBState, VBRun]:
     phi, carry = state.phi, state.carry
     kls, msds, diags = [], [], []
     for t in range(state.t, state.t + n_iters):
-        phi_star = model.local_optimum(ses.data, phi, ses.replication)
+        phi_star = model.local_optimum(ses.stream_data, phi,
+                                       ses.replication)
         phi, carry, diag = topology.step(model, phi, carry, phi_star, t,
                                          ses.schedule)
         phi_m = phi if ses.metric_nodes is None else phi[:ses.metric_nodes]

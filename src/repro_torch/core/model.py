@@ -96,6 +96,13 @@ class GMMModel(blocks.BlockModel):
         return GMMPosterior(alpha=alpha[..., 0, :], m=nw.m, beta=nw.beta,
                             W=nw.W, nu=nw.nu)
 
+    def stream_data(self, data):
+        """(x, mask) as the backend's hot path reads them (the backend's
+        `stream_data`; as given for a backend without one, such as the
+        reference); `engine.vb_init` calls it once per session."""
+        stream = getattr(self.backend, "stream_data", None)
+        return tuple(data) if stream is None else stream(*data)
+
     def local_optimum(self, data, phi_nodes, replication):
         x, mask = data
         return self.backend.local_vbm_optimum_nodes(

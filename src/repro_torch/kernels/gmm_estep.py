@@ -3,7 +3,7 @@
 Port of `repro.kernels.gmm_estep`.  The per-node VBE hot loop of the
 paper's application is O(T * K * D^2): per data point a quadratic form per
 component, a row softmax, then three accumulations (R_k, sum r x,
-sum r x x^T).  On the card it runs as one hand-written CUDA kernel
+sum r x x^T).  On the card it runs as one hand-written CUDA kernel launch
 (`csrc/gmm_estep.cu`, one pass over x, statistics accumulated on chip and
 written once); its design and bound are in the source's header note.
 
@@ -17,65 +17,137 @@ engine centres on the component means, which keeps f32 statistics well
 conditioned at deployment scale (see `core.gmm.posterior_from_stats`).
 
 `gmm_estep_nodes` is the wrapper: it validates the inputs, then launches
-the kernel for CUDA tensors and runs the plain PyTorch version
+a kernel for CUDA tensors and runs the plain PyTorch version
 (`gmm_estep_nodes_plain`, the same function written as batched tensor
-ops) for CPU tensors.  Nothing falls back: a CUDA tensor launches the
+ops) for CPU tensors.  Nothing falls back: a CUDA tensor launches a
 kernel or raises.  `gmm_estep_nodes.launches` counts the kernel launches.
 
-Contracts, shared by the kernel and the plain version:
+Two CUDA kernels, chosen by shape alone (`kernel_variant`):
+* "registers" when K * (1 + D + D(D+1)/2) <= REG_STATS_BUDGET (K <= 4 at
+  D = 2, K <= 8 at D = 1, K <= 2 at D = 3, K = 1 at D = 4, 5): one block
+  of REG_THREADS per node, statistics in registers, log rho once per point
+  and component, vector loads;
+* "shared" otherwise: one block per node, per-warp statistics slots in
+  shared memory (`block_t` points per tile; `smem_bytes`).
+
+Contracts, shared by the kernels and the plain version:
 * x streams as f32 or bf16 (one kernel instance each); an f64 x is cast
-  to f32, as the TPU kernel does.  mask has x's dtype.  Products and
-  statistics are f32.
+  to f32, as the TPU kernel does (the engine casts once per session, see
+  `core.backends.FusedBackend.stream_data`).  mask has x's dtype.
+  Products and statistics are f32.
 * `return_r=False` never allocates or writes r.
 * Statistics are BIT-invariant to trailing mask-zero padding of the point
   axis, and two launches on the same inputs are bit-identical (no
   atomics; summation order independent of T).
-* `replication` scales the statistics at emit; a Python float, so no
+* `replication` scales the statistics at emit; a Python number, so no
   host sync.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+import numbers
 
 import torch
 
 from repro_torch.core.expfam import ordered_sum
 
-#: points each thread takes per tile (kPts in csrc/gmm_estep.cu)
+#: points each thread takes per tile on the shared path (kPts in
+#: csrc/gmm_estep.cu)
 POINTS_PER_THREAD = 4
-#: the kernel is instantiated for D = 1..MAX_D
+#: the kernels are instantiated for D = 1..MAX_D
 MAX_D = 8
 #: shared memory a block may use on Hopper
 MAX_SMEM_BYTES = 227 * 1024
+#: floats of per-thread statistics the register path holds (kRegBudget)
+REG_STATS_BUDGET = 24
+#: register path: threads per block (one block per node), consecutive
+#: points a thread takes per tile, points per tile
+REG_THREADS = 128
+REG_GROUP = 4
+REG_TILE = REG_THREADS * REG_GROUP
+#: largest N and T the kernels' int indexing and grid take
+MAX_NODES = 2 ** 31 - 1
+MAX_POINTS = 2 ** 31 - 1 - 4096
 
 _X_DTYPES = (torch.float32, torch.bfloat16)
 
 
+def stats_per_component(D: int) -> int:
+    """R, sum_x (D) and the upper triangle of sum_xx (D(D+1)/2)."""
+    return 1 + D + D * (D + 1) // 2
+
+
+def reg_kmax(D: int) -> int:
+    """The register path's largest K at dimension D (KMAX in the source;
+    0: the register path takes no K at this D)."""
+    return REG_STATS_BUDGET // stats_per_component(D)
+
+
+def kernel_variant(K: int, D: int) -> str:
+    """Which CUDA kernel a (K, D) shape launches: "registers" when its
+    K (1 + D + D(D+1)/2) statistics fit REG_STATS_BUDGET floats, else
+    "shared".  A function of the shape alone, never of T or N.
+
+    >>> kernel_variant(3, 2), kernel_variant(4, 2), kernel_variant(5, 2)
+    ('registers', 'registers', 'shared')
+    """
+    return "registers" if K <= reg_kmax(D) else "shared"
+
+
+def vector_loads(x: torch.Tensor, mask: torch.Tensor) -> bool:
+    """Whether the register path may load x and mask in whole vectors of
+    four elements: T % 4 == 0 (every node's base then stays aligned) and
+    both arrays start on a 16-byte boundary.  Otherwise it loads scalars;
+    the result is the same either way."""
+    return (x.shape[1] % 4 == 0 and x.data_ptr() % 16 == 0
+            and mask.data_ptr() % 16 == 0)
+
+
+@functools.lru_cache(maxsize=None)
 def _lib():
     from repro_torch.kernels import build
     lib = build.load("gmm_estep")
     fn = lib.gmm_estep_nodes_launch
     fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p])
+                   + [ctypes.c_float] + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    kmax = lib.gmm_estep_reg_kmax
+    kmax.argtypes, kmax.restype = [ctypes.c_int], ctypes.c_int
+    for D in range(1, MAX_D + 1):
+        if kmax(D) != reg_kmax(D):
+            raise RuntimeError(f"csrc/gmm_estep.cu's register path takes "
+                               f"K <= {kmax(D)} at D={D}; the wrapper "
+                               f"dispatches K <= {reg_kmax(D)}")
     return fn
 
 
 def smem_bytes(K: int, D: int, block_t: int) -> int:
-    """Dynamic shared memory of one block: the node's terms and shift plus
-    one statistics slot of K * (1 + D + D(D+1)/2) floats per warp."""
+    """Dynamic shared memory of one shared-path block: the node's terms
+    and shift plus one statistics slot of K * (1 + D + D(D+1)/2) floats
+    per warp.  (The register path's shared memory is static, < 1 KB.)"""
     n_warps = block_t // POINTS_PER_THREAD // 32
-    stats = K * (1 + D + D * (D + 1) // 2)
-    return 4 * (2 * K + 2 * K * D + K * D * D + n_warps * stats)
+    return 4 * (2 * K + 2 * K * D + K * D * D
+                + n_warps * K * stats_per_component(D))
 
 
-def _check(x, mask, log_prior, Wn, b, c, shift, block_t):
+def _check(x, mask, log_prior, Wn, b, c, shift, block_t, replication):
     """Validate and normalise the inputs; returns (x, mask) in the
-    streaming dtype.  Raises on what the kernel does not take."""
+    streaming dtype.  Raises on what the kernels do not take."""
     if x.dim() != 3:
         raise ValueError(f"x must be (N, T, D): {tuple(x.shape)}")
     N, T, D = x.shape
+    if N > MAX_NODES:
+        raise ValueError(f"the kernels take at most {MAX_NODES} nodes: "
+                         f"N={N}")
+    if T > MAX_POINTS:
+        raise ValueError(f"the kernels take at most {MAX_POINTS} points a "
+                         f"node: T={T}")
+    if (isinstance(replication, torch.Tensor)
+            or not isinstance(replication, numbers.Real)):
+        raise TypeError(f"replication must be a Python number (a tensor "
+                        f"would need a host sync): {type(replication)}")
     if x.dtype == torch.float64:
         x = x.float()
         if mask.dtype == torch.float64:
@@ -108,7 +180,8 @@ def _check(x, mask, log_prior, Wn, b, c, shift, block_t):
     if block_t % step or not step <= block_t <= 256 * POINTS_PER_THREAD:
         raise ValueError(f"block_t must be a multiple of {step} in "
                          f"[{step}, {256 * POINTS_PER_THREAD}]: {block_t}")
-    if smem_bytes(K, D, block_t) > MAX_SMEM_BYTES:
+    if (kernel_variant(K, D) == "shared"
+            and smem_bytes(K, D, block_t) > MAX_SMEM_BYTES):
         raise ValueError(
             f"K={K}, D={D}, block_t={block_t} needs "
             f"{smem_bytes(K, D, block_t)} B of shared memory; a Hopper "
@@ -118,6 +191,7 @@ def _check(x, mask, log_prior, Wn, b, c, shift, block_t):
 
 def _launch(x, mask, log_prior, Wn, b, c, shift, replication, block_t,
             return_r):
+    """One kernel launch (`kernel_variant` picks it) on validated inputs."""
     N, T, D = x.shape
     K = log_prior.shape[-1]
     r = (torch.empty((N, T, K), dtype=torch.float32, device=x.device)
@@ -132,6 +206,8 @@ def _launch(x, mask, log_prior, Wn, b, c, shift, replication, block_t,
                      N, T, K, D, block_t, float(replication),
                      int(x.dtype == torch.bfloat16),
                      smem_bytes(K, D, block_t),
+                     0 if kernel_variant(K, D) == "registers" else 1,
+                     int(vector_loads(x, mask)),
                      torch.cuda.current_stream(x.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"gmm_estep_nodes kernel launch failed: "
@@ -155,9 +231,11 @@ def gmm_estep_nodes(x, mask, log_prior, Wn, b, c, replication=1.0, *,
     sum_xx (N, K, D, D)), the statistics scaled by `replication` (and
     centred on `shift`, when given).
 
-    CUDA tensors launch the kernel; CPU tensors run the plain version.
+    CUDA tensors launch one kernel (`kernel_variant` says which; `block_t`
+    is the shared path's tile); CPU tensors run the plain version.
     """
-    x, mask = _check(x, mask, log_prior, Wn, b, c, shift, block_t)
+    x, mask = _check(x, mask, log_prior, Wn, b, c, shift, block_t,
+                     replication)
     if x.device.type == "cpu":
         return gmm_estep_nodes_plain(x, mask, log_prior, Wn, b, c,
                                      replication, shift=shift,

@@ -186,3 +186,47 @@ def test_backend_resolution():
     assert mdl.with_backend("fused").backend.name == "fused"
     assert not fb.supports(tm.GMMModel(tx.noninformative_prior(2, 9),
                                        device="cpu"))
+
+
+@pytest.mark.parametrize("policy", ["f64_data", "bf16"])
+def test_fused_backend_casts_data_once_per_session(policy, monkeypatch):
+    """engine.vb_init casts the data to the kernel's streaming dtype once:
+    every iteration's kernel call receives the same tensor, already in that
+    dtype (f32 for f64 data; bf16 under the bf16 policy), and the KL
+    trajectory equals a run on data cast beforehand, which is what the
+    former per-iteration cast computed."""
+    from repro_torch.core import algorithms as ta
+    from repro_torch.core import network as tn
+    from repro_torch.kernels import ops
+    d = js.paper_synthetic(n_nodes=N, n_per_node=40, seed=5,
+                           dtype=np.float64)
+    x, mask = (torch.tensor(np.asarray(a)) for a in (d.x, d.mask))
+    prior = tx.noninformative_prior(K, D, beta0=0.1, w0_scale=10.0,
+                                    dtype=torch.float64)
+    adj, _ = tn.random_geometric_graph(N, seed=4)
+    W = tn.nearest_neighbor_weights(adj).double()
+    ref = tx.pack_natural(prior)
+    if policy == "bf16":
+        backend = tb.FusedBackend(precision=tb.PrecisionPolicy(
+            data_dtype=torch.bfloat16))
+        x, mask, want = x.float(), mask.float(), torch.bfloat16
+    else:
+        backend, want = tb.FusedBackend(), torch.float32
+    seen = []
+    kernel = ops.gmm_estep_nodes
+
+    def spy(xs, ms, *a, **kw):
+        seen.append((xs.dtype, ms.dtype, xs.data_ptr(), ms.data_ptr()))
+        return kernel(xs, ms, *a, **kw)
+
+    monkeypatch.setattr(ops, "gmm_estep_nodes", spy)
+    run = lambda xx, mm: ta.run_dsvb(xx, mm, W, prior, n_iters=6, K=K, D=D,
+                                     ref_phi=ref, backend=backend,
+                                     device="cpu")
+    got = run(x, mask)
+    assert len(seen) == 6
+    assert {s[:2] for s in seen} == {(want, want)}
+    assert len({s[2:] for s in seen}) == 1      # one copy, cast once
+    pre = run(x.to(want), mask.to(want))
+    assert torch.equal(got.kl_mean, pre.kl_mean)
+    assert torch.equal(got.phi, pre.phi)

@@ -62,7 +62,11 @@ def _check(got, want):
 
 @pytest.mark.parametrize("N,T,K,D", [
     (1, 100, 3, 2), (1, 257, 4, 5), (1, 64, 2, 8), (1, 500, 6, 3),
-    (4, 300, 32, 3), (64, 4096, 3, 2)])
+    (4, 300, 32, 3), (64, 4096, 3, 2),
+    # the register path's widest K at D = 2 and D = 1 and an unaligned T
+    # on it; K=8/D=2 and K=200/D=8 on the shared-memory path
+    (3, 1000, 4, 2), (2, 777, 8, 1), (2, 257, 3, 2), (3, 1000, 8, 2),
+    (2, 300, 200, 8)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("return_r", [True, False])
 @pytest.mark.parametrize("centred", [False, True])
@@ -92,6 +96,23 @@ def test_bit_invariance_and_determinism(cuda, centred):
         for g, w in zip(got[1:], base[1:]):
             assert torch.equal(g, w)
     for g, w in zip(again[1:], base[1:]):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vector_and_scalar_loads_agree_bitwise(cuda, dtype):
+    """x and mask starting off a 16-byte boundary take the scalar loads:
+    the same values, so the same bits as the vector loads."""
+    x, mask, *terms = _args(8, 1024, 3, 2, cuda, seed=5, dtype=dtype)
+    xs = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)[1:]
+    ms = torch.empty(mask.numel() + 1, dtype=dtype, device=cuda)[1:]
+    xs, ms = xs.view(x.shape), ms.view(mask.shape)
+    xs.copy_(x)
+    ms.copy_(mask)
+    assert ge.vector_loads(x, mask) and not ge.vector_loads(xs, ms)
+    want = ops.gmm_estep_nodes(x, mask, *terms, 3.0)
+    got = ops.gmm_estep_nodes(xs, ms, *terms, 3.0)
+    for g, w in zip(got, want):
         assert torch.equal(g, w)
 
 
