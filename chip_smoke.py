@@ -30,6 +30,25 @@ never JAX or the JAX package, and prints one JSON line per phase:
 6. profile — device-busy time by kernel over ten fused dSVB iterations
    against the host wall clock, and device kernels per iteration
    (torch.profiler);
+6a. gmm_wide_kernel_vs_plain — the wide-D kernel (D > 8) against the
+   plain version at Table II's (20 x 17, K=2, D=34) and Fig. 13's (10 x
+   14-43, K=2/4/6, D=52) node shapes, f32 and bf16 x, with and without a
+   shift, r on and off (tests/test_kernels.py's bars against an f64
+   evaluation of the same inputs; the share of those bars against the f32
+   plain version beside it), bit-equality under padding and across launches, and a
+   deployment shape (1000 sensors x 4096 points, K=2, D=34) timed by CUDA
+   events against its bound;
+6b. engine_remainder — at the main path's size, fused, f64 iterates: dSVB
+   on RingDiffusion, dSVB on Diffusion with link_drop=0.2, dVB-ADMM with
+   adaptive_rho, and with adaptive_rho + per_block + link_drop=0.2: ms
+   per iteration, one kernel launch per iteration, the Eq. 46 trajectory
+   against backend="reference" at rtol/atol 1e-4, the last
+   ConsensusDiagnostics;
+6c. paper_sec5 — every Sec. V figure and table of
+   repro_torch.experiments.paper_figures at its reduced size (each run
+   cut to SEC5_MAX_ITERS iterations), fused and reference backends on
+   the card: the derived strings beside BENCH_engine.json's rows, the two
+   backends' agreement, the wide kernel's launches (Table II, Fig. 13);
 7. lm_kernel_vs_plain — flash_attention and ssd_scan against their plain
    versions (and flash against scaled_dot_product_attention) at the
    tests/test_kernels.py shapes, a ragged S = 1000, the causality case and
@@ -68,10 +87,12 @@ import torch  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.configs.gmm_sensor import GMMSensorConfig  # noqa: E402
 from repro_torch.core import algorithms, expfam, gmm, network  # noqa: E402
+from repro_torch.core import engine as vb_engine  # noqa: E402
 from repro_torch.core import refperm  # noqa: E402
 from repro_torch.core.engine import kl_to_reference  # noqa: E402
 from repro_torch.core.model import GMMModel  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
+from repro_torch.experiments import paper_figures  # noqa: E402
 from repro_torch.kernels import build, gmm_estep, ops  # noqa: E402
 from repro_torch.kernels import flash_attention, ssd_scan  # noqa: E402
 from repro_torch.models import mamba2  # noqa: E402
@@ -99,12 +120,19 @@ def zero_launches():
     """Set every kernel's launch count to 0 (just before a path runs)."""
     for fn in (ops.gmm_estep_nodes, ops.flash_attention, ops.ssd_scan):
         fn.launches = 0
+    for variant in ops.gmm_estep_nodes.variant_launches:
+        ops.gmm_estep_nodes.variant_launches[variant] = 0
 
 
 def read_launches() -> dict:
     return {"gmm_estep_nodes": ops.gmm_estep_nodes.launches,
             "flash_attention": ops.flash_attention.launches,
             "ssd_scan": ops.ssd_scan.launches}
+
+
+def read_gmm_variant_launches() -> dict:
+    """gmm_estep_nodes' launches by kernel (register, shared, wide path)."""
+    return dict(ops.gmm_estep_nodes.variant_launches)
 
 
 def emit(phase: str, **fields):
@@ -176,13 +204,14 @@ def phase_device() -> dict:
 def _ptxas_table(report: str) -> list:
     """ptxas -v's registers / spills / shared memory per kernel instance
     (gmm_estep_regs_kernel<D, x dtype>, gmm_estep_smem_kernel<D, x dtype>,
-    flash_wgmma_kernel<hd> (bf16),
+    gmm_estep_wide_kernel<x dtype>, flash_wgmma_kernel<hd> (bf16),
     flash_simt_kernel<hd, f32>, ssd_states_kernel<dtype>, ssd_pass_kernel,
     ssd_chunk_scan_kernel<dtype>)."""
     rows, cur = [], None
     for ln in report.splitlines():
         m = re.search(r"Compiling entry function '.*?\d+((?:gmm_estep_regs|"
-                      r"gmm_estep_smem|flash_wgmma|flash_simt|ssd_states|"
+                      r"gmm_estep_smem|gmm_estep_wide|flash_wgmma|"
+                      r"flash_simt|ssd_states|"
                       r"ssd_pass|"
                       r"ssd_chunk_scan)_kernel)(I?)([^']*)'", ln)
         if m:
@@ -586,6 +615,343 @@ def phase_profile(inst, dev, n_iters: int = 10):
     emit("profile", estimator="dsvb", backend="fused", n_iters=n_iters,
          kernels_per_iter=prof["kernels_launched"] / n_iters,
          device_busy_ms_per_iter=prof["device_busy_ms"] / n_iters, **prof)
+
+
+# ---------------------------------------------------------------------------
+# 6a. the wide-D kernel (D > 8: the paper's real-data tables)
+# ---------------------------------------------------------------------------
+# Table II's and Fig. 13's node shapes (nodes, points a node, K, D)
+WIDE_CASES = ((20, 17, 2, 34), (10, 14, 2, 52), (10, 28, 4, 52),
+              (10, 43, 6, 52))
+# a deployment of Table II's model: 1000 sensors x 4096 points (x is
+# 0.56 GB in f32).  The plain version's intermediates at this shape
+# (N T K D^2 floats, 38 GB) do not fit beside it, so the kernel's result
+# is held against it on the first WIDE_PLAIN_NODES nodes (every node is
+# computed alone) and the plain version is timed over node chunks
+WIDE_DEPLOY = (1000, 4096, 2, 34)
+WIDE_PLAIN_NODES = 8
+WIDE_PLAIN_CHUNK = 25
+
+
+# At D = 34 and 52 two f32 versions of the E-step do not agree to
+# tests/test_kernels.py's bars (stated for its D <= 8 sweep): log rho is a
+# sum of D^2 products (|y' Wn y| ~ 1e3 on these terms), and the plain
+# version itself is up to 5e-5 (r) and 1.1e-3 (sum_x) off an f64
+# evaluation of the same inputs (on the CPU, at these cases' inputs).  The
+# wide kernel forms log rho in f64, so each wide case holds it to those
+# bars against the f64 evaluation (`gmm_estep_nodes_plain(...,
+# dtype=torch.float64)`); the share of the bars against the f32 plain
+# version is reported beside it.
+
+
+def _compare_vs_f64(got, plain, exact) -> tuple:
+    """Assert tests/test_kernels.py's tolerances against the f64
+    evaluation `exact`; returns (the max abs error against it, the worst
+    share of its bar an element uses, the worst share of the bars against
+    the f32 plain version)."""
+    err = share = share_plain = 0.0
+    for name, g, p, e in zip(("r", "R", "sum_x", "sum_xx"), got, plain,
+                             exact):
+        if g is None:
+            continue
+        rtol, atol = TOL[name]
+        diff = (g.double() - e).abs()
+        worst = float((diff / (atol + rtol * e.abs())).max())
+        if worst > 1.0:
+            raise AssertionError(
+                f"{name}: the kernel is {float(diff.max())} off the f64 "
+                f"evaluation ({worst} of its bar; the f32 plain version: "
+                f"{float((p.double() - e).abs().max())})")
+        err = max(err, float(diff.max()))
+        share = max(share, worst)
+        share_plain = max(share_plain, float(
+            ((g - p).abs() / (atol + rtol * p.abs())).max()))
+    return err, share, share_plain
+
+
+def _wide_bound(x, mask, terms, shift, K, D):
+    """(bound ms, by, bytes, flops) of one gmm_estep_nodes call without r
+    at D > 8: x and mask in their dtype, the f32 terms and shift read
+    once, the statistics written once; per point and component the
+    centring (D), y' Wn y as the tile product and row dot (2 D^2 + 2 D),
+    y.b (2 D), the combine and softmax (~10), r y (D), sum_x (D), the
+    upper triangle of sum_xx (D (D + 1)) and R (1): 3 D^2 + 8 D + 11."""
+    N, T = mask.shape
+    n_bytes = (x.numel() * x.element_size()
+               + mask.numel() * mask.element_size()
+               + sum(t.numel() * 4 for t in (*terms, shift))
+               + N * (K + K * D + K) * D * 4)
+    flops = N * T * K * (3 * D * D + 8 * D + 11)
+    bound = {"bytes": n_bytes / PEAK_BYTES_PER_S * 1e3,
+             "operations": flops / PEAK_F32_FLOP_PER_S * 1e3}
+    by = max(bound, key=bound.get)
+    return bound[by], by, n_bytes, flops
+
+
+def phase_gmm_wide_kernel_vs_plain(dev) -> dict:
+    rng = np.random.default_rng(15)
+    cases = []
+    for N, T, K, D in WIDE_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.tensor(rng.normal(size=(N, T, D)) * 2, dtype=dtype,
+                             device=dev)
+            mask = torch.tensor(rng.random((N, T)) > 0.2, dtype=dtype,
+                                device=dev)
+            terms = _random_terms(N, K, D, dev, rng)
+            shift = torch.tensor(rng.normal(size=(N, K, D)),
+                                 dtype=torch.float32, device=dev)
+            for return_r, s in ((True, None), (False, None), (True, shift),
+                                (False, shift)):
+                args = (x, mask, *terms, 3.0)
+                err, share, share_plain = _compare_vs_f64(
+                    ops.gmm_estep_nodes(*args, shift=s, return_r=return_r),
+                    gmm_estep.gmm_estep_nodes_plain(
+                        *args, shift=s, return_r=return_r),
+                    gmm_estep.gmm_estep_nodes_plain(
+                        *args, shift=s, return_r=return_r,
+                        dtype=torch.float64))
+                cases.append({"shape": [N, T, K, D], "x": str(dtype)[6:],
+                              "variant": gmm_estep.kernel_variant(K, D),
+                              "return_r": return_r, "shift": s is not None,
+                              "max_abs_err_vs_f64": err,
+                              "bar_share_vs_f64": share,
+                              "bar_share_vs_plain": share_plain})
+    # bit equality: trailing zero padding (1, 64, 500 points) and two
+    # launches, plain and centred, at Fig. 13's widest K
+    x, mask = (torch.tensor(a, dtype=torch.float32, device=dev) for a in
+               (rng.normal(size=(6, 200, 52)), rng.random((6, 200)) > 0.2))
+    terms = _random_terms(6, 6, 52, dev, rng)
+    pad_equal = repeat_equal = True
+    for s in (None, torch.full((6, 6, 52), 0.5, device=dev)):
+        base = ops.gmm_estep_nodes(x, mask, *terms, 5.0, shift=s,
+                                   return_r=False)
+        again = ops.gmm_estep_nodes(x, mask, *terms, 5.0, shift=s,
+                                    return_r=False)
+        repeat_equal &= all(torch.equal(a, b)
+                            for a, b in zip(base[1:], again[1:]))
+        for pad in (1, 64, 500):
+            padded = ops.gmm_estep_nodes(
+                torch.cat([x, x.new_zeros(6, pad, 52)], 1),
+                torch.cat([mask, mask.new_zeros(6, pad)], 1), *terms, 5.0,
+                shift=s, return_r=False)
+            pad_equal &= all(torch.equal(a, b)
+                             for a, b in zip(base[1:], padded[1:]))
+    torch.cuda.synchronize()
+    if not (pad_equal and repeat_equal):
+        raise AssertionError("the wide gmm_estep kernel is not "
+                             "bit-invariant")
+
+    # the deployment shape: against the plain version on the first nodes,
+    # then timed (CUDA events) against its bound, f32 and bf16 x
+    N, T, K, D = WIDE_DEPLOY
+    gen = torch.Generator(dev).manual_seed(15)
+    x32 = torch.randn(N, T, D, generator=gen, device=dev) * 2
+    m32 = (torch.rand(N, T, generator=gen, device=dev) > 0.1).float()
+    terms = _random_terms(N, K, D, dev, rng)
+    shift = torch.randn(N, K, D, generator=gen, device=dev)
+    n0 = WIDE_PLAIN_NODES
+    timed, deploy_err = {}, {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        x, mask = x32.to(dtype), m32.to(dtype)
+        got = ops.gmm_estep_nodes(x, mask, *terms, 1.0, shift=shift,
+                                  return_r=False)
+        first = (x[:n0], mask[:n0], *(t[:n0] for t in terms), 1.0)
+        err, share, share_plain = _compare_vs_f64(
+            [None] + [g[:n0] for g in got[1:]],
+            gmm_estep.gmm_estep_nodes_plain(*first, shift=shift[:n0],
+                                            return_r=False),
+            gmm_estep.gmm_estep_nodes_plain(*first, shift=shift[:n0],
+                                            return_r=False,
+                                            dtype=torch.float64))
+        deploy_err[name] = {"max_abs_err_vs_f64": err,
+                            "bar_share_vs_f64": share,
+                            "bar_share_vs_plain": share_plain}
+        ms = time_ms(lambda: ops.gmm_estep_nodes(
+            x, mask, *terms, 1.0, shift=shift, return_r=False), 5)
+        bound, by, n_bytes, flops = _wide_bound(x, mask, terms, shift, K, D)
+        timed[name] = {"ms": ms, "bound_ms": bound, "bound_by": by,
+                       "bytes": n_bytes, "flops": flops,
+                       "fraction_of_bound": bound / ms,
+                       "achieved_TFLOPs": flops / ms / 1e9,
+                       "achieved_GBps": n_bytes / ms / 1e6}
+    del got
+
+    def plain_all():
+        for i in range(0, N, WIDE_PLAIN_CHUNK):
+            j = slice(i, i + WIDE_PLAIN_CHUNK)
+            gmm_estep.gmm_estep_nodes_plain(
+                x32[j], m32[j], *(t[j] for t in terms), 1.0, shift=shift[j],
+                return_r=False)
+
+    plain_ms = time_ms(plain_all, 1)
+    main = timed["f32"]
+    out = {"ms": main["ms"], "plain_ms": plain_ms,
+           "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+           "max_abs_err": max([c["max_abs_err_vs_f64"] for c in cases]
+                              + [e["max_abs_err_vs_f64"]
+                                 for e in deploy_err.values()])}
+    emit("gmm_wide_kernel_vs_plain", tolerance=TOL, cases=cases,
+         worst_bar_share_vs_f64=max(c["bar_share_vs_f64"] for c in cases),
+         worst_bar_share_vs_plain=max(c["bar_share_vs_plain"]
+                                      for c in cases),
+        padding_bit_equal=pad_equal, launches_bit_equal=repeat_equal,
+        deployment={"shape": list(WIDE_DEPLOY),
+                    "variant": gmm_estep.kernel_variant(K, D),
+                    "vs_plain_first_nodes": n0, "vs_plain": deploy_err,
+                    "by_dtype": timed, "plain_ms": plain_ms,
+                    "plain_chunk_nodes": WIDE_PLAIN_CHUNK,
+                    "smem_bytes": gmm_estep.wide_smem_bytes(K, D)},
+        **{k: out[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
+    del x32, m32, x, mask
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 6b. the engine's remaining dense topologies and ADMM options at full size
+# ---------------------------------------------------------------------------
+REMAINDER_ITERS = 50
+REMAINDER_CASES = ("dsvb_ring", "dsvb_link_drop", "admm_adaptive",
+                   "admm_adaptive_per_block_link_drop")
+
+
+def _remainder_run(name, inst, backend, dev):
+    cfg, x, mask, adj, W, prior, ref, init_q = inst
+    kw = dict(n_iters=REMAINDER_ITERS, K=cfg.K, D=cfg.D, ref_phi=ref,
+              init_q=init_q, backend=backend, device=dev)
+    if name == "dsvb_ring":
+        mdl = GMMModel(prior, cfg.K, cfg.D, backend=backend, device=dev)
+        phi0 = expfam.pack_natural(init_q).expand(x.shape[0], mdl.flat_dim)
+        return vb_engine.run_vb(
+            mdl, (x, mask), vb_engine.RingDiffusion(),
+            n_iters=REMAINDER_ITERS,
+            schedule=vb_engine.Schedule(tau=cfg.tau, d0=cfg.d0),
+            init_phi=phi0, ref_phi=ref, device=dev)
+    if name == "dsvb_link_drop":
+        return algorithms.run_dsvb(x, mask, W, prior, tau=cfg.tau, d0=cfg.d0,
+                                   link_drop=0.2, link_seed=SEED, **kw)
+    extra = ({} if name == "admm_adaptive" else
+             dict(per_block=True, link_drop=0.2, link_seed=SEED))
+    return algorithms.run_dvb_admm(x, mask, adj, prior, rho=cfg.rho,
+                                   xi=cfg.xi, adaptive_rho=True, **extra,
+                                   **kw)
+
+
+def _last_diag(run) -> dict | None:
+    d = run.consensus_diag
+    if d is None:
+        return None
+    return {f: getattr(d, f)[-1].tolist()
+            for f in ("rho", "dual_on", "clip_count", "reset_count",
+                      "link_frac", "kappa")}
+
+
+def phase_engine_remainder(inst, dev) -> dict:
+    _remainder_run("dsvb_ring", inst, "fused", dev)       # warm-up
+    torch.cuda.synchronize()
+    fused, out = {}, {}
+    zero_launches()                                 # this path's window
+    for name in REMAINDER_CASES:
+        before = ops.gmm_estep_nodes.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run = fused[name] = _remainder_run(name, inst, "fused", dev)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / REMAINDER_ITERS
+        launched = ops.gmm_estep_nodes.launches - before
+        out[name] = {"ms_per_iter": ms, "launches": launched,
+                     "finite": bool(torch.isfinite(run.phi).all()
+                                    and torch.isfinite(run.kl_mean).all())}
+        if launched != REMAINDER_ITERS or not out[name]["finite"]:
+            raise AssertionError(f"{name}: {out[name]}")
+    launches = read_launches()
+    for name in REMAINDER_CASES:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref_run = _remainder_run(name, inst, "reference", dev)
+        torch.cuda.synchronize()
+        run = fused[name]
+        rel = float(((run.kl_mean - ref_run.kl_mean).abs()
+                     / ref_run.kl_mean.abs().clamp_min(1e-30)).max())
+        out[name].update(
+            reference_ms_per_iter=(time.perf_counter() - t0) * 1e3
+            / REMAINDER_ITERS, max_rel_kl_diff=rel,
+            kl_first=float(run.kl_mean[0]), kl_last=float(run.kl_mean[-1]),
+            kl_last_reference=float(ref_run.kl_mean[-1]),
+            diag_last=_last_diag(run), diag_last_reference=_last_diag(
+                ref_run))
+        emit("engine_remainder", case=name, n_iters=REMAINDER_ITERS,
+             backend="fused", **out[name])
+        torch.testing.assert_close(run.kl_mean, ref_run.kl_mean, rtol=1e-4,
+                                   atol=1e-4)
+    return {"launches": launches["gmm_estep_nodes"]}
+
+
+# ---------------------------------------------------------------------------
+# 6c. the paper's Sec. V experiments through the port
+# ---------------------------------------------------------------------------
+# every estimator run of a figure is cut to this many iterations, to keep
+# the script's time (the reduced sizes are the reference's: nothing else
+# is cut; PERF.md lists each figure's nominal count)
+SEC5_MAX_ITERS = {"fig3_tau_sweep": 150, "fig4_convergence": 300,
+                  "fig7_rho_sweep": 150, "fig8_admm_vs_dsvb": 300,
+                  "fig9_imbalance": 200, "fig10_network_size": 200,
+                  "table1_atmosphere": 200, "table2_ionosphere": 100,
+                  "fig13_coil20": 60}
+# strings the two backends must give alike; the other derived numbers
+# (ratios, accuracies) may differ by at most SEC5_NUM_TOL
+SEC5_EXACT = ("fig3_tau_sweep", "fig7_rho_sweep", "fig10_network_size")
+SEC5_NUM_TOL = 0.01
+
+
+def _numbers(derived: str) -> list:
+    return [float(v) for v in re.findall(r"-?\d+\.?\d*(?:e-?\d+)?",
+                                         derived)]
+
+
+def phase_paper_sec5(dev) -> dict:
+    with open(os.path.join(HERE, "BENCH_engine.json")) as f:
+        bench = json.load(f)["results"]
+    rows = {fn.__name__: {} for fn in paper_figures.ALL}
+    launches = None
+    for backend in ("fused", "reference"):
+        results = {}             # fig4 reads fig3's tau from here
+        if backend == "fused":
+            zero_launches()                         # this path's window
+        for fn in paper_figures.ALL:
+            t0 = time.perf_counter()
+            (name, us, derived), = fn(
+                False, backend=backend, device=dev,
+                max_iters=SEC5_MAX_ITERS[fn.__name__], results=results)
+            rows[name][backend] = {"derived": derived,
+                                   "us_per_iter_last_run": us,
+                                   "seconds": time.perf_counter() - t0}
+        if backend == "fused":
+            launches = {**read_launches(),
+                        "gmm_estep_nodes_by_variant":
+                            read_gmm_variant_launches()}
+    bad = []
+    for name, r in rows.items():
+        f, g = r["fused"]["derived"], r["reference"]["derived"]
+        a, b = _numbers(f), _numbers(g)
+        agree = (f == g if name in SEC5_EXACT else
+                 len(a) == len(b) and all(abs(u - v) <= SEC5_NUM_TOL + 1e-9
+                                          for u, v in zip(a, b)))
+        r.update(bench_engine_json=bench.get(name, {}).get("derived"),
+                 agree=agree)
+        emit("paper_sec5", figure=name, max_iters=SEC5_MAX_ITERS[name],
+             **r)
+        if not agree:
+            bad.append(name)
+    wide = launches["gmm_estep_nodes_by_variant"]["wide"]
+    emit("paper_sec5_launches", **launches)
+    if bad:
+        raise AssertionError(f"fused and reference backends disagree on "
+                             f"{bad}")
+    if wide == 0:
+        raise AssertionError("Table II / Fig. 13 did not launch the wide "
+                             "gmm_estep kernel")
+    return {"wide_launches": wide, "launches": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -1032,8 +1398,11 @@ def main():
     mp = phase_main_path(inst, dev, ptxas["gmm_estep"])
     phase_small_vs_cpu(dev)
     phase_profile(inst, dev)
+    phase_engine_remainder(inst, dev)
     del inst, x, mask
     torch.cuda.empty_cache()
+    wide = phase_gmm_wide_kernel_vs_plain(dev)
+    sec5 = phase_paper_sec5(dev)
 
     lm_err = phase_lm_kernel_vs_plain(dev)
     yi = phase_lm_serve("yi_6b", "flash_attention", dev)
@@ -1053,6 +1422,16 @@ def main():
         "max_err": mp["max_abs_err"], "ms": mp["ms"],
         "plain_ms": mp["plain_ms"], "bound_ms": mp["bound_ms"],
         "bound_by": mp["bound_by"], "library_ms": None}, {
+        # the same function's wide path (D > 8): launched on the Sec. V
+        # path (Table II, Fig. 13), timed at WIDE_DEPLOY
+        "name": "gmm_estep_nodes_wide", "route": "cuda",
+        "source": "src/repro_torch/csrc/gmm_estep.cu",
+        "replaces": "src/repro/kernels/gmm_estep.py:118",
+        "launches": sec5["wide_launches"],
+        "max_abs_err": wide["max_abs_err"], "max_err": wide["max_abs_err"],
+        "ms": wide["ms"], "plain_ms": wide["plain_ms"],
+        "bound_ms": wide["bound_ms"], "bound_by": wide["bound_by"],
+        "library_ms": None}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:84",

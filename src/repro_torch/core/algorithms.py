@@ -9,11 +9,15 @@ Bayesian-GMM model composed with a topology:
 * dSVB       — Algorithm 1: Schedule(tau, d0) (27a) + Diffusion (27b)
 * dVB-ADMM   — Algorithm 2: ADMMConsensus (38a [+38b], 39, 40)
 
-There are no random draws here: the reference's `_perturbed_init` draws
-from `jax.random`, so the initial posterior is an argument (`init_q`,
-default the prior).  `device=None` runs on the CUDA device.
+The initial posterior is an argument (`init_q`, default the prior).  The
+reference's random restart `_perturbed_init` draws from `jax.random`,
+which torch cannot reproduce: `perturbed_init` takes the (K, D) uniform
+draws explicitly (the reference's, for parity), or draws them from a
+`torch.Generator`.  `device=None` runs on the CUDA device.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.core import engine, expfam
 from repro_torch.core import model as model_lib
@@ -21,6 +25,24 @@ from repro_torch.core.engine import (  # noqa: F401  (re-exported API)
     VBRun, eta_schedule, kappa_schedule,
 )
 from repro_torch.core.expfam import GMMPosterior
+
+
+def perturbed_init(prior: GMMPosterior, x, u=None, *, spread: float = 1.0,
+                   generator: torch.Generator | None = None) -> GMMPosterior:
+    """Random-restart initialisation: the prior with its means scattered
+    over the data range, m = lo + (hi - lo) u for (K, D) uniform draws u
+    (`lo`, `hi` the per-coordinate min and max of x, padding included, as
+    in the reference).  `u` given: those draws (the reference's
+    `jax.random.uniform(key, (K, D))`, for parity); None: drawn from
+    `generator` on the CPU."""
+    K, D = prior.K, prior.D
+    xf = engine._as_tensor(x).reshape(-1, D).to(prior.m.device)
+    lo, hi = xf.amin(0), xf.amax(0)
+    if u is None:
+        u = torch.rand((K, D), generator=generator, dtype=prior.m.dtype)
+    u = engine._as_tensor(u).to(prior.m)
+    m = lo + (hi - lo) * u
+    return prior._replace(m=prior.m + spread * (m - prior.m))
 
 
 def _gmm_run(x, mask, prior, topology, schedule, *, n_iters, K, D,
@@ -74,9 +96,13 @@ def run_nsg_dvb(x, mask, weights, prior: GMMPosterior, *, n_iters: int,
 def run_dsvb(x, mask, weights, prior: GMMPosterior, *, n_iters: int,
              K: int, D: int, tau: float = 0.2, d0: float = 1.0,
              ref_phi=None, init_q: GMMPosterior | None = None,
-             backend=None, device=None) -> VBRun:
-    """dSVB — Algorithm 1 (stochastic natural gradient + diffusion)."""
-    return _gmm_run(x, mask, prior, engine.Diffusion(weights),
+             backend=None, link_drop: float = 0.0, link_seed: int = 0,
+             device=None) -> VBRun:
+    """dSVB — Algorithm 1 (stochastic natural gradient + diffusion);
+    `link_drop` fails each link with that probability per iteration."""
+    topology = engine.Diffusion(weights, link_drop=link_drop,
+                                link_seed=link_seed)
+    return _gmm_run(x, mask, prior, topology,
                     engine.Schedule(tau=tau, d0=d0), n_iters=n_iters,
                     K=K, D=D, ref_phi=ref_phi, init_q=init_q,
                     backend=backend, device=device)
@@ -89,16 +115,22 @@ def run_dvb_admm(x, mask, adj, prior: GMMPosterior, *, n_iters: int,
                  dual_warmup: bool | str = "auto",
                  dual_reset: float | None | str = "auto",
                  ref_phi=None, init_q: GMMPosterior | None = None,
-                 backend=None, device=None) -> VBRun:
-    """dVB-ADMM — Algorithm 2; defaults are the paper verbatim.  The
-    per-iteration `ConsensusDiagnostics` come back on
-    `VBRun.consensus_diag`.  The adaptive options raise until ported."""
+                 backend=None, link_drop: float = 0.0, link_seed: int = 0,
+                 device=None) -> VBRun:
+    """dVB-ADMM — Algorithm 2; defaults are the paper verbatim.
+    `adaptive_rho=True` is the convergent adaptive-penalty configuration
+    (residual balancing + dual warmup + dual reset); `link_drop` fails
+    each link with that probability per iteration.  The per-iteration
+    `ConsensusDiagnostics` come back on `VBRun.consensus_diag`.
+    Finer-grained knobs: `engine.run_vb` with an `engine.ADMMConsensus`."""
     topology = engine.ADMMConsensus(adj, rho=rho, xi=xi, project=project,
                                     lam_max=lam_max,
                                     adaptive_rho=adaptive_rho,
                                     per_block=per_block,
                                     dual_warmup=dual_warmup,
-                                    dual_reset=dual_reset)
+                                    dual_reset=dual_reset,
+                                    link_drop=link_drop,
+                                    link_seed=link_seed)
     return _gmm_run(x, mask, prior, topology, engine.Schedule(),
                     n_iters=n_iters, K=K, D=D, ref_phi=ref_phi,
                     init_q=init_q, backend=backend, device=device)

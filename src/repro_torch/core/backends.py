@@ -111,11 +111,13 @@ class FusedBackend:
     name: str = dataclasses.field(default="fused", init=False)
 
     def supports(self, model) -> bool:
-        """The kernel implements exactly the GMM E-step (models tag their
-        hot-path family with `kernel_family`) for D <= MAX_D."""
-        from repro_torch.kernels.gmm_estep import MAX_D
+        """The kernels implement exactly the GMM E-step (models tag their
+        hot-path family with `kernel_family`) at every (K, D) they take
+        (`kernels.gmm_estep.supported`: all but the wide path's shapes past
+        a block's shared memory, e.g. K > 12 at D = 64)."""
+        from repro_torch.kernels.gmm_estep import supported
         return (getattr(model, "kernel_family", None) == "gmm"
-                and getattr(model, "D", 0) <= MAX_D)
+                and supported(getattr(model, "K", 0), getattr(model, "D", 0)))
 
     def stream_data(self, x, mask):
         """x and mask in the kernel's streaming dtype: the policy's

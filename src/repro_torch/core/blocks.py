@@ -1,13 +1,15 @@
 """Composable exponential-family blocks — the model layer's building bricks.
 
-Port of `repro.core.blocks` for the GMM's two families.  A
+Port of `repro.core.blocks`: the GMM's two families and the Normal-Gamma
+bank of the linear-regression instance.  A
 conjugate-exponential global posterior factorises into independent
 exponential-family *blocks*; the flat Eq. 45 message, the Eq. 38b
 projection, the Eq. 46 KL and the per-block labels are concatenations of
 per-block quantities:
 
 * `ExpFamBlock` names the per-block surface;
-* `DirichletBlock` and `NormalWishartBlock` are the GMM's families;
+* `DirichletBlock` and `NormalWishartBlock` are the GMM's families,
+  `NormalGammaBlock` the linear-regression instance's;
 * `BlockModel` derives the `model.ConjugateExpModel` surface from a block
   tuple.
 
@@ -22,8 +24,9 @@ from typing import Any, Protocol, runtime_checkable
 import numpy as np
 import torch
 
-from repro_torch.core import backends, expfam
+from repro_torch.core import backends, expfam, linreg
 from repro_torch.core.expfam import NWParams
+from repro_torch.core.linreg import NGPosterior
 
 
 @runtime_checkable
@@ -159,6 +162,53 @@ class NormalWishartBlock:
 
     def kl(self, x: torch.Tensor, x_ref: torch.Tensor) -> torch.Tensor:
         return expfam.nw_kl(self.unpack(x), self.unpack(x_ref))
+
+
+@dataclasses.dataclass(frozen=True)
+class NormalGammaBlock:
+    """Bank of `rows` independent Normal-Gamma factors over D coefficients
+    (rows=1 is Bayesian linear regression).  Hyper container:
+    `linreg.NGPosterior` with a rows axis before each field's own axes
+    (m (..., rows, D), V (..., rows, D, D), a and b (..., rows)); flat
+    layout per row: [n1, n2, n3 (D), vec(n4)].
+
+    `project` is the identity: consensus averages of Normal-Gamma
+    naturals stay in the domain."""
+
+    D: int
+    rows: int = 1
+
+    @property
+    def dim(self) -> int:
+        return self.rows * linreg.flat_dim(self.D)
+
+    @property
+    def label_names(self) -> tuple:
+        return linreg.BLOCK_NAMES
+
+    def labels(self) -> np.ndarray:
+        return np.tile(linreg.block_labels(self.D), self.rows)
+
+    def pack(self, h: NGPosterior) -> torch.Tensor:
+        return linreg.pack(h).flatten(-2)
+
+    def unpack(self, x: torch.Tensor) -> NGPosterior:
+        rows = x.reshape(x.shape[:-1] + (self.rows, linreg.flat_dim(self.D)))
+        return linreg.unpack(rows, self.D)
+
+    def log_partition(self, h: NGPosterior) -> torch.Tensor:
+        return linreg.log_partition(h).sum(-1)
+
+    def expected_stats(self, h: NGPosterior) -> torch.Tensor:
+        e_loglam, e_lam, e_lw, e_lww = linreg.expected_stats(h)
+        return torch.cat([e_loglam[..., None], e_lam[..., None], e_lw,
+                          e_lww.flatten(-2)], -1).flatten(-2)
+
+    def project(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def kl(self, x: torch.Tensor, x_ref: torch.Tensor) -> torch.Tensor:
+        return linreg.kl(self.unpack(x), self.unpack(x_ref)).sum(-1)
 
 
 class BlockModel:

@@ -22,6 +22,13 @@ per-iteration quantity is a function of the absolute t, so
 `vb_run(s, a + b)` equals `vb_run(vb_run(s, a)[0], b)` bit for bit.
 `run_vb` is the one-shot wrapper.
 
+Time-varying networks: `Diffusion`, `RingDiffusion` and `ADMMConsensus`
+take `link_drop` / `link_mask_fn` (`_LinkSchedule`); the coins are drawn
+per iteration from a generator seeded from (link_seed, t) on the run's
+device.  `ADMMConsensus` carries the reference's adaptive-penalty
+subsystem (residual balancing, per-block penalties, dual warmup, dual
+reset), written as tensor ops with no host sync in the step.
+
 The node axis is a plain tensor axis throughout (no Python loop over
 nodes).  Options of the reference that this port does not carry yet raise
 `NotImplementedError` naming the ROADMAP item that ports them.
@@ -36,6 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_lib
+from repro_torch.core import network as network_lib
 
 
 def _not_ported(what: str, item: int):
@@ -92,10 +100,95 @@ def _as_tensor(a) -> torch.Tensor:
         np.asarray(a))
 
 
-def _no_links(link_drop, link_mask_fn):
-    if link_drop or link_mask_fn is not None:
-        raise _not_ported("time-varying links (link_drop / link_mask_fn)",
-                          8)
+# ---------------------------------------------------------------------------
+# Residual balancing (Boyd et al. Sec. 3.4.1)
+# ---------------------------------------------------------------------------
+def residual_balanced_rho(rho, r_norm, s_norm, *, mu: float = 10.0,
+                          tau_incr: float = 2.0, tau_decr: float = 2.0,
+                          rho_min: float = 1e-3, rho_max: float = 1e3):
+    """One residual-balancing update of the ADMM penalty: grow rho by
+    `tau_incr` where the primal residual dominates (||r|| > mu ||s||),
+    shrink it by `tau_decr` where the dual residual dominates
+    (||s|| > mu ||r||), else keep it; clip to [rho_min, rho_max].  Shapes
+    broadcast (rho may be a scalar or a per-block vector); tensor ops
+    only, so no host sync.
+
+    >>> one = torch.tensor(1.0)
+    >>> [float(residual_balanced_rho(one, torch.tensor(r), torch.tensor(s)))
+    ...  for r, s in ((100.0, 1.0), (1.0, 100.0), (1.0, 2.0))]
+    [2.0, 0.5, 1.0]
+    """
+    rho = _as_tensor(rho)
+    r_norm = torch.as_tensor(r_norm, dtype=rho.dtype, device=rho.device)
+    s_norm = torch.as_tensor(s_norm, dtype=rho.dtype, device=rho.device)
+    grow = r_norm > mu * s_norm
+    shrink = s_norm > mu * r_norm
+    fac = torch.where(grow, torch.full_like(r_norm, tau_incr),
+                      torch.where(shrink,
+                                  torch.full_like(r_norm, 1.0 / tau_decr),
+                                  torch.ones_like(r_norm)))
+    return torch.clamp(rho * fac, rho_min, rho_max)
+
+
+# ---------------------------------------------------------------------------
+# Time-varying links (failing sensor links, Sec. II's unreliable networks)
+# ---------------------------------------------------------------------------
+class _LinkSchedule:
+    """Per-iteration link-failure schedule shared by the topologies.
+
+    Two forms, mutually exclusive:
+
+    * `link_drop` — every undirected link independently fails with this
+      probability each iteration, the coins drawn on the run's device from
+      `network.link_generator(link_seed, t)` (`network.link_keep_matrix`,
+      `network.ring_link_keep`), so a split run replays them.
+    * `link_mask_fn(t)` — an explicit keep-mask sequence: the iteration-t
+      keep mask, (N, N) 0/1 symmetric for graph topologies, (N,) per ring
+      edge for `RingDiffusion` (a tensor or an array; it is moved to the
+      run's device).
+
+    With neither set the topology is static and takes the time-invariant
+    code path unchanged.
+    """
+
+    def __init__(self, link_drop: float = 0.0, link_seed: int = 0,
+                 link_mask_fn=None):
+        if link_drop and link_mask_fn is not None:
+            raise ValueError("pass link_drop OR link_mask_fn, not both")
+        if not 0.0 <= link_drop <= 1.0:
+            raise ValueError(f"link_drop must be a probability: {link_drop}")
+        self.link_drop = float(link_drop)
+        self.link_seed = int(link_seed)
+        self.link_mask_fn = link_mask_fn
+        self.time_varying = bool(link_drop) or link_mask_fn is not None
+
+    @staticmethod
+    def _require_t(t):
+        if t is None:
+            raise ValueError(
+                "time-varying links need the iteration index: call "
+                "combine(..., t=<iteration>) (run_vb supplies it)")
+        return int(t)
+
+    def _given(self, t, dtype, device):
+        return _as_tensor(self.link_mask_fn(t)).to(device=device,
+                                                   dtype=dtype)
+
+    def keep_matrix(self, t, n: int, dtype, device) -> torch.Tensor:
+        t = self._require_t(t)
+        if self.link_mask_fn is not None:
+            return self._given(t, dtype, device)
+        return network_lib.link_keep_matrix(
+            network_lib.link_generator(self.link_seed, t, device), n,
+            self.link_drop, dtype)
+
+    def keep_ring(self, t, n: int, dtype, device) -> torch.Tensor:
+        t = self._require_t(t)
+        if self.link_mask_fn is not None:
+            return self._given(t, dtype, device)
+        return network_lib.ring_link_keep(
+            network_lib.link_generator(self.link_seed, t, device), n,
+            self.link_drop, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -157,27 +250,88 @@ class Diffusion(_CombineTopology):
     """Diffusion combine phi_i <- sum_j w_ij varphi_j (Eq. 27b) with a
     dense row-stochastic (N, N) weight matrix (e.g. Eq. 47).
 
+    `link_drop` / `link_mask_fn` make the network time-varying: each
+    iteration the surviving entries are renormalised per row (for Eq. 47
+    weights that is Eq. 47 on the surviving graph), so the combine stays
+    row-stochastic over whatever links are up.
+
     >>> W = torch.tensor([[0.5, 0.5], [0.5, 0.5]])
     >>> Diffusion(W).combine(torch.tensor([[0.0], [4.0]])).tolist()
     [[2.0], [2.0]]
+    >>> dead = Diffusion(W, link_mask_fn=lambda t: torch.eye(2))
+    >>> dead.combine(torch.tensor([[0.0], [4.0]]), t=0).tolist()
+    [[0.0], [4.0]]
     """
 
     def __init__(self, weights, *, link_drop: float = 0.0,
                  link_seed: int = 0, link_mask_fn=None):
-        _no_links(link_drop, link_mask_fn)
         if hasattr(weights, "graph"):
             raise _not_ported("sparse SparseWeights combines", 11)
         self.weights = _as_tensor(weights)
+        self.links = _LinkSchedule(link_drop, link_seed, link_mask_fn)
+
+    def _effective_weights(self, W, t):
+        """Iteration t's weights: drop-masked, row-renormalised.  A node
+        never loses itself (the keep diagonal is forced to 1), so a row
+        whose links are all down becomes the identity combine."""
+        n = W.shape[0]
+        keep = self.links.keep_matrix(t, n, W.dtype, W.device)
+        keep = torch.maximum(keep, torch.eye(n, dtype=W.dtype,
+                                             device=W.device))
+        W_eff = W * keep
+        rows = W_eff.sum(1, keepdim=True)
+        return W_eff / torch.where(rows > 0, rows, torch.ones_like(rows))
 
     def combine(self, varphi, *, t=None):
-        return self.weights.to(varphi.dtype) @ varphi
+        W = self.weights.to(varphi.dtype)
+        if self.links.time_varying:
+            W = self._effective_weights(W, t)
+        return W @ varphi
 
 
 class RingDiffusion(_CombineTopology):
-    """Diffusion on the cycle graph — not ported yet."""
+    """Diffusion on the cycle graph: each node keeps `w_self` and takes
+    (1 - w_self) / 2 from each ring neighbour (Eq. 47 on a cycle at
+    w_self = 1/3), as two `torch.roll`s and a weighted sum.
 
-    def __init__(self, *args, **kwargs):
-        raise _not_ported("RingDiffusion", 8)
+    >>> varphi = torch.tensor([[4.0], [8.0], [12.0]])
+    >>> RingDiffusion(w_self=0.5).combine(varphi).tolist()
+    [[7.0], [8.0], [9.0]]
+
+    Under `link_drop` / `link_mask_fn` (an (N,) mask, entry i gating the
+    link (i, i+1 mod N)) the weights renormalise over the surviving links;
+    a node with both links down and w_self = 0 keeps its iterate.  The
+    edge-list form (`graph=`) waits for the sparse topologies.
+    """
+
+    def __init__(self, w_self: float = 1.0 / 3.0, *, link_drop: float = 0.0,
+                 link_seed: int = 0, link_mask_fn=None, graph=None):
+        if graph is not None:
+            raise _not_ported("RingDiffusion over a SparseGraph (graph=)",
+                              11)
+        self.w_self = w_self
+        self.links = _LinkSchedule(link_drop, link_seed, link_mask_fn)
+
+    def _gated(self, varphi, left, right, e_left, e_right):
+        """The combine over the surviving ring links only, renormalised
+        (row-stochastic every iteration)."""
+        w_n = (1.0 - self.w_self) / 2.0
+        num = (self.w_self * varphi
+               + w_n * (e_left[:, None] * left + e_right[:, None] * right))
+        den = self.w_self + w_n * (e_left + e_right)
+        isolated = den <= 0.0
+        safe = torch.where(isolated, torch.ones_like(den), den)
+        return torch.where(isolated[:, None], varphi, num / safe[:, None])
+
+    def combine(self, varphi, *, t=None):
+        left = torch.roll(varphi, 1, dims=0)             # phi_{i-1}
+        right = torch.roll(varphi, -1, dims=0)           # phi_{i+1}
+        if not self.links.time_varying:
+            w_n = (1.0 - self.w_self) / 2.0
+            return self.w_self * varphi + w_n * (left + right)
+        n = varphi.shape[0]
+        e = self.links.keep_ring(t, n, varphi.dtype, varphi.device)
+        return self._gated(varphi, left, right, torch.roll(e, 1, dims=0), e)
 
 
 class ConsensusDiagnostics(NamedTuple):
@@ -205,7 +359,9 @@ class ConsensusDiagnostics(NamedTuple):
 
 
 class ADMMConsensus(_CombineTopology):
-    """Consensus ADMM in natural-parameter space, Algorithm 2 verbatim.
+    """Consensus ADMM in natural-parameter space (Algorithm 2), plus the
+    reference's adaptive-penalty subsystem (all off by default, which
+    keeps Algorithm 2 verbatim).
 
     Per iteration and node i with neighbours N_i (|N_i| = d_i):
 
@@ -215,10 +371,33 @@ class ADMMConsensus(_CombineTopology):
       (39)  lam_i <- lam_i + kappa_t rho/2 sum_{j in N_i}(phi_i - phi_j)
       (40)  kappa_t = 1 - 1/(1 + xi t)^2
 
-    `lam_max` clips each dual coordinate to +-lam_max |phi*_i|.  The
-    reference's adaptive-penalty subsystem (adaptive_rho, per_block,
-    dual_warmup, dual_reset) is not ported yet and raises.  Algorithm 2
+    The subsystem (docs/admm-convergence.md of the reference):
+
+    * `adaptive_rho` — residual balancing every `adapt_every` iterations
+      of dual activity (`residual_balanced_rho` with `mu`, `tau_incr`,
+      `tau_decr`, `rho_min`, `rho_max`); it turns the two below on
+      ("auto").
+    * `dual_warmup` — the Eq. 39 ascent stays off until the dual residual
+      has been under `warmup_tol` x the primal residual for
+      `warmup_window` consecutive iterations; the Eq. 40 ramp counts from
+      activation.
+    * `per_block` — one penalty per natural-parameter block
+      (`model.block_labels()`), each balanced on its own residuals.
+    * `dual_reset` — where the Eq. 38b projection moved a node's iterate,
+      its duals are multiplied by this factor (0.0 = reset) and the kappa
+      ramp restarts.
+    * `lam_max` — clip each dual coordinate to +-lam_max |phi*_i|.
+
+    The adaptive carry is (duals, rho, consecutive-stable count, iterations
+    since dual activation, gate-open flag), all tensors: the step decides
+    with `torch.where`, never on the host.  `link_drop` / `link_mask_fn`
+    couple only the nodes whose link is up at iteration t.  Algorithm 2
     has no natural-gradient step, so `schedule` does not apply.
+
+    >>> adj = torch.tensor([[0.0, 1.0], [1.0, 0.0]])
+    >>> adapt = ADMMConsensus(adj, adaptive_rho=True)
+    >>> adapt.dual_warmup, adapt.dual_reset     # "auto" resolution
+    (True, 0.0)
     """
 
     uses_schedule = False
@@ -226,49 +405,120 @@ class ADMMConsensus(_CombineTopology):
 
     def __init__(self, adj, rho: float = 0.5, xi: float = 0.05,
                  project: bool = True, lam_max: float | None = None,
-                 adaptive_rho: bool = False, per_block: bool = False,
-                 dual_warmup: bool | str = "auto",
+                 adaptive_rho: bool = False, mu: float = 10.0,
+                 tau_incr: float = 2.0, tau_decr: float = 2.0,
+                 adapt_every: int = 10, rho_min: float = 1e-3,
+                 rho_max: float = 1e3, per_block: bool = False,
+                 dual_warmup: bool | str = "auto", warmup_tol: float = 1e-3,
+                 warmup_window: int = 10,
                  dual_reset: float | None | str = "auto",
                  clip_tol: float = 1e-9, link_drop: float = 0.0,
                  link_seed: int = 0, link_mask_fn=None):
-        _no_links(link_drop, link_mask_fn)
-        warmup = adaptive_rho if dual_warmup == "auto" else bool(dual_warmup)
-        reset = ((0.0 if adaptive_rho else None) if dual_reset == "auto"
-                 else dual_reset)
-        if adaptive_rho or per_block or warmup or reset is not None:
-            raise _not_ported("the adaptive ADMM options (adaptive_rho, "
-                              "per_block, dual_warmup, dual_reset)", 8)
         if not isinstance(adj, (torch.Tensor, np.ndarray)):
             raise _not_ported("sparse SparseGraph consensus", 11)
         self.adj = _as_tensor(adj)
+        self.links = _LinkSchedule(link_drop, link_seed, link_mask_fn)
         self.rho = rho
         self.xi = xi
         self.project = project
         self.lam_max = lam_max
+        self.adaptive_rho = adaptive_rho
+        self.mu = mu
+        self.tau_incr = tau_incr
+        self.tau_decr = tau_decr
+        self.adapt_every = adapt_every
+        self.rho_min = rho_min
+        self.rho_max = rho_max
+        self.per_block = per_block
+        self.dual_warmup = (adaptive_rho if dual_warmup == "auto"
+                            else bool(dual_warmup))
+        self.warmup_tol = warmup_tol
+        self.warmup_window = warmup_window
+        self.dual_reset = ((0.0 if adaptive_rho else None)
+                           if dual_reset == "auto" else dual_reset)
         self.clip_tol = clip_tol
+        self._labels = {}          # (device, dtype) -> (labels, one-hot)
+
+    @property
+    def _plain(self) -> bool:
+        """True = Algorithm 2 verbatim."""
+        return not (self.adaptive_rho or self.per_block or self.dual_warmup
+                    or self.dual_reset is not None)
 
     def init_carry(self, phi0, model=None):
-        return torch.zeros_like(phi0)                 # duals lambda_i
+        lam0 = torch.zeros_like(phi0)                 # duals lambda_i
+        if self._plain:
+            return lam0
+        dev = phi0.device
+        return (lam0, self._rho0(model, phi0.dtype, dev),
+                torch.zeros((), dtype=torch.int32, device=dev),
+                torch.zeros((), dtype=phi0.dtype, device=dev),
+                torch.full((), not self.dual_warmup, dtype=torch.bool,
+                           device=dev))
+
+    def _n_blocks(self, model) -> int:
+        return int(np.max(model.block_labels())) + 1
+
+    def _rho0(self, model, dtype, device):
+        shape = (self._n_blocks(model),) if self.per_block else ()
+        return torch.full(shape, self.rho, dtype=dtype, device=device)
+
+    def _block_onehot(self, model, dtype, device):
+        """(labels (P,), one-hot (P, n_blocks)) on the run's device, made
+        once (a copy from the host each iteration would sync)."""
+        key = (str(device), dtype)
+        if key not in self._labels:
+            labels = torch.as_tensor(model.block_labels().astype(np.int64),
+                                     device=device)
+            onehot = torch.nn.functional.one_hot(
+                labels, self._n_blocks(model)).to(dtype)
+            self._labels[key] = (labels, onehot)
+        return self._labels[key]
 
     def init_diag(self, model, phi0):
-        z = phi0.new_zeros(())
-        zi = torch.zeros((), dtype=torch.int32, device=phi0.device)
+        dt, dev = phi0.dtype, phi0.device
+        rho0 = self._rho0(model, dt, dev)
+        resid_shape = rho0.shape if self.per_block else ()
+        zi = torch.zeros((), dtype=torch.int32, device=dev)
         return ConsensusDiagnostics(
-            primal_resid=z, dual_resid=z.clone(),
-            rho=phi0.new_tensor(self.rho), kappa=z.clone(),
-            clip_count=zi, reset_count=zi.clone(), dual_on=z.clone(),
-            link_frac=phi0.new_ones(()))
+            primal_resid=torch.zeros(resid_shape, dtype=dt, device=dev),
+            dual_resid=torch.zeros(resid_shape, dtype=dt, device=dev),
+            rho=rho0, kappa=torch.zeros((), dtype=dt, device=dev),
+            clip_count=zi, reset_count=zi.clone(),
+            dual_on=torch.zeros((), dtype=dt, device=dev),
+            link_frac=torch.ones((), dtype=dt, device=dev))
 
     @staticmethod
-    def _norm(z: torch.Tensor) -> torch.Tensor:
-        """RMS norm of the (N, P) stack z."""
+    def _block_norms(z: torch.Tensor, onehot=None) -> torch.Tensor:
+        """RMS norm of the (N, P) stack z: per block ((n_blocks,)) given
+        the one-hot block map, else a scalar."""
         sq = (z * z).sum(0)
-        return torch.sqrt(sq.sum() / (z.shape[0] * z.shape[1]))
+        n = z.shape[0]
+        if onehot is not None:
+            return torch.sqrt((sq @ onehot) / (onehot.sum(0) * n))
+        return torch.sqrt(sq.sum() / (n * z.shape[1]))
+
+    def _graph_ops(self, phi, t):
+        """(deg, adjacency, link_frac) of iteration t's graph: the dense
+        adjacency masked by the surviving links."""
+        adj = self.adj.to(phi.dtype)
+        if self.links.time_varying:
+            keep = self.links.keep_matrix(t, adj.shape[0], phi.dtype,
+                                          phi.device)
+            live = adj * keep
+            link_frac = live.sum() / adj.sum()
+        else:
+            live = adj
+            link_frac = None
+        return live.sum(1), live, link_frac                  # |N_i(t)|
 
     def step(self, model, phi, carry, phi_star, t: int, schedule: Schedule):
+        deg, adj, link_frac = self._graph_ops(phi, t)
+        if not self._plain:
+            return self._adaptive_step(model, phi, carry, phi_star, deg, adj,
+                                       phi.new_ones(()) if link_frac is None
+                                       else link_frac)
         lam, rho = carry, self.rho
-        adj = self.adj.to(phi.dtype)
-        deg = adj.sum(1)                              # |N_i|
         # (38a) primal
         phi_hat = (phi_star - 2.0 * lam
                    + rho * (deg[:, None] * phi + adj @ phi))
@@ -285,14 +535,83 @@ class ADMMConsensus(_CombineTopology):
         clip_count = ((phi_new - phi_hat).abs().amax(1) > self.clip_tol
                       ).sum().to(torch.int32)
         diag = ConsensusDiagnostics(
-            primal_resid=self._norm(resid),
-            dual_resid=self._norm(rho * (phi_new - phi)),
+            primal_resid=self._block_norms(resid),
+            dual_resid=self._block_norms(rho * (phi_new - phi)),
             rho=phi.new_tensor(rho), kappa=phi.new_tensor(kappa),
             clip_count=clip_count,
             reset_count=torch.zeros((), dtype=torch.int32,
                                     device=phi.device),
-            dual_on=phi.new_ones(()), link_frac=phi.new_ones(()))
+            dual_on=phi.new_ones(()),
+            link_frac=phi.new_ones(()) if link_frac is None else link_frac)
         return phi_new, lam_new, diag
+
+    def _adaptive_step(self, model, phi, carry, phi_star, deg, adj,
+                       link_frac):
+        lam, rho_vec, stable, t_act, active = carry
+        dt = phi.dtype
+        if self.per_block:
+            labels, onehot = self._block_onehot(model, dt, phi.device)
+            rho_coord = rho_vec[labels]               # (P,)
+        else:
+            onehot = None
+            rho_coord = rho_vec                       # ()
+
+        # (38a) primal, with the (possibly per-block) penalty
+        phi_hat = (phi_star - 2.0 * lam
+                   + rho_coord * (deg[:, None] * phi + adj @ phi))
+        phi_hat = phi_hat / (1.0 + 2.0 * rho_coord * deg[:, None])
+        phi_new = model.project_to_domain(phi_hat) if self.project \
+            else phi_hat                              # (38b)
+        clip_active = ((phi_new - phi_hat).abs().amax(1)
+                       > self.clip_tol)               # (N,) clip fired
+        any_clip = clip_active.any()
+
+        resid = deg[:, None] * phi_new - adj @ phi_new
+        r_norm = self._block_norms(resid, onehot)
+        s_norm = self._block_norms(rho_coord * (phi_new - phi), onehot)
+        r_tot = torch.sqrt((r_norm ** 2).sum())
+        s_tot = torch.sqrt((s_norm ** 2).sum())
+
+        # dual warmup gate: open once s << r for warmup_window iterations
+        if self.dual_warmup:
+            stable = torch.where(s_tot < self.warmup_tol * r_tot,
+                                 stable + 1, torch.zeros_like(stable))
+            active = active | (stable >= self.warmup_window)
+        zero = torch.zeros_like(t_act)
+        t_act = torch.where(active, t_act + 1.0, zero)
+        if self.dual_reset is not None:
+            t_act = torch.where(any_clip, zero, t_act)  # ramp reset on clip
+        kappa = torch.where(t_act > 0.0, kappa_schedule(t_act, self.xi),
+                            zero)
+
+        # (39) dual ascent
+        lam_new = lam + kappa * rho_coord / 2.0 * resid
+        if self.lam_max is not None:
+            bound = self.lam_max * phi_star.abs()
+            lam_new = torch.clamp(lam_new, -bound, bound)
+        clip_count = clip_active.sum().to(torch.int32)
+        if self.dual_reset is not None:
+            lam_new = torch.where(clip_active[:, None],
+                                  self.dual_reset * lam_new, lam_new)
+            reset_count = clip_count
+        else:
+            reset_count = torch.zeros_like(clip_count)
+
+        # residual balancing (Boyd Sec. 3.4.1), gated on dual activity
+        if self.adaptive_rho:
+            balanced = residual_balanced_rho(
+                rho_vec, r_norm, s_norm, mu=self.mu, tau_incr=self.tau_incr,
+                tau_decr=self.tau_decr, rho_min=self.rho_min,
+                rho_max=self.rho_max)
+            do = (active & (torch.fmod(t_act, float(self.adapt_every)) == 0.0)
+                  & (t_act > 0.0))
+            rho_vec = torch.where(do, balanced, rho_vec)
+
+        diag = ConsensusDiagnostics(
+            primal_resid=r_norm, dual_resid=s_norm, rho=rho_vec,
+            kappa=kappa, clip_count=clip_count, reset_count=reset_count,
+            dual_on=active.to(dt), link_frac=link_frac)
+        return phi_new, (lam_new, rho_vec, stable, t_act, active), diag
 
 
 # ---------------------------------------------------------------------------
@@ -403,12 +722,17 @@ def vb_init(model, data, topology, *, schedule: Schedule = Schedule(),
         raise ValueError(
             f"{type(topology).__name__} has no natural-gradient step "
             "(Eq. 27a); it ignores `schedule` — pass the default")
-    data = tuple(_as_tensor(a).to(dev) for a in data)
+    if isinstance(data, (torch.Tensor, np.ndarray)):
+        # one per-node array, e.g. LinRegModel's precomputed (N, P) phi*
+        data = _as_tensor(data).to(dev)
+        n_nodes = data.shape[0]
+    else:
+        data = tuple(_as_tensor(a).to(dev) for a in data)
+        n_nodes = data[0].shape[0]
     # the hot path's copy of the data, cast once here, not per iteration
     stream = getattr(model, "stream_data", None)
     stream_data = data if stream is None else stream(data)
     topology = topology.to(dev)
-    n_nodes = data[0].shape[0]
     if replication is None:
         replication = float(n_nodes)
     if init_phi is None:
@@ -476,8 +800,10 @@ def run_vb(model, data, topology, *, n_iters: int,
     """Run distributed VB: `model` on `data` over `topology`.
 
     model : ConjugateExpModel (core/model.py), built on `device`
-    data : per-node data tuple (x (N, T, D), mask (N, T)); moved to device
-    topology : FusionCenter | Isolated | Diffusion | ADMMConsensus
+    data : per-node data tuple (x (N, T, D), mask (N, T)), or one (N, ...)
+        array (LinRegModel's phi* stack); moved to device
+    topology : FusionCenter | Isolated | Diffusion | RingDiffusion |
+        ADMMConsensus
     n_iters : number of VB iterations
     schedule : eta_t of the natural-gradient step (27a); `ONE_SHOT` for
         the jump-to-optimum estimators

@@ -1,6 +1,7 @@
 """Conjugate-exponential model adapters for the unified VB engine.
 
-Port of `repro.core.model` (the GMM instance).  Every algorithm touches a
+Port of `repro.core.model`: the GMM instance and the Normal-Gamma
+linear-regression instance (`LinRegModel`).  Every algorithm touches a
 model only through (a) the flat natural-parameter vector phi exchanged
 between nodes (Eq. 45), (b) the per-node local VBM optimum phi*_i
 (Eq. 18), (c) the projection onto the domain Omega (Eq. 38b) and (d) the
@@ -15,8 +16,9 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_lib
-from repro_torch.core import backends, blocks
+from repro_torch.core import backends, blocks, linreg
 from repro_torch.core.expfam import GMMPosterior, NWParams
+from repro_torch.core.linreg import NGPosterior
 
 
 @runtime_checkable
@@ -107,3 +109,57 @@ class GMMModel(blocks.BlockModel):
         x, mask = data
         return self.backend.local_vbm_optimum_nodes(
             x, mask, phi_nodes, self.prior, replication, self.K, self.D)
+
+
+# ---------------------------------------------------------------------------
+# Bayesian linear regression (Normal-Gamma) — the generality instance
+# ---------------------------------------------------------------------------
+class LinRegModel(blocks.BlockModel):
+    """y = w^T x + N(0, lambda^-1), lambda ~ Ga, w | lambda ~ N
+    (conjugate).  `device` (None = CUDA) is where the prior, and so the
+    run, lives.  Only the reference backend applies (`with_backend`): the
+    local optimum is a closed form with no per-iteration data pass."""
+
+    def __init__(self, prior: NGPosterior | None = None,
+                 D: int | None = None, *, device=None):
+        if prior is None and D is None:
+            raise ValueError("LinRegModel needs a prior or a dimension D")
+        self.device = device_lib.resolve(device)
+        self.prior = None if prior is None else prior.to(self.device)
+        self.D = D if D is not None else prior.D
+        self.blocks = (blocks.NormalGammaBlock(self.D),)
+
+    @classmethod
+    def from_flat_dim(cls, P: int, *, device=None) -> "LinRegModel":
+        """Recover D from P = 2 + D + D^2 (integer root)."""
+        D = int(round((-1.0 + (1.0 + 4.0 * (P - 2)) ** 0.5) / 2.0))
+        if linreg.flat_dim(D) != P:
+            raise ValueError(f"no integer D with flat_dim(D) == {P}")
+        return cls(D=D, device=device)
+
+    def split_hyper(self, q: NGPosterior) -> tuple:
+        return (NGPosterior(m=q.m[..., None, :], V=q.V[..., None, :, :],
+                            a=q.a[..., None], b=q.b[..., None]),)
+
+    def join_hyper(self, parts: tuple) -> NGPosterior:
+        h = parts[0]
+        return NGPosterior(m=h.m[..., 0, :], V=h.V[..., 0, :, :],
+                           a=h.a[..., 0], b=h.b[..., 0])
+
+    def _is_phi_stack(self, data) -> bool:
+        return (isinstance(data, torch.Tensor) and data.dim() == 2
+                and data.shape[-1] == self.flat_dim)
+
+    def local_optimum(self, data, phi_nodes, replication):
+        # No local latents: phi*_i does not depend on the current iterate.
+        # `data` is a precomputed (N, P) phi* stack or raw (X, y, mask).
+        if self._is_phi_stack(data):
+            return data
+        X, y, mask = data
+        return linreg.local_optimum(X, y, mask, self.prior, replication)
+
+    def data_mask(self, data):
+        if self._is_phi_stack(data):
+            raise ValueError("a precomputed (N, P) phi* stack has no "
+                             "per-sample mask; pass raw (X, y, mask)")
+        return data[-1]

@@ -1,6 +1,7 @@
 """Sensor-network topologies and combination-weight rules (Sec. II, Eq. 47).
 
-Port of the dense half of `repro.core.network`.  Graph generation is
+Port of the dense half of `repro.core.network`, with the per-iteration
+link coins of a time-varying network.  Graph generation is
 host-side numpy seeded exactly as the reference, so the arrays are equal
 to the reference's; they come back as float64 CPU tensors, which the
 engine's entry points move to the run's device.  The paper's reference
@@ -101,6 +102,50 @@ def metropolis_weights(adj: torch.Tensor) -> torch.Tensor:
     deg = degrees(adj)
     off = adj / (1.0 + torch.maximum(deg[:, None], deg[None, :]))
     return off + torch.diag(1.0 - off.sum(1))
+
+
+# ---------------------------------------------------------------------------
+# Time-varying links: per-iteration Bernoulli link failures
+# ---------------------------------------------------------------------------
+def link_generator(link_seed: int, t: int, device) -> torch.Generator:
+    """The generator of iteration t's link coins: a `torch.Generator` on
+    `device` seeded from (link_seed, t), so the coins are a function of the
+    absolute iteration (a run split at any t replays them).  The reference
+    draws from `jax.random`, which torch cannot reproduce, and the CPU's and
+    the card's generators differ from each other: the masks are
+    deterministic per device type, and parity tests inject the reference's
+    through `link_mask_fn`."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(((int(link_seed) & 0xFFFFFFFF) << 32)
+                    | (int(t) & 0xFFFFFFFF))
+    return gen
+
+
+def link_keep_matrix(gen: torch.Generator, n: int, drop_prob: float,
+                     dtype=torch.float32) -> torch.Tensor:
+    """Symmetric (N, N) 0/1 keep mask on `gen`'s device: each undirected
+    link (i, j) survives with probability 1 - drop_prob (both directions
+    share one coin: a failed link is failed both ways); the diagonal is
+    always 1 (a node never loses itself).
+
+    >>> k = link_keep_matrix(link_generator(0, 3, "cpu"), 5, 0.5)
+    >>> bool((k == k.T).all()), bool((k.diagonal() == 1).all())
+    (True, True)
+    """
+    u = torch.rand((n, n), generator=gen, device=gen.device,
+                   dtype=torch.float32).triu(1)
+    u = u + u.T                                       # one coin per pair
+    keep = (u >= drop_prob).to(dtype)
+    return torch.maximum(keep, torch.eye(n, dtype=dtype, device=gen.device))
+
+
+def ring_link_keep(gen: torch.Generator, n: int, drop_prob: float,
+                   dtype=torch.float32) -> torch.Tensor:
+    """(N,) keep mask of the ring edges on `gen`'s device: entry i gates
+    the undirected link (i, i+1 mod N), one coin per edge."""
+    u = torch.rand((n,), generator=gen, device=gen.device,
+                   dtype=torch.float32)
+    return (u >= drop_prob).to(dtype)
 
 
 def algebraic_connectivity(adj: torch.Tensor) -> float:

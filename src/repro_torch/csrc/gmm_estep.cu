@@ -29,8 +29,11 @@
 // rho computed three times a point, a warp butterfly per statistic per
 // tile) took 67 us.
 //
-// Two kernels; the wrapper (kernels/gmm_estep.py::kernel_variant) picks one
-// by (K, D) alone, never by T or N:
+// At D = 34 (1000 nodes x 4096 points, K = 2) the function is ~31 GFLOP
+// against 0.6 GB: operations bind (~0.46 ms at 67 TFLOP/s f32).
+//
+// Three kernels; the wrapper (kernels/gmm_estep.py::kernel_variant) picks
+// one by (K, D) alone, never by T or N:
 //
 // * gmm_estep_regs_kernel, when the K (1 + D + D(D+1)/2) statistics fit
 //   kRegBudget = 24 floats (K <= 4 at D = 2, K <= 8 at D = 1; the main
@@ -66,11 +69,37 @@
 //   per pass, per tile a warp butterfly per statistic added into the
 //   warp's slot in shared memory, the warp slots summed in warp order at
 //   the end.  The first design, kept for the shapes the register path does
-//   not take.
+//   not take, for D <= 8 and up to its shared memory at block_t = 512.
+// * gmm_estep_wide_kernel, for everything else (the paper's real-data
+//   tables run D = 34 and D = 52): D is a runtime value.  One block of
+//   kWideThreads = 256 per node; a tile of kWideTile = 64 points sits
+//   transposed in shared memory.  Per tile and component, Wn_k and the
+//   centred tile Y_k are staged in shared memory in f64 and the quadratic
+//   form runs as the Pallas kernel's tile product Z = Y_k Wn_k (items of
+//   one point x 4 columns, f64 FMA on the CUDA cores) followed by the row
+//   dot with Y_k; log rho and its differences to the point's largest are
+//   formed in f64, exp and r in f32 (at D = 52 an f32 log rho, a sum of
+//   D^2 products ~1e3, is off by ~1e-4 and moves r near ties past
+//   tests/test_kernels.py's bars, as the plain version's own f32 rounding
+//   does; the f64 products make the kernel ~1.3x slower at D = 34);
+//   then the statistics, f32 products and sums, as 4 x 4 blocks of
+//   sum_t r y' y'^T with y' = (y, 1, 0, ...), upper-triangle blocks only,
+//   so that sum_xx,
+//   sum_x (the column of the 1) and R (its corner) come from one product.
+//   Each statistics item (point group, component, block) belongs to one
+//   thread and lives in shared memory across the node's tiles, which add
+//   their sums into it one tile at a time (short f32 chains); when there
+//   are fewer items than threads, a tile's points are split into up to 16
+//   groups (a function of (K, D)) whose partial sums are added in group
+//   order at the end.  Its shared memory (gmm_estep_wide_smem_bytes)
+//   bounds the shapes it takes (`supported` in the wrapper).  A simple
+//   design on the CUDA cores (TF32 tensor cores would likely miss the
+//   sum_xx bars).
 //
 // Determinism: no atomics.  The association order of every statistic
 // depends on the point index and the compile-time constants (kThreads,
-// kGroup; block_t on the shared path), never on T: points at or
+// kGroup; block_t on the shared path; kWideTile and the groups, a
+// function of (K, D), on the wide path), never on T: points at or
 // past T read as x = 0, mask = 0 and contribute exact zeros, exactly like
 // trailing mask-zero padding in memory, which only appends zero terms to
 // each thread's sequence.  Stats for x and for x with zero rows appended
@@ -557,6 +586,318 @@ __global__ void __launch_bounds__(kMaxThreads) gmm_estep_smem_kernel(
 }
 
 
+// ===========================================================================
+// Wide path: any D, and the (K, D) shapes the two paths above do not take
+// ===========================================================================
+// threads per block, points per tile, most point groups of the statistics
+// phase; repro_torch/kernels/gmm_estep.py mirrors them (WIDE_THREADS,
+// WIDE_TILE, WIDE_MAX_GROUPS) and checks its shared-memory size against
+// gmm_estep_wide_smem_bytes
+constexpr int kWideThreads = 256;
+constexpr int kWideTile = 64;
+constexpr int kWideMaxGroups = 16;
+// row stride of the transposed point tile: odd, so that threads reading
+// consecutive points, or consecutive coordinates of one point, hit
+// distinct banks
+constexpr int kWideTS = kWideTile + 1;
+
+// Sizes and shared-memory offsets (in floats) of one wide-path block.
+// The statistics are 4 x 4 blocks of the (Dp x Dp) matrix sum_t r y' y'^T,
+// y' = (y, 1, 0, ...): its upper-triangle blocks hold sum_xx, the column
+// of the constant 1 holds sum_x and its corner R.
+struct WideLayout {
+  int Dp;      // D + 1 rounded up to a multiple of 4
+  int nb;      // 4 x 4 blocks a side, Dp / 4
+  int nbt;     // blocks of the upper triangle, nb (nb + 1) / 2
+  int nbq;     // 4-column blocks of Wn_k, ceil(D / 4)
+  int ws;      // row stride of the staged Wn_k, 4 nbq
+  int groups;  // point groups a tile's statistics are split into
+  int items;   // statistics items (group, component, block), 16 floats each
+  int acc, w, xt, yd, pq, pc, lr, s, b, lp, c, m, total;
+};
+
+__host__ __device__ inline WideLayout wide_layout(int K, int D) {
+  WideLayout L;
+  L.Dp = (D + 4) / 4 * 4;
+  L.nb = L.Dp / 4;
+  L.nbt = L.nb * (L.nb + 1) / 2;
+  L.nbq = (D + 3) / 4;
+  L.ws = 4 * L.nbq;
+  int g = 1;   // the most groups (a power of two) that keep items <= threads
+  while (g < kWideMaxGroups && 2 * g * K * L.nbt <= kWideThreads) g *= 2;
+  L.groups = g;
+  L.items = g * K * L.nbt;
+  // offsets in floats; every f64 array starts on a 16-byte boundary
+  int o = 0;
+  L.acc = o; o += 16 * L.items;           // statistics items
+  L.w = o;   o += 2 * D * L.ws;           // Wn_k in f64, columns to ws
+  L.xt = o;  o += L.Dp * kWideTS;         // the tile, transposed: [d][t]
+  L.yd = o;  o += 2 * D * kWideTile;      // Y_k in f64: [d][t]
+  L.pq = o;  o += 2 * L.nbq * kWideTile;  // y'Wn_k y per column block, f64
+  L.pc = o;  o += 2 * L.nbq * kWideTile;  // y.b_k per column block, f64
+  L.lr = o;  o += 2 * K * kWideTile;      // log rho in f64, then r: [k][t]
+  L.s = o;   o += K * L.Dp;               // shift, zero-padded to Dp
+  L.b = o;   o += K * D;
+  L.lp = o;  o += K;
+  L.c = o;   o += K;
+  L.m = o;   o += kWideTile;          // the tile's mask
+  L.total = o;
+  return L;
+}
+
+template <typename Tin>
+__global__ void __launch_bounds__(kWideThreads) gmm_estep_wide_kernel(
+    const Tin* __restrict__ x, const Tin* __restrict__ mask,
+    const float* __restrict__ log_prior, const float* __restrict__ Wn,
+    const float* __restrict__ b, const float* __restrict__ c,
+    const float* __restrict__ shift, float* __restrict__ r_out,
+    float* __restrict__ stats, int T, int K, int D, float rep) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const WideLayout L = wide_layout(K, D);
+  float* s_acc = smem + L.acc;
+  double* s_w = reinterpret_cast<double*>(smem + L.w);
+  float* s_xt = smem + L.xt;
+  double* s_yd = reinterpret_cast<double*>(smem + L.yd);
+  double* s_pq = reinterpret_cast<double*>(smem + L.pq);
+  double* s_pc = reinterpret_cast<double*>(smem + L.pc);
+  // log rho of (k, t) in f64; the softmax then writes r into the first
+  // float of the same 8 bytes, which only its own thread reads
+  double* s_lr = reinterpret_cast<double*>(smem + L.lr);
+  float* s_r = smem + L.lr;
+  float* s_s = smem + L.s;
+  float* s_b = smem + L.b;
+  float* s_lp = smem + L.lp;
+  float* s_c = smem + L.c;
+  float* s_m = smem + L.m;
+  const int n = blockIdx.x;
+  const int tid = threadIdx.x;
+  const size_t nK = (size_t)n * K;
+
+  for (int i = tid; i < 16 * L.items; i += kWideThreads) s_acc[i] = 0.f;
+  for (int i = tid; i < K * L.Dp; i += kWideThreads) {
+    const int k = i / L.Dp, d = i % L.Dp;
+    s_s[i] = (d < D && shift != nullptr) ? shift[(nK + k) * D + d] : 0.f;
+  }
+  for (int i = tid; i < K * D; i += kWideThreads) s_b[i] = b[nK * D + i];
+  for (int i = tid; i < K; i += kWideThreads) {
+    s_lp[i] = log_prior[nK + i];
+    s_c[i] = c[nK + i];
+  }
+  // rows D .. Dp - 1 of the tile: the constant 1, then zeros (the tile
+  // loads write rows < D only)
+  for (int i = tid; i < (L.Dp - D) * kWideTS; i += kWideThreads)
+    s_xt[D * kWideTS + i] = i < kWideTS ? 1.f : 0.f;
+
+  const Tin* xn = x + (size_t)n * T * D;
+  const Tin* mn = mask + (size_t)n * T;
+  const int ntiles = (T + kWideTile - 1) / kWideTile;
+  const int tp = kWideTile / L.groups;    // points of a group in a tile
+  const int ws2 = L.ws / 2;               // double2s a row of Wn_k
+  const double2* w2 = reinterpret_cast<const double2*>(s_w);
+
+  for (int tile = 0; tile < ntiles; ++tile) {
+    const int p0 = tile * kWideTile;
+    __syncthreads();   // the last tile's statistics are done with s_xt, s_r
+    // the tile, transposed; points at or past T read as x = 0, mask = 0
+    for (int i = tid; i < kWideTile * D; i += kWideThreads) {
+      const int t = i / D, d = i % D;
+      const int p = p0 + t;
+      s_xt[d * kWideTS + t] = p < T ? to_f32(xn[(size_t)p * D + d]) : 0.f;
+    }
+    for (int t = tid; t < kWideTile; t += kWideThreads)
+      s_m[t] = p0 + t < T ? to_f32(mn[p0 + t]) : 0.f;
+
+    // log rho in f64, a component at a time: Y_k (the tile centred on
+    // s_k) and Wn_k staged in f64; Z = Y_k Wn_k as items of one point x 4
+    // columns, then per item the row dot of those columns of Z with y and
+    // of y with b_k; the column blocks' partial sums added in block order.
+    // In f32 the D^2-term sums round log rho by ~1e-4 at D = 52 (|y' Wn
+    // y| ~ 1e3), which moves r near ties past tests/test_kernels.py's
+    // bars
+    for (int k = 0; k < K; ++k) {
+      __syncthreads();   // the tile is in; s_w, s_yd, s_pq, s_pc are free
+      for (int i = tid; i < D * L.ws; i += kWideThreads) {
+        const int d = i / L.ws, e = i % L.ws;
+        s_w[i] = e < D ? (double)Wn[((nK + k) * D + d) * D + e] : 0.0;
+      }
+      const float* sk = s_s + k * L.Dp;
+      for (int i = tid; i < D * kWideTile; i += kWideThreads) {
+        const int d = i / kWideTile, t = i % kWideTile;
+        s_yd[i] = (double)s_xt[d * kWideTS + t] - (double)sk[d];
+      }
+      __syncthreads();
+      for (int i = tid; i < kWideTile * L.nbq; i += kWideThreads) {
+        const int t = i % kWideTile, eb = i / kWideTile;
+        double z[4] = {0.0, 0.0, 0.0, 0.0};
+        for (int d = 0; d < D; ++d) {
+          const double y = s_yd[d * kWideTile + t];
+          const double2 wa = w2[d * ws2 + 2 * eb];
+          const double2 wb = w2[d * ws2 + 2 * eb + 1];
+          z[0] = fma(y, wa.x, z[0]);
+          z[1] = fma(y, wa.y, z[1]);
+          z[2] = fma(y, wb.x, z[2]);
+          z[3] = fma(y, wb.y, z[3]);
+        }
+        double q = 0.0, cr = 0.0;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int e = 4 * eb + j;
+          if (e < D) {
+            const double y = s_yd[e * kWideTile + t];
+            q = fma(z[j], y, q);
+            cr = fma(y, (double)s_b[k * D + e], cr);
+          }
+        }
+        s_pq[eb * kWideTile + t] = q;
+        s_pc[eb * kWideTile + t] = cr;
+      }
+      __syncthreads();
+      for (int t = tid; t < kWideTile; t += kWideThreads) {
+        double q = 0.0, cr = 0.0;
+        for (int eb = 0; eb < L.nbq; ++eb) {
+          q += s_pq[eb * kWideTile + t];
+          cr += s_pc[eb * kWideTile + t];
+        }
+        s_lr[k * kWideTile + t] =
+            (double)s_lp[k] - 0.5 * (q - 2.0 * cr + (double)s_c[k]);
+      }
+    }
+    __syncthreads();
+
+    // the masked softmax over components: the differences to the point's
+    // largest log rho in f64, rounded to f32, then exp and r in f32
+    for (int t = tid; t < kWideTile; t += kWideThreads) {
+      double mx = -INFINITY;
+      for (int k = 0; k < K; ++k) mx = fmax(mx, s_lr[k * kWideTile + t]);
+      float den = 0.f;
+      for (int k = 0; k < K; ++k)
+        den += expf((float)(s_lr[k * kWideTile + t] - mx));
+      const bool in = p0 + t < T;
+      for (int k = 0; k < K; ++k) {
+        const float r =
+            expf((float)(s_lr[k * kWideTile + t] - mx)) / den * s_m[t];
+        s_r[2 * (k * kWideTile + t)] = r;
+        if (r_out != nullptr && in)
+          r_out[((size_t)n * T + p0 + t) * K + k] = r;
+      }
+    }
+    __syncthreads();
+
+    // statistics: item w = (group g, component k, block (bi, bj)) sums
+    // (r y_d) y_e over its group's points of the tile, in point order,
+    // then adds that tile sum into its own 16 floats: two short chains
+    // (tp points, then the tiles) instead of one over the node's points,
+    // whose f32 rounding grew with T (at T = 4096 sum_x was 0.1 off an
+    // f64 evaluation where the plain version's pairwise sums were 1e-3)
+    for (int w = tid; w < L.items; w += kWideThreads) {
+      const int g = w / (K * L.nbt), kt = w % (K * L.nbt);
+      const int k = kt / L.nbt;
+      int bi = 0, rem = kt % L.nbt;
+      while (rem >= L.nb - bi) {
+        rem -= L.nb - bi;
+        ++bi;
+      }
+      const int bj = bi + rem;
+      float4* a4 = reinterpret_cast<float4*>(s_acc) + 4 * w;
+      float acc[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+      const float* sk = s_s + k * L.Dp;
+      float sd[4], se[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        sd[i] = sk[4 * bi + i];
+        se[i] = sk[4 * bj + i];
+      }
+      const float* xd = s_xt + 4 * bi * kWideTS;
+      const float* xe = s_xt + 4 * bj * kWideTS;
+      const float* rk = s_r + 2 * k * kWideTile;
+      for (int t = g * tp; t < (g + 1) * tp; ++t) {
+        const float r = rk[2 * t];
+        float ry[4], ye[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          ry[i] = r * (xd[i * kWideTS + t] - sd[i]);
+          ye[i] = xe[i * kWideTS + t] - se[i];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            acc[4 * i + j] = fmaf(ry[i], ye[j], acc[4 * i + j]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 v = a4[i];
+        a4[i] = make_float4(v.x + acc[4 * i], v.y + acc[4 * i + 1],
+                            v.z + acc[4 * i + 2], v.w + acc[4 * i + 3]);
+      }
+    }
+  }
+  __syncthreads();
+
+  // the groups' partial sums, added in group order into group 0's items
+  const int per_group = 16 * K * L.nbt;
+  for (int i = tid; i < per_group; i += kWideThreads) {
+    float v = s_acc[i];
+    for (int g = 1; g < L.groups; ++g) v += s_acc[g * per_group + i];
+    s_acc[i] = v;
+  }
+  __syncthreads();
+
+  // entry (i, j), i <= j, of component k's matrix: sum_x[k][d] is (d, D),
+  // sum_xx[k][d][e] is (min, max) of (d, e), R_k is (D, D)
+  const int rows = K + K * D + K;
+  float* out = stats + (size_t)n * rows * D;
+  for (int o = tid; o < rows * D; o += kWideThreads) {
+    const int row = o / D, col = o % D;
+    int k, i, j;
+    if (row < K) {
+      k = row;
+      i = col;
+      j = D;
+    } else if (row < K + K * D) {
+      k = (row - K) / D;
+      const int d = (row - K) % D;
+      i = d < col ? d : col;
+      j = d < col ? col : d;
+    } else {
+      k = row - K - K * D;
+      i = D;
+      j = D;
+    }
+    const int bi = i / 4, bj = j / 4;
+    const int tri = bi * L.nb - bi * (bi - 1) / 2 + (bj - bi);
+    float val = s_acc[(k * L.nbt + tri) * 16 + (i % 4) * 4 + (j % 4)];
+    if (row >= K + K * D && col != 0) val = 0.f;
+    out[o] = val * rep;
+  }
+}
+
+template <typename Tin>
+cudaError_t launch_wide(const void* x, const void* mask,
+                        const void* log_prior, const void* Wn, const void* b,
+                        const void* c, const void* shift, void* r,
+                        void* stats, int N, int T, int K, int D, float rep,
+                        cudaStream_t stream) {
+  const int bytes = 4 * wide_layout(K, D).total;
+  auto kern = gmm_estep_wide_kernel<Tin>;
+  if (bytes > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return e;
+  }
+  kern<<<N, kWideThreads, bytes, stream>>>(
+      static_cast<const Tin*>(x), static_cast<const Tin*>(mask),
+      static_cast<const float*>(log_prior), static_cast<const float*>(Wn),
+      static_cast<const float*>(b), static_cast<const float*>(c),
+      static_cast<const float*>(shift), static_cast<float*>(r),
+      static_cast<float*>(stats), T, K, D, rep);
+  return cudaGetLastError();
+}
+
+
 template <int D, typename Tin>
 cudaError_t launch(int variant, const void* x, const void* mask,
                    const void* log_prior, const void* Wn, const void* b,
@@ -598,7 +939,8 @@ cudaError_t launch(int variant, const void* x, const void* mask,
 // or bf16 (x_bf16 = 1); every other array is f32; shift and r may be null.
 // variant 0 launches gmm_estep_regs_kernel (K <= gmm_estep_reg_kmax(D);
 // `vec` = 1 allows its vector loads: T % 4 == 0 and x, mask 16-byte
-// aligned), variant 1 gmm_estep_smem_kernel (block_t, smem_bytes).  The
+// aligned), variant 1 gmm_estep_smem_kernel (block_t, smem_bytes),
+// variant 2 gmm_estep_wide_kernel (any D; block_t and smem_bytes unused).  The
 // caller validates shapes, allocates the outputs and passes the stream.
 // Returns the cudaError_t of the launch (0 = success).
 extern "C" int gmm_estep_nodes_launch(
@@ -607,6 +949,13 @@ extern "C" int gmm_estep_nodes_launch(
     int N, int T, int K, int D, int block_t, float rep, int x_bf16,
     int smem_bytes, int variant, int vec, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (variant == 2)
+    return x_bf16 ? (int)launch_wide<__nv_bfloat16>(
+                        x, mask, log_prior, Wn, b, c, shift, r, stats, N, T,
+                        K, D, rep, s)
+                  : (int)launch_wide<float>(x, mask, log_prior, Wn, b, c,
+                                            shift, r, stats, N, T, K, D, rep,
+                                            s);
 #define GMM_CASE(DD)                                                        \
   case DD:                                                                  \
     return x_bf16 ? (int)launch<DD, __nv_bfloat16>(                         \
@@ -645,4 +994,10 @@ extern "C" int gmm_estep_reg_kmax(int D) {
     case 8: return RegShape<8>::KMAX;
     default: return 0;
   }
+}
+
+// Dynamic shared memory of one wide-path block at (K, D), in bytes; the
+// wrapper checks its own formula (wide_smem_bytes) against it.
+extern "C" int gmm_estep_wide_smem_bytes(int K, int D) {
+  return 4 * wide_layout(K, D).total;
 }

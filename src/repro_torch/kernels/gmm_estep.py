@@ -20,21 +20,28 @@ conditioned at deployment scale (see `core.gmm.posterior_from_stats`).
 a kernel for CUDA tensors and runs the plain PyTorch version
 (`gmm_estep_nodes_plain`, the same function written as batched tensor
 ops) for CPU tensors.  Nothing falls back: a CUDA tensor launches a
-kernel or raises.  `gmm_estep_nodes.launches` counts the kernel launches.
+kernel or raises.  `gmm_estep_nodes.launches` counts the kernel launches
+(`gmm_estep_nodes.variant_launches` those of each kernel).
 
-Two CUDA kernels, chosen by shape alone (`kernel_variant`):
+Three CUDA kernels, chosen by shape alone (`kernel_variant`):
 * "registers" when K * (1 + D + D(D+1)/2) <= REG_STATS_BUDGET (K <= 4 at
   D = 2, K <= 8 at D = 1, K <= 2 at D = 3, K = 1 at D = 4, 5): one block
   of REG_THREADS per node, statistics in registers, log rho once per point
   and component, vector loads;
-* "shared" otherwise: one block per node, per-warp statistics slots in
-  shared memory (`block_t` points per tile; `smem_bytes`).
+* "shared" for the other shapes with D <= MAX_D whose shared memory fits
+  at the default block_t: one block per node, per-warp statistics slots
+  in shared memory (`block_t` points per tile; `smem_bytes`);
+* "wide" for the rest (the paper's D = 34 and D = 52 tables): any D, one
+  block of WIDE_THREADS per node, a WIDE_TILE-point tile and one
+  component's Wn in shared memory, log rho formed in f64, statistics as
+  4 x 4 blocks held in shared memory (`wide_smem_bytes`, which bounds the
+  shapes it takes: `supported`).
 
 Contracts, shared by the kernels and the plain version:
 * x streams as f32 or bf16 (one kernel instance each); an f64 x is cast
   to f32, as the TPU kernel does (the engine casts once per session, see
   `core.backends.FusedBackend.stream_data`).  mask has x's dtype.
-  Products and statistics are f32.
+  Products and statistics are f32 (the wide path forms log rho in f64).
 * `return_r=False` never allocates or writes r.
 * Statistics are BIT-invariant to trailing mask-zero padding of the point
   axis, and two launches on the same inputs are bit-identical (no
@@ -55,8 +62,17 @@ from repro_torch.core.expfam import ordered_sum
 #: points each thread takes per tile on the shared path (kPts in
 #: csrc/gmm_estep.cu)
 POINTS_PER_THREAD = 4
-#: the kernels are instantiated for D = 1..MAX_D
+#: the register and shared paths are instantiated for D = 1..MAX_D (the
+#: wide path takes any D)
 MAX_D = 8
+#: the shared path's tile when the caller does not choose one; the
+#: dispatch rule sizes the shared path's shared memory at it
+DEFAULT_BLOCK_T = 512
+#: wide path: threads per block, points per tile, most point groups of its
+#: statistics phase (kWideThreads, kWideTile, kWideMaxGroups in the source)
+WIDE_THREADS = 256
+WIDE_TILE = 64
+WIDE_MAX_GROUPS = 16
 #: shared memory a block may use on Hopper
 MAX_SMEM_BYTES = 227 * 1024
 #: floats of per-thread statistics the register path holds (kRegBudget)
@@ -87,12 +103,61 @@ def reg_kmax(D: int) -> int:
 def kernel_variant(K: int, D: int) -> str:
     """Which CUDA kernel a (K, D) shape launches: "registers" when its
     K (1 + D + D(D+1)/2) statistics fit REG_STATS_BUDGET floats, else
-    "shared".  A function of the shape alone, never of T or N.
+    "shared" when D <= MAX_D and the shared path's memory at
+    DEFAULT_BLOCK_T fits a block, else "wide".  A function of the shape
+    alone, never of T or N.
 
-    >>> kernel_variant(3, 2), kernel_variant(4, 2), kernel_variant(5, 2)
-    ('registers', 'registers', 'shared')
+    >>> kernel_variant(3, 2), kernel_variant(5, 2), kernel_variant(2, 34)
+    ('registers', 'shared', 'wide')
     """
-    return "registers" if K <= reg_kmax(D) else "shared"
+    if K <= reg_kmax(D):
+        return "registers"
+    if D <= MAX_D and smem_bytes(K, D, DEFAULT_BLOCK_T) <= MAX_SMEM_BYTES:
+        return "shared"
+    return "wide"
+
+
+def wide_layout(K: int, D: int) -> dict:
+    """The wide path's sizes at (K, D), as `wide_layout` in the source:
+    Dp = D + 1 rounded up to 4 (coordinates, the constant 1 whose products
+    give sum_x and R, zeros), nb 4 x 4 blocks a side, nbt of them on the
+    upper triangle, nbq 4-column blocks of Wn, the point groups (the most,
+    a power of two up to WIDE_MAX_GROUPS, that keep the statistics items
+    within the block's threads) and the items (group, component, block)."""
+    Dp = (D + 4) // 4 * 4
+    nb = Dp // 4
+    nbt = nb * (nb + 1) // 2
+    nbq = (D + 3) // 4
+    groups = 1
+    while groups < WIDE_MAX_GROUPS and 2 * groups * K * nbt <= WIDE_THREADS:
+        groups *= 2
+    return {"Dp": Dp, "nb": nb, "nbt": nbt, "nbq": nbq, "ws": 4 * nbq,
+            "groups": groups, "items": groups * K * nbt}
+
+
+def wide_smem_bytes(K: int, D: int) -> int:
+    """Dynamic shared memory of one wide-path block: the statistics items
+    (16 floats each), one component's Wn in f64 (rows padded to
+    4 ceil(D/4)), the transposed tile (Dp rows of WIDE_TILE + 1), the
+    centred tile in f64, the column blocks' f64 partial sums, log rho in
+    f64 (then r), the node's shift, b, log_prior and c, the tile's mask.
+
+    >>> wide_smem_bytes(10, 52) <= MAX_SMEM_BYTES < wide_smem_bytes(13, 64)
+    True
+    """
+    L = wide_layout(K, D)
+    floats = (16 * L["items"] + 2 * D * L["ws"] + L["Dp"] * (WIDE_TILE + 1)
+              + 2 * D * WIDE_TILE + 4 * L["nbq"] * WIDE_TILE
+              + 2 * K * WIDE_TILE + K * L["Dp"] + K * D + 2 * K + WIDE_TILE)
+    return 4 * floats
+
+
+def supported(K: int, D: int) -> bool:
+    """Whether a kernel takes the (K, D) shape: every shape but the wide
+    path's past MAX_SMEM_BYTES (K <= 12 at D = 64, K <= 10 up to D = 68,
+    K <= 226 at D = 8)."""
+    return (K >= 1 and D >= 1 and (kernel_variant(K, D) != "wide"
+                                   or wide_smem_bytes(K, D) <= MAX_SMEM_BYTES))
 
 
 def vector_loads(x: torch.Tensor, mask: torch.Tensor) -> bool:
@@ -120,6 +185,14 @@ def _lib():
             raise RuntimeError(f"csrc/gmm_estep.cu's register path takes "
                                f"K <= {kmax(D)} at D={D}; the wrapper "
                                f"dispatches K <= {reg_kmax(D)}")
+    wide = lib.gmm_estep_wide_smem_bytes
+    wide.argtypes, wide.restype = [ctypes.c_int] * 2, ctypes.c_int
+    for K, D in ((1, 1), (2, 34), (6, 52), (10, 52), (12, 64), (300, 8)):
+        if wide(K, D) != wide_smem_bytes(K, D):
+            raise RuntimeError(f"csrc/gmm_estep.cu's wide path takes "
+                               f"{wide(K, D)} B of shared memory at K={K}, "
+                               f"D={D}; the wrapper computes "
+                               f"{wide_smem_bytes(K, D)}")
     return fn
 
 
@@ -174,19 +247,28 @@ def _check(x, mask, log_prior, Wn, b, c, shift, block_t, replication):
             raise ValueError(f"{name} is on {a.device}, x on {x.device}")
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if not 1 <= D <= MAX_D:
-        raise ValueError(f"the kernel takes 1 <= D <= {MAX_D}: D={D}")
+    if D < 1:
+        raise ValueError(f"the kernels take D >= 1: D={D}")
     step = POINTS_PER_THREAD * 32
     if block_t % step or not step <= block_t <= 256 * POINTS_PER_THREAD:
         raise ValueError(f"block_t must be a multiple of {step} in "
                          f"[{step}, {256 * POINTS_PER_THREAD}]: {block_t}")
-    if (kernel_variant(K, D) == "shared"
-            and smem_bytes(K, D, block_t) > MAX_SMEM_BYTES):
+    variant = kernel_variant(K, D)
+    if variant == "shared" and smem_bytes(K, D, block_t) > MAX_SMEM_BYTES:
         raise ValueError(
             f"K={K}, D={D}, block_t={block_t} needs "
             f"{smem_bytes(K, D, block_t)} B of shared memory; a Hopper "
             f"block has {MAX_SMEM_BYTES}")
+    if variant == "wide" and wide_smem_bytes(K, D) > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"K={K}, D={D} is past the wide kernel's limit: it needs "
+            f"{wide_smem_bytes(K, D)} B of shared memory and a Hopper block "
+            f"has {MAX_SMEM_BYTES} (K <= 12 at D = 64, K <= 10 up to "
+            f"D = 68)")
     return x, mask
+
+
+_VARIANT_CODE = {"registers": 0, "shared": 1, "wide": 2}
 
 
 def _launch(x, mask, log_prior, Wn, b, c, shift, replication, block_t,
@@ -206,13 +288,14 @@ def _launch(x, mask, log_prior, Wn, b, c, shift, replication, block_t,
                      N, T, K, D, block_t, float(replication),
                      int(x.dtype == torch.bfloat16),
                      smem_bytes(K, D, block_t),
-                     0 if kernel_variant(K, D) == "registers" else 1,
+                     _VARIANT_CODE[kernel_variant(K, D)],
                      int(vector_loads(x, mask)),
                      torch.cuda.current_stream(x.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"gmm_estep_nodes kernel launch failed: "
                                f"cudaError {err}")
         gmm_estep_nodes.launches += 1
+        gmm_estep_nodes.variant_launches[kernel_variant(K, D)] += 1
     return r, stats
 
 
@@ -248,6 +331,8 @@ def gmm_estep_nodes(x, mask, log_prior, Wn, b, c, replication=1.0, *,
 
 
 gmm_estep_nodes.launches = 0
+#: the launches of each kernel (`kernel_variant`), counted with `launches`
+gmm_estep_nodes.variant_launches = {"registers": 0, "shared": 0, "wide": 0}
 
 
 def gmm_estep(x, mask, log_prior, Wn, b, c, *, block_t: int = 512):
@@ -263,20 +348,24 @@ def gmm_estep(x, mask, log_prior, Wn, b, c, *, block_t: int = 512):
 # The plain PyTorch version (CPU path of the wrapper; the card's oracle)
 # ---------------------------------------------------------------------------
 def gmm_estep_nodes_plain(x, mask, log_prior, Wn, b, c, replication=1.0, *,
-                          shift=None, return_r: bool = True):
+                          shift=None, return_r: bool = True,
+                          dtype=torch.float32):
     """The kernel's function as batched tensor ops (the reference oracle
     `repro.kernels.ref.gmm_estep_nodes`, f32 products), with the
     statistics folded through `ordered_sum` so that they are bit-invariant
-    to trailing mask-zero padding, like the kernel's."""
-    y = x.float()[:, :, None, :]                                  # (N,T,1,D)
+    to trailing mask-zero padding, like the kernel's.  `dtype=float64`
+    evaluates the same function in f64: the exact answer the wide path is
+    held against where f32 cannot meet tests/test_kernels.py's bars."""
+    log_prior, Wn, b, c = (t.to(dtype) for t in (log_prior, Wn, b, c))
+    y = x.to(dtype)[:, :, None, :]                                # (N,T,1,D)
     if shift is not None:
-        y = y - shift[:, None]                                    # (N,T,K,D)
+        y = y - shift.to(dtype)[:, None]                          # (N,T,K,D)
     quad = torch.einsum("ntkd,nkde,ntke->ntk", y.expand(-1, -1, Wn.shape[1],
                                                         -1), Wn, y)
     cross = (y * b[:, None]).sum(-1)
     log_rho = log_prior[:, None, :] - 0.5 * (quad - 2.0 * cross
                                              + c[:, None, :])
-    r = torch.softmax(log_rho, dim=-1) * mask.float()[..., None]
+    r = torch.softmax(log_rho, dim=-1) * mask.to(dtype)[..., None]
     ry = r[..., None] * y                                         # (N,T,K,D)
     R = ordered_sum(r, dim=1) * replication
     sum_x = ordered_sum(ry, dim=1) * replication

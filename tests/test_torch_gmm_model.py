@@ -184,7 +184,7 @@ def test_backend_resolution():
     mdl = tm.GMMModel(prior, device="cpu")
     assert fb.supports(mdl) and tb.ReferenceBackend().supports(mdl)
     assert mdl.with_backend("fused").backend.name == "fused"
-    assert not fb.supports(tm.GMMModel(tx.noninformative_prior(2, 9),
+    assert not fb.supports(tm.GMMModel(tx.noninformative_prior(13, 64),
                                        device="cpu"))
 
 

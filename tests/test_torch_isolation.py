@@ -26,7 +26,10 @@ def test_import_pulls_in_neither_jax_nor_repro():
               "repro_torch.kernels.flash_attention",
               "repro_torch.kernels.ssd_scan", "repro_torch.models.model",
               "repro_torch.models.mamba2", "repro_torch.serving.engine",
-              "repro_torch.launch.serve", "repro_torch.configs.yi_6b"):
+              "repro_torch.launch.serve", "repro_torch.configs.yi_6b",
+              "repro_torch.core.linreg", "repro_torch.data.datasets",
+              "repro_torch.experiments.common",
+              "repro_torch.experiments.paper_figures"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"
@@ -108,13 +111,25 @@ def test_fused_backend_on_unsupported_model_raises():
     with pytest.raises(ValueError, match="does not support"):
         engine.vb_init(_OtherModel(), (x, mask), engine.Isolated(),
                        backend="fused", device="cpu")
-    wide = expfam.noninformative_prior(2, 9)
+    # past the wide kernel's shared memory (K > 12 at D = 64)
+    wide = expfam.noninformative_prior(13, 64)
     with pytest.raises(ValueError, match="does not support"):
         engine.vb_init(model_lib.GMMModel(wide, device="cpu"),
-                       (torch.zeros(2, 5, 9), torch.ones(2, 5)),
+                       (torch.zeros(2, 5, 64), torch.ones(2, 5)),
                        engine.Isolated(), backend="fused", device="cpu")
+    # the Normal-Gamma instance has no fused backend
+    lin = model_lib.LinRegModel(D=2, device="cpu")
+    with pytest.raises(ValueError, match="does not support"):
+        engine.vb_init(lin, torch.zeros(2, lin.flat_dim), engine.Isolated(),
+                       backend="fused", device="cpu")
     assert backends.FusedBackend().supports(
         model_lib.GMMModel(prior, device="cpu"))
+
+
+class _SparseWeights:
+    """Stands for the reference's edge-list weights (not ported yet)."""
+
+    graph = None
 
 
 def test_unported_options_raise():
@@ -126,18 +141,11 @@ def test_unported_options_raise():
                                 executor=object(), device="cpu"), "item 14"),
         (lambda: engine.vb_init(mdl, (x, mask), engine.Isolated(),
                                 minibatch=object(), device="cpu"), "item 10"),
-        (lambda: engine.Diffusion(adj, link_drop=0.1), "item 8"),
-        (lambda: engine.Diffusion(adj, link_mask_fn=lambda t: adj),
-         "item 8"),
-        (lambda: engine.ADMMConsensus(adj, adaptive_rho=True), "item 8"),
-        (lambda: engine.ADMMConsensus(adj, per_block=True), "item 8"),
-        (lambda: engine.ADMMConsensus(adj, dual_reset=0.5), "item 8"),
-        (lambda: engine.ADMMConsensus(adj, link_drop=0.2), "item 8"),
-        (lambda: engine.RingDiffusion(), "item 8"),
+        (lambda: engine.RingDiffusion(graph=object()), "item 11"),
+        (lambda: engine.Diffusion(_SparseWeights()), "item 11"),
         (lambda: engine.ADMMConsensus(object()), "item 11"),
-        (lambda: algorithms.run_dvb_admm(x, mask, adj, prior, n_iters=1,
-                                         K=3, D=2, adaptive_rho=True,
-                                         device="cpu"), "item 8"),
+        (lambda: engine.ADMMConsensus(object(), adaptive_rho=True),
+         "item 11"),
     ]
     for fn, item in cases:
         with pytest.raises(NotImplementedError, match=item):

@@ -124,6 +124,53 @@ def test_large_shared_memory_opt_in(cuda):
     _check(ops.gmm_estep_nodes(*a), ge.gmm_estep_nodes_plain(*a))
 
 
+@pytest.mark.parametrize("N,T,K,D", [
+    (20, 17, 2, 34),                     # Table II
+    (10, 14, 2, 52), (10, 28, 4, 52), (10, 43, 6, 52),   # Fig. 13
+    (3, 300, 10, 52), (2, 200, 12, 64),  # the widest K the path takes
+    (2, 130, 1, 9),                      # sixteen point groups
+    (2, 300, 224, 8)])                   # past the shared path's memory
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("return_r", [True, False])
+@pytest.mark.parametrize("centred", [False, True])
+def test_wide_kernel_matches_plain(cuda, N, T, K, D, dtype, return_r,
+                                   centred):
+    """The wide kernel at tests/test_kernels.py's bars against an f64
+    evaluation of the same inputs (it forms log rho in f64; two f32
+    versions do not agree to those bars at D >= 34, where log rho is a
+    sum of D^2 products: chip_smoke.py's note); one wide launch per
+    call."""
+    assert ge.kernel_variant(K, D) == "wide"
+    a = _args(N, T, K, D, cuda, seed=T + K, dtype=dtype)
+    shift = (torch.randn(N, K, D, device=cuda, generator=torch.Generator(
+        cuda).manual_seed(T)) if centred else None)
+    before = ops.gmm_estep_nodes.variant_launches["wide"]
+    got = ops.gmm_estep_nodes(*a, 3.0, shift=shift, return_r=return_r)
+    exact = ge.gmm_estep_nodes_plain(*a, 3.0, shift=shift,
+                                     return_r=return_r, dtype=torch.float64)
+    torch.cuda.synchronize()
+    assert ops.gmm_estep_nodes.variant_launches["wide"] == before + 1
+    assert (got[0] is None) == (not return_r)
+    _check([None if g is None else g.double() for g in got], exact)
+
+
+@pytest.mark.parametrize("centred", [False, True])
+def test_wide_kernel_bit_invariance_and_determinism(cuda, centred):
+    x, mask, *terms = _args(6, 200, 6, 52, cuda, seed=2)
+    shift = torch.full((6, 6, 52), 0.5, device=cuda) if centred else None
+    kw = dict(shift=shift, return_r=False)
+    base = ops.gmm_estep_nodes(x, mask, *terms, 5.0, **kw)
+    again = ops.gmm_estep_nodes(x, mask, *terms, 5.0, **kw)
+    for pad in (1, 64, 500):
+        xp = torch.cat([x, x.new_zeros(6, pad, 52)], 1)
+        mp = torch.cat([mask, mask.new_zeros(6, pad)], 1)
+        got = ops.gmm_estep_nodes(xp, mp, *terms, 5.0, **kw)
+        for g, w in zip(got[1:], base[1:]):
+            assert torch.equal(g, w)
+    for g, w in zip(again[1:], base[1:]):
+        assert torch.equal(g, w)
+
+
 def test_launch_counter_and_engine_parity(cuda):
     """A fused run launches the kernel once per iteration and matches the
     reference backend's KL trajectory at rtol 1e-4 (f32)."""
