@@ -49,6 +49,23 @@ never JAX or the JAX package, and prints one JSON line per phase:
    cut to SEC5_MAX_ITERS iterations), fused and reference backends on
    the card: the derived strings beside BENCH_engine.json's rows, the two
    backends' agreement, the wide kernel's launches (Table II, Fig. 13);
+6d. stream_main_path — streaming dSVB at the main path's size (N=1000 x
+   4096, B=512, 200 iterations), plain and SVRG, fused and reference:
+   ms per iteration, gmm_estep launches (one an iteration; SVRG two, plus
+   one per anchor), fused vs reference at rtol/atol 1e-4, the final KL
+   against the full-batch run's, B = 4096 bit-equal to the full-batch
+   run, the kernel on the (1000, 512, 2) gather against its bound;
+6e. stream_cpu_vs_card — a small streaming run with link_drop=0.2 on the
+   CPU and the card: equal masks and index sets, trajectories to 1e-9;
+6f. stream_scaled_mask_kernel — gmm_estep on masks scaled T/B (8, 40.96,
+   5), f32 and bf16, register, shared and wide paths, against the plain
+   version per unit of weight;
+6g. streaming_experiments — repro_torch.experiments.streaming (the
+   minibatch and SVRG benchmarks, 50 x 100, B=20) with their bars;
+6h. model_zoo — HMM (1000 sensors x 8 chains x 64 steps) and PPCA (1000
+   x 4096, D=6, Q=2) through dSVB and dVB-ADMM: ms and device kernels per
+   iteration, the samplers' host seconds, backend="fused" warning and
+   equal to the reference backend (the one fallback);
 7. lm_kernel_vs_plain — flash_attention and ssd_scan against their plain
    versions (and flash against scaled_dot_product_attention) at the
    tests/test_kernels.py shapes, a ragged S = 1000, the causality case and
@@ -77,6 +94,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
@@ -87,15 +105,17 @@ import torch  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.configs.gmm_sensor import GMMSensorConfig  # noqa: E402
 from repro_torch.core import algorithms, expfam, gmm, network  # noqa: E402
+from repro_torch.core import backends as backends_lib  # noqa: E402
 from repro_torch.core import engine as vb_engine  # noqa: E402
 from repro_torch.core import refperm  # noqa: E402
 from repro_torch.core.engine import kl_to_reference  # noqa: E402
 from repro_torch.core.model import GMMModel  # noqa: E402
+from repro_torch.data import stream as stream_lib  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
-from repro_torch.experiments import paper_figures  # noqa: E402
+from repro_torch.experiments import paper_figures, streaming  # noqa: E402
 from repro_torch.kernels import build, gmm_estep, ops  # noqa: E402
 from repro_torch.kernels import flash_attention, ssd_scan  # noqa: E402
-from repro_torch.models import mamba2  # noqa: E402
+from repro_torch.models import hmm, mamba2, ppca  # noqa: E402
 from repro_torch.models import model as lm_model  # noqa: E402
 from repro_torch.serving import admission, engine  # noqa: E402
 
@@ -955,6 +975,303 @@ def phase_paper_sec5(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 6d. streaming minibatches and SVRG on the main path's instance
+# ---------------------------------------------------------------------------
+STREAM_ITERS, STREAM_BATCH = 200, 512
+
+
+def _stream_run(inst, backend, dev, minibatch, n_iters=None,
+                link_drop=0.0):
+    """dSVB on Diffusion (Eq. 47 weights) from the main path's restart,
+    STREAM_ITERS iterations unless told otherwise."""
+    cfg, x, mask, adj, W, prior, ref, init_q = inst
+    n_iters = STREAM_ITERS if n_iters is None else n_iters
+    mdl = GMMModel(prior, cfg.K, cfg.D, backend=backend, device=dev)
+    phi0 = expfam.pack_natural(init_q).expand(x.shape[0], mdl.flat_dim)
+    return vb_engine.run_vb(
+        mdl, (x, mask), vb_engine.Diffusion(W, link_drop=link_drop,
+                                            link_seed=SEED),
+        n_iters=n_iters, schedule=vb_engine.Schedule(tau=cfg.tau,
+                                                     d0=cfg.d0),
+        init_phi=phi0, ref_phi=ref, minibatch=minibatch, device=dev)
+
+
+def _svrg_launches(n_iters, n_chunks):
+    """gmm_estep launches of an SVRG run: two an iteration, the anchor at
+    t = 0 and one at each epoch change."""
+    return 2 * n_iters + 1 + (n_iters - 1) // n_chunks
+
+
+def phase_stream_main_path(inst, dev):
+    """The slice's path at full width: N = 1000 x 4096, B = 512, dSVB,
+    plain and SVRG, fused and reference backends."""
+    cfg, x, mask = inst[:3]
+    T = mask.shape[1]
+    n_chunks = -(-T // STREAM_BATCH)
+    specs = {"plain": stream_lib.MinibatchSpec(STREAM_BATCH, SEED),
+             "svrg": stream_lib.MinibatchSpec(STREAM_BATCH, SEED, "svrg")}
+    _stream_run(inst, "fused", dev, specs["svrg"], n_iters=2)  # warm-up
+    torch.cuda.synchronize()
+    fused, out = {}, {}
+    zero_launches()                                 # this path's window
+    for name, spec in specs.items():
+        before = ops.gmm_estep_nodes.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run = fused[name] = _stream_run(inst, "fused", dev, spec)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / STREAM_ITERS
+        launched = ops.gmm_estep_nodes.launches - before
+        want = (STREAM_ITERS if name == "plain"
+                else _svrg_launches(STREAM_ITERS, n_chunks))
+        out[name] = {"ms_per_iter": ms, "launches": launched,
+                     "launches_expected": want,
+                     "finite": bool(torch.isfinite(run.phi).all()
+                                    and torch.isfinite(run.kl_mean).all())}
+        if launched != want or not out[name]["finite"]:
+            raise AssertionError(f"stream {name}: {out[name]}")
+    launches = read_launches()                      # read just after
+    full = _stream_run(inst, "fused", dev, None)
+    for name, spec in specs.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref_run = _stream_run(inst, "reference", dev, spec)
+        torch.cuda.synchronize()
+        run = fused[name]
+        rel = float(((run.kl_mean - ref_run.kl_mean).abs()
+                     / ref_run.kl_mean.abs().clamp_min(1e-30)).max())
+        out[name].update(
+            reference_ms_per_iter=(time.perf_counter() - t0) * 1e3
+            / STREAM_ITERS, max_rel_kl_diff=rel,
+            kl_first=float(run.kl_mean[0]), kl_last=float(run.kl_mean[-1]),
+            kl_last_reference=float(ref_run.kl_mean[-1]),
+            kl_ratio_to_full_batch=float(run.kl_mean[-1] / full.kl_mean[-1]))
+        emit("stream_main_path", case=name, nodes=x.shape[0],
+             points_per_node=T, batch_size=STREAM_BATCH,
+             n_iters=STREAM_ITERS, backend="fused",
+             kl_last_full_batch=float(full.kl_mean[-1]), **out[name])
+        torch.testing.assert_close(run.kl_mean, ref_run.kl_mean, rtol=1e-4,
+                                   atol=1e-4)
+    # B = capacity: the full-batch run, bit for bit (plain and svrg)
+    bit_equal = {}
+    for name in specs:
+        spec = stream_lib.MinibatchSpec(T, SEED, None if name == "plain"
+                                        else "svrg")
+        run = _stream_run(inst, "fused", dev, spec)
+        bit_equal[name] = bool(torch.equal(run.phi, full.phi)
+                               and torch.equal(run.kl_nodes, full.kl_nodes))
+    # the kernel on the iteration's (1000, 512, 2) gather: the engine's
+    # terms, the scaled mask T/B, f32 x
+    q = expfam.unpack_natural(fused["plain"].phi, cfg.K, cfg.D)
+    shift = q.m.float().contiguous()
+    terms = [t.contiguous() for t in gmm.estep_terms(q, torch.float32,
+                                                     shift=shift)]
+    st = stream_lib.init_state(x.shape[0], SEED, T, device=dev)
+    _, idx, mb = stream_lib.advance(st, mask, 3, STREAM_BATCH)
+    xb = torch.gather(x, 1, idx[..., None].expand(-1, -1, cfg.D))
+    args = (xb, mb, *terms, float(x.shape[0]))
+    ms = graph_time_ms(lambda: ops.gmm_estep_nodes(
+        *args, shift=shift, return_r=False), 20)
+    call_ms = time_ms(lambda: ops.gmm_estep_nodes(
+        *args, shift=shift, return_r=False), 100)
+    plain_ms = time_ms(lambda: gmm_estep.gmm_estep_nodes_plain(
+        *args, shift=shift, return_r=False), 10)
+    bound, by, n_bytes, flops = _gmm_bound(xb, mb, terms, shift, cfg.K,
+                                           cfg.D)
+    emit("stream_main_path_kernel", shape=list(xb.shape), mask_scale=float(
+        mb.max()), ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+        bound_ms=bound, bound_by=by, bytes=n_bytes, flops=flops,
+        fraction_of_bound=bound / ms, bit_equal_full_batch=bit_equal,
+        launches=launches)
+    if not all(bit_equal.values()):
+        raise AssertionError(f"B = capacity is not the full-batch run: "
+                             f"{bit_equal}")
+
+
+def phase_stream_cpu_vs_card(dev):
+    """F4: a small streaming run with link_drop=0.2 on the CPU and on the
+    card, the port's own permutations and coins: the masks and index sets
+    are equal bit for bit, the reference backend's trajectories agree to
+    1e-9 relative."""
+    cpu = torch.device("cpu")
+    n_iters, B = 24, 10
+    devs = {"card": dev, "cpu": cpu}
+    insts = {d: _instance(8, 40, devs[d]) for d in devs}
+    masks_equal = indices_equal = True
+    st = {d: stream_lib.init_state(8, SEED, 40, device=devs[d])
+          for d in devs}
+    for t in range(n_iters):
+        keep = {d: network.link_keep_matrix(
+            network.link_generator(SEED, t, devs[d]), 8, 0.2)
+            for d in devs}
+        masks_equal &= torch.equal(keep["card"].cpu(), keep["cpu"])
+        drawn = {}
+        for d in devs:
+            st[d], idx, mb = stream_lib.advance(st[d], insts[d][2], t, B)
+            drawn[d] = (idx.cpu(), mb.cpu())
+        indices_equal &= (torch.equal(drawn["card"][0], drawn["cpu"][0])
+                          and torch.equal(drawn["card"][1], drawn["cpu"][1]))
+    rel = {}
+    for cv in (None, "svrg"):
+        spec = stream_lib.MinibatchSpec(B, SEED, cv)
+        runs = {d: _stream_run(insts[d], "reference", devs[d], spec,
+                               n_iters=n_iters, link_drop=0.2)
+                for d in devs}
+        a, b = runs["card"].kl_nodes.cpu(), runs["cpu"].kl_nodes
+        rel[cv or "plain"] = float(((a - b).abs() / b.abs()).max())
+    emit("stream_cpu_vs_card", nodes=8, points_per_node=40, batch_size=B,
+         n_iters=n_iters, link_drop=0.2, masks_bit_equal=masks_equal,
+         indices_bit_equal=indices_equal, max_rel_kl_diff=rel)
+    if not (masks_equal and indices_equal) or max(rel.values()) > 1e-9:
+        raise AssertionError("CPU and card streams differ")
+
+
+# (nodes, capacity T, batch B, K, D): masks scaled T/B = 8, 40.96 and 5
+# on the register, shared-memory and wide paths
+SCALED_MASK_CASES = ((1000, 4096, 512, 3, 2), (200, 4096, 100, 3, 2),
+                     (50, 100, 20, 3, 2), (50, 1000, 200, 8, 2),
+                     (20, 170, 34, 2, 34))
+
+
+def phase_stream_scaled_mask_kernel(dev):
+    """gmm_estep_nodes against its plain version on streaming gathers with
+    the scaled mask `stream.advance` makes.  Every output is linear in the
+    mask, so both are compared per unit of weight (divided by T/B): the
+    units of the 0/1 masks tests/test_kernels.py's bars are set for (D > 8
+    against an f64 evaluation, as the wide phase)."""
+    rng = np.random.default_rng(16)
+    cases = []
+    for N, T, B, K, D in SCALED_MASK_CASES:
+        x = torch.tensor(rng.normal(size=(N, T, D)) * 2, dtype=torch.float32,
+                         device=dev)
+        mask = torch.tensor(rng.random((N, T)) > 0.2, dtype=torch.float32,
+                            device=dev)
+        terms = _random_terms(N, K, D, dev, rng)
+        st = stream_lib.init_state(N, SEED, T, device=dev)
+        _, idx, mb = stream_lib.advance(st, mask, 1, B)
+        xb = torch.gather(x, 1, idx[..., None].expand(-1, -1, D))
+        scale = T / B
+        for dtype in (torch.float32, torch.bfloat16):
+            args = (xb.to(dtype), mb.to(dtype), *terms)
+            got = [None if g is None else g / scale
+                   for g in ops.gmm_estep_nodes(*args)]
+            plain = [None if w is None else w / scale
+                     for w in gmm_estep.gmm_estep_nodes_plain(*args)]
+            if D > 8:
+                exact = [w / scale for w in gmm_estep.gmm_estep_nodes_plain(
+                    *args, dtype=torch.float64)]
+                err, share, _ = _compare_vs_f64(got, plain, exact)
+            else:
+                err, share = _compare(got, plain)
+            cases.append({"shape": [N, B, K, D], "capacity": T,
+                          "mask_scale": scale,
+                          "mask_scale_in_x_dtype": float(mb.to(dtype).max()),
+                          "x": str(dtype)[6:],
+                          "variant": gmm_estep.kernel_variant(K, D),
+                          "max_abs_err_per_weight": err, "bar_share": share})
+    emit("stream_scaled_mask_kernel", tolerance=TOL, cases=cases,
+         worst_bar_share=max(c["bar_share"] for c in cases))
+
+
+def phase_streaming_experiments(dev):
+    """experiments/streaming.py at the benchmarks' sizes (50 nodes x 100
+    points, B = 20), fused backend: both benchmarks assert their bars."""
+    results = {}
+    zero_launches()                                 # this path's window
+    t0 = time.perf_counter()
+    rows = []
+    for fn in streaming.ALL:
+        rows += fn(False, backend="fused", device=dev, results=results)
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    emit("streaming_experiments", seconds=seconds, launches=launches,
+         rows=[{"name": n, "us_per_iter": us, "derived": d}
+               for n, us, d in rows], **results)
+    if launches["gmm_estep_nodes"] == 0:
+        raise AssertionError("the streaming benchmarks launched no kernel")
+
+
+# the model zoo at a sensor fleet's size: HMM 1000 sensors x 8 chains x 64
+# steps (K=3, D=2), PPCA 1000 sensors x 4096 points (D=6, Q=2)
+ZOO_HMM = (1000, 8, 64)
+ZOO_PPCA = (1000, 4096, 6, 2)
+ZOO_ITERS, ZOO_PROFILE_ITERS, ZOO_FALLBACK_ITERS = 20, 10, 3
+
+
+def _zoo_models(dev):
+    gen = torch.Generator().manual_seed(SEED)
+    N, S, L = ZOO_HMM
+    t0 = time.perf_counter()
+    hx, hmask = hmm.sample_chains(N, S, L, K=3, D=2, seed=SEED)[:2]
+    sample_s = {"hmm_sample_chains": time.perf_counter() - t0}
+    hm = hmm.HMMModel(hmm.noninformative_prior(3, 2, beta0=0.1,
+                                               w0_scale=10.0, device=dev),
+                      device=dev)
+    hphi = hm.pack(hmm.perturbed_init(hm.prior, hx, generator=gen))
+    N, T, Dp, Q = ZOO_PPCA
+    t0 = time.perf_counter()
+    px, pmask = ppca.sample_sensors(N, T, D=Dp, Q=Q, seed=SEED)[:2]
+    sample_s["ppca_sample_sensors"] = time.perf_counter() - t0
+    pm = ppca.PPCAModel(ppca.prior(Dp, Q, device=dev), device=dev)
+    pphi = pm.pack(ppca.perturbed_init(pm.prior, generator=gen))
+    adj, _ = network.random_geometric_graph(N, seed=SEED)
+    W = network.nearest_neighbor_weights(adj)
+    return ({"hmm": (hm, (hx.to(dev), hmask.to(dev)), hphi),
+             "ppca": (pm, (px.to(dev), pmask.to(dev)), pphi)},
+            adj.to(dev), W.to(dev), sample_s)
+
+
+def phase_model_zoo(dev):
+    """HMM and PPCA through dSVB (Diffusion) and dVB-ADMM at a sensor
+    fleet's size; F5: backend="fused" warns and equals the reference
+    backend's run bit for bit."""
+    models, adj, W, sample_s = _zoo_models(dev)
+    for name, (mdl, data, phi) in models.items():
+        phi0 = phi.expand(data[0].shape[0], -1)
+        for est, topo, kw in (
+                ("dsvb", vb_engine.Diffusion(W),
+                 dict(schedule=vb_engine.Schedule())),
+                ("dvb_admm", vb_engine.ADMMConsensus(adj), {})):
+            def go(n, **extra):
+                return vb_engine.run_vb(mdl, data, topo, n_iters=n,
+                                        init_phi=phi0, device=dev,
+                                        **kw, **extra)
+
+            go(2)                                   # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run = go(ZOO_ITERS)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / ZOO_ITERS
+            prof = profile_window(lambda: go(ZOO_PROFILE_ITERS))
+            ref = go(ZOO_FALLBACK_ITERS)
+            backends_lib._WARNED.clear()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                fb = go(ZOO_FALLBACK_ITERS, backend="fused")
+            warned = [str(w.message) for w in caught
+                      if "falling back to the reference backend"
+                      in str(w.message)]
+            res = {
+                "ms_per_iter": ms, "finite": bool(torch.isfinite(
+                    run.phi).all()),
+                "kernels_per_iter": prof["kernels_launched"]
+                / ZOO_PROFILE_ITERS,
+                "device_busy_ms_per_iter": prof["device_busy_ms"]
+                / ZOO_PROFILE_ITERS,
+                "device_idle_share": prof["device_idle_share"],
+                "fused_warned": len(warned) == 1,
+                "fused_bit_equal_reference": bool(torch.equal(fb.phi,
+                                                              ref.phi))}
+            emit("model_zoo", model=name, estimator=est, n_iters=ZOO_ITERS,
+                 shape=list(data[0].shape), **res)
+            if not (res["finite"] and res["fused_warned"]
+                    and res["fused_bit_equal_reference"]):
+                raise AssertionError(f"{name} {est}: {res}")
+    emit("model_zoo_host", **sample_s)
+
+
+# ---------------------------------------------------------------------------
 # 7. the LM kernels against their plain versions
 # ---------------------------------------------------------------------------
 # the LM serving path: 4 requests, 2048-token prompts, 32 greedy tokens
@@ -1399,10 +1716,15 @@ def main():
     phase_small_vs_cpu(dev)
     phase_profile(inst, dev)
     phase_engine_remainder(inst, dev)
+    phase_stream_main_path(inst, dev)
     del inst, x, mask
     torch.cuda.empty_cache()
     wide = phase_gmm_wide_kernel_vs_plain(dev)
     sec5 = phase_paper_sec5(dev)
+    phase_stream_cpu_vs_card(dev)
+    phase_stream_scaled_mask_kernel(dev)
+    phase_streaming_experiments(dev)
+    phase_model_zoo(dev)
 
     lm_err = phase_lm_kernel_vs_plain(dev)
     yi = phase_lm_serve("yi_6b", "flash_attention", dev)

@@ -1,14 +1,16 @@
 """Carry state across from the JAX reference (read side of its checkpoints).
 
-Two kinds of state carry over.  For the VB engine: the prior posterior,
-the initial iterate and the session state (phi, the absolute t, the ADMM
-duals and the last `ConsensusDiagnostics`).  For the LM side stack: the
-model's weights (`lm_params_from_arrays`, `load_reference_lm_checkpoint`).
-The reference's `repro.checkpoint.ckpt.save` writes a compressed .npz
-whose `__meta__` entry is a JSON manifest mapping each pytree key path
-(`.phi`, `.t`, `.carry`, `.diag.<field>`; `['blocks']['attn']['wq']` for
-an LM's params) to an array name and dtype, with bf16 stored as a uint16
-view.  This module reads it with numpy alone.
+Two kinds of state carry over.  For the VB engine: the prior posterior
+(GMM, HMM, Normal-Gamma), the initial iterate and the session state (phi,
+the absolute t, the ADMM duals, the last `ConsensusDiagnostics` and a
+streaming session's current epoch: its permutations and SVRG anchors).
+For the LM side stack: the model's weights (`lm_params_from_arrays`,
+`load_reference_lm_checkpoint`).  The reference's
+`repro.checkpoint.ckpt.save` writes a compressed .npz whose `__meta__`
+entry is a JSON manifest mapping each pytree key path (`.phi`, `.t`,
+`.carry`, `.stream.<field>`, `.diag.<field>`; `['blocks']['attn']['wq']`
+for an LM's params) to an array name and dtype, with bf16 stored as a
+uint16 view.  This module reads it with numpy alone.
 """
 from __future__ import annotations
 
@@ -20,17 +22,35 @@ import torch
 
 from repro_torch.core.engine import VBState
 from repro_torch.core.expfam import GMMPosterior
+from repro_torch.core.linreg import NGPosterior
+from repro_torch.models.hmm import HMMPosterior
 from repro_torch.models.model import LM, _homogeneous
 
 _BF16 = "bfloat16"
 
 
+def _fields(arrays, device, dtype):
+    return (torch.as_tensor(np.array(a), dtype=dtype, device=device)
+            for a in arrays)
+
+
 def posterior_from_numpy(alpha, m, beta, W, nu, *, device,
                          dtype=torch.float64) -> GMMPosterior:
     """A GMMPosterior from host arrays (e.g. a reference prior)."""
-    return GMMPosterior(*(torch.as_tensor(np.asarray(a), dtype=dtype,
-                                          device=device)
-                          for a in (alpha, m, beta, W, nu)))
+    return GMMPosterior(*_fields((alpha, m, beta, W, nu), device, dtype))
+
+
+def hmm_posterior_from_numpy(pi, trans, m, beta, W, nu, *, device,
+                             dtype=torch.float64) -> HMMPosterior:
+    """An HMMPosterior from host arrays (e.g. the reference's prior)."""
+    return HMMPosterior(*_fields((pi, trans, m, beta, W, nu), device, dtype))
+
+
+def ng_posterior_from_numpy(m, V, a, b, *, device,
+                            dtype=torch.float64) -> NGPosterior:
+    """An NGPosterior (linear regression, or PPCA's rows) from host
+    arrays."""
+    return NGPosterior(*_fields((m, V, a, b), device, dtype))
 
 
 def read_npz(path: str) -> dict[str, np.ndarray]:
@@ -64,9 +84,28 @@ def _load(arr, like: torch.Tensor, key: str) -> torch.Tensor:
     return t.to(device=like.device, dtype=like.dtype)
 
 
+def _stream_from_arrays(get, like):
+    """`like`'s stream state with the reference's current epoch: its
+    permutations, the epoch and the SVRG anchors.  The reference's keys
+    are not carried: the port draws its own permutations from the next
+    epoch on (or the session's `perm_fn`)."""
+    epoch = np.asarray(get(".stream.epoch"))
+    if epoch.shape != ():
+        raise ValueError(f".stream.epoch: shape {epoch.shape} != ()")
+    perm = _load(get(".stream.perm"), like.perm, ".stream.perm")
+    anchors = {}
+    for f in ("anchor_phi", "anchor_full"):
+        if getattr(like, f) is not None:
+            anchors[f] = _load(get(f".stream.{f}"), getattr(like, f),
+                               f".stream.{f}")
+    return like._replace(perm=perm, epoch=int(epoch), **anchors)
+
+
 def state_from_arrays(arrays: dict, like: VBState) -> VBState:
     """`like` (a `vb_init` state of the same configuration) with its
-    arrays replaced by the reference checkpoint's; shapes are checked."""
+    arrays replaced by the reference checkpoint's; shapes are checked.
+    A streaming session resumes the reference's epoch mid-way
+    (`_stream_from_arrays`)."""
     def get(key):
         if key not in arrays:
             raise KeyError(f"checkpoint missing {key}")
@@ -83,8 +122,11 @@ def state_from_arrays(arrays: dict, like: VBState) -> VBState:
         diag = type(diag)(**{
             f: _load(get(f".diag.{f}"), getattr(diag, f), f".diag.{f}")
             for f in diag._fields})
+    stream = like.stream
+    if stream is not None:
+        stream = _stream_from_arrays(get, stream)
     return like.replace(phi=_load(get(".phi"), like.phi, ".phi"),
-                        t=int(t), carry=carry, diag=diag)
+                        t=int(t), carry=carry, diag=diag, stream=stream)
 
 
 def load_reference_checkpoint(path: str, like: VBState) -> VBState:

@@ -29,12 +29,20 @@ space, only the arithmetic that produces phi* varies:
   the Eq. 46 metric of cVB then moves by ~1e-3 between two f32
   implementations (PERF.md, PR 11).
 
-There is no silent fallback: `engine.vb_init` raises when a backend does
-not support the model.
+A model the asked-for backend cannot run (`Backend.supports` says no: an
+HMM, a PPCA or a linear-regression model with `backend="fused"`, or a GMM
+past the wide kernel's shared memory) runs the reference backend, as in
+the reference: `engine.vb_init` warns once per (backend, model type)
+through `fallback` ("... falling back to the reference backend") and
+carries on.  That is the only fallback: a kernel that fails to build or
+to launch raises, and the fused backend never gives way to the plain
+version on the card.  (The reference also counts each fallback in
+`backend_fallback_total`; that counter comes with the port's telemetry.)
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, NamedTuple, Protocol, runtime_checkable
 
 import torch
@@ -76,8 +84,9 @@ class Backend(Protocol):
     name: str
 
     def supports(self, model) -> bool:
-        """Can this backend run `model`'s hot path?  `engine.vb_init`
-        raises when the answer is no."""
+        """Can this backend run `model`'s hot path?  When the answer is no,
+        `engine.vb_init` falls back to the reference backend (`fallback`).
+        """
         ...
 
     def local_vbm_optimum_nodes(self, x, mask, phi_nodes,
@@ -149,6 +158,25 @@ class FusedBackend:
         q_star = gmm.posterior_from_stats(stats, prior.to(dtype=acc),
                                           shift=shift.to(acc))
         return expfam.pack_natural(q_star).to(out)
+
+
+#: the (backend, model type) pairs that have warned (`fallback`)
+_WARNED: set = set()
+
+
+def fallback(backend, model) -> "ReferenceBackend":
+    """The reference backend, for a model `backend` does not support:
+    warns the first time each (backend, model type) pair falls back (a
+    session re-opened many times warns once)."""
+    key = (backend.name, type(model).__name__)
+    if key not in _WARNED:
+        _WARNED.add(key)
+        warnings.warn(
+            f"backend {backend.name!r} does not support "
+            f"{type(model).__name__} (Backend.supports returned False); "
+            "falling back to the reference backend", UserWarning,
+            stacklevel=3)
+    return ReferenceBackend()
 
 
 _BY_NAME = {"reference": ReferenceBackend, "fused": FusedBackend}

@@ -11,7 +11,7 @@ per-block quantities:
 * `DirichletBlock` and `NormalWishartBlock` are the GMM's families,
   `NormalGammaBlock` the linear-regression instance's;
 * `BlockModel` derives the `model.ConjugateExpModel` surface from a block
-  tuple.
+  tuple, with the streaming layer's `data_mask` and `take_minibatch`.
 
 Every method takes leading batch dimensions (nodes, reference
 permutations) on its flat segments and hyper containers.
@@ -293,3 +293,15 @@ class BlockModel:
 
     def data_mask(self, data: Any) -> torch.Tensor:
         return data[-1]
+
+    def take_minibatch(self, data: Any, idx: torch.Tensor,
+                       mb_mask: torch.Tensor) -> Any:
+        """The iteration's minibatch: every array gathered along the
+        sample axis (1) at `idx` (N, B), its trailing axes kept, and the
+        mask replaced by the scaled minibatch mask `mb_mask` (N, B)."""
+        out = []
+        for a in data[:-1]:
+            ix = idx.reshape(idx.shape + (1,) * (a.dim() - 2))
+            out.append(torch.gather(a, 1, ix.expand(idx.shape
+                                                    + a.shape[2:])))
+        return (*out, mb_mask)

@@ -16,18 +16,25 @@ that turns the stack {phi*_i} into the next iterate:
 * Eq. 46   KL performance metric                `kl_to_reference`
 
 Sessions: `vb_init` returns a `VBState` (phi, absolute iteration t, the
-topology carry — the ADMM duals — and the last diagnostics); `vb_run`
-advances it with a Python step loop (the reference's `lax.scan`).  Every
-per-iteration quantity is a function of the absolute t, so
-`vb_run(s, a + b)` equals `vb_run(vb_run(s, a)[0], b)` bit for bit.
-`run_vb` is the one-shot wrapper.
+topology carry — the ADMM duals —, the minibatch stream and the last
+diagnostics); `vb_run` advances it with a Python step loop (the
+reference's `lax.scan`).  Every per-iteration quantity is a function of
+the absolute t, so `vb_run(s, a + b)` equals `vb_run(vb_run(s, a)[0], b)`
+bit for bit.  `run_vb` is the one-shot wrapper.
+
+Streaming (`minibatch=data.stream.MinibatchSpec(...)`): each iteration
+gathers a per-node minibatch with a scaled mask (data/stream.py) from the
+session's streamed copy of the data, so phi* is the stochastic estimate
+Algorithm 1's Robbins-Monro step assumes; `control_variate="svrg"` adds
+the full-batch anchor of `_iteration`.
 
 Time-varying networks: `Diffusion`, `RingDiffusion` and `ADMMConsensus`
-take `link_drop` / `link_mask_fn` (`_LinkSchedule`); the coins are drawn
-per iteration from a generator seeded from (link_seed, t) on the run's
-device.  `ADMMConsensus` carries the reference's adaptive-penalty
-subsystem (residual balancing, per-block penalties, dual warmup, dual
-reset), written as tensor ops with no host sync in the step.
+take `link_drop` / `link_mask_fn` (`_LinkSchedule`); the coins are a
+counter-based hash of (link_seed, t) (`network.link_generator`), the same
+bits on the CPU and on the card.  `ADMMConsensus` carries the
+reference's adaptive-penalty subsystem (residual balancing, per-block
+penalties, dual warmup, dual reset), written as tensor ops with no host
+sync in the step.
 
 The node axis is a plain tensor axis throughout (no Python loop over
 nodes).  Options of the reference that this port does not carry yet raise
@@ -44,6 +51,7 @@ import torch
 
 from repro_torch import device as device_lib
 from repro_torch.core import network as network_lib
+from repro_torch.data import stream as stream_lib
 
 
 def _not_ported(what: str, item: int):
@@ -141,7 +149,8 @@ class _LinkSchedule:
     * `link_drop` — every undirected link independently fails with this
       probability each iteration, the coins drawn on the run's device from
       `network.link_generator(link_seed, t)` (`network.link_keep_matrix`,
-      `network.ring_link_keep`), so a split run replays them.
+      `network.ring_link_keep`): a split run replays them, and a CPU run
+      draws the same ones as a card run.
     * `link_mask_fn(t)` — an explicit keep-mask sequence: the iteration-t
       keep mask, (N, N) 0/1 symmetric for graph topologies, (N,) per ring
       edge for `RingDiffusion` (a tensor or an array; it is moved to the
@@ -649,7 +658,10 @@ class VBSession:
     hyperparameters, plus the per-node data buffers (on the run's
     device).  `stream_data` is `data` as the model's hot path reads it
     (`model.stream_data`, e.g. cast once to the fused kernel's streaming
-    dtype), or `data` itself for a model without `stream_data`."""
+    dtype), or `data` itself for a model without `stream_data`; streaming
+    minibatches gather from it.  `minibatch` is the session's
+    `MinibatchSpec` (None: full batch) and `base_mask` the (N, T) mask of
+    `data` it subsamples."""
 
     model: Any
     data: Any
@@ -660,6 +672,8 @@ class VBSession:
     diagnostics: bool
     metric_nodes: Optional[int]
     stream_data: Any
+    minibatch: Optional[stream_lib.MinibatchSpec] = None
+    base_mask: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -672,9 +686,12 @@ class VBState:
     carry : topology carry (ADMM duals lambda_i), else None.
     diag : most recent `ConsensusDiagnostics` (ADMM), else None.
     session : the static `VBSession`.
+    stream : `data.stream.StreamState` (the epoch's permutations and the
+        SVRG anchors) when the session streams minibatches, else None.
 
     The arrays correspond to the reference checkpoint's `.phi`, `.t`,
-    `.carry` and `.diag.<field>` entries (checkpoint/ckpt.py).
+    `.carry`, `.stream.<field>` and `.diag.<field>` entries
+    (checkpoint/ckpt.py).
     """
 
     phi: torch.Tensor
@@ -682,6 +699,7 @@ class VBState:
     carry: Any = None
     diag: Any = None
     session: Optional[VBSession] = None
+    stream: Optional[stream_lib.StreamState] = None
 
     def replace(self, **kw) -> "VBState":
         return dataclasses.replace(self, **kw)
@@ -699,8 +717,6 @@ def vb_init(model, data, topology, *, schedule: Schedule = Schedule(),
     dev = device_lib.resolve(device)
     if executor is not None:
         raise _not_ported("the mesh executor (executor=)", 14)
-    if minibatch is not None:
-        raise _not_ported("streaming minibatches (minibatch=)", 10)
     model_dev = getattr(model, "device", dev)
     if torch.device(model_dev) != dev:
         raise ValueError(f"the model lives on {model_dev}, the run was "
@@ -714,9 +730,9 @@ def vb_init(model, data, topology, *, schedule: Schedule = Schedule(),
         from repro_torch.core import backends as backends_lib
         resolved = backends_lib.resolve(backend)
         if not resolved.supports(model):
-            raise ValueError(
-                f"backend {resolved.name!r} does not support "
-                f"{type(model).__name__} (Backend.supports returned False)")
+            # a model this backend cannot run (the fused GMM kernel asked
+            # for an HMM): the model's reference path, with a warning
+            resolved = backends_lib.fallback(resolved, model)
         model = with_backend(resolved)
     if not topology.uses_schedule and schedule != Schedule():
         raise ValueError(
@@ -740,12 +756,80 @@ def vb_init(model, data, topology, *, schedule: Schedule = Schedule(),
     init_phi = _as_tensor(init_phi).to(dev)
     if ref_phi is not None:
         ref_phi = _as_tensor(ref_phi).to(dev)
+
+    stream0 = base_mask = None
+    if minibatch is not None:
+        if minibatch.batch_size < 1:
+            raise ValueError(f"batch_size must be >= 1: {minibatch}")
+        if getattr(model, "take_minibatch", None) is None:
+            raise ValueError(
+                f"{type(model).__name__} does not support streaming "
+                "minibatches (no take_minibatch/data_mask methods)")
+        if minibatch.control_variate not in (None, "svrg"):
+            raise ValueError(
+                f"unknown control_variate {minibatch.control_variate!r}; "
+                "expected None or 'svrg'")
+        base_mask = model.data_mask(data)        # also validates the data
+        capacity = int(base_mask.shape[1])
+        if minibatch.batch_size > capacity:
+            # covering the whole node = the bit-exact full-batch path
+            minibatch = minibatch._replace(batch_size=capacity)
+        stream0 = stream_lib.init_state(n_nodes, minibatch.seed, capacity,
+                                        device=dev,
+                                        perm_fn=minibatch.perm_fn)
+        if minibatch.control_variate == "svrg" \
+                and minibatch.batch_size < capacity:
+            # SVRG anchors: the iterate and its full-batch optimum,
+            # refreshed at each epoch change (`_iteration`); absent at
+            # full batch, which is already the exact full-batch run
+            stream0 = stream0._replace(
+                anchor_phi=init_phi,
+                anchor_full=model.local_optimum(stream_data, init_phi,
+                                                float(replication)))
     session = VBSession(model, data, topology, schedule, float(replication),
-                        ref_phi, diagnostics, metric_nodes, stream_data)
+                        ref_phi, diagnostics, metric_nodes, stream_data,
+                        minibatch, base_mask)
     return VBState(
         phi=init_phi, t=0, carry=topology.init_carry(init_phi, model),
         diag=topology.init_diag(model, init_phi) if diagnostics else None,
-        session=session)
+        session=session, stream=stream0)
+
+
+def _iteration(ses: VBSession, phi, carry, st, t: int):
+    """ONE VB iteration at the absolute t: (phi', carry', stream', diag).
+
+    Streaming: gather this iteration's minibatch from the streamed data;
+    its scaled mask keeps the statistics unbiased.  SVRG (anchors in the
+    stream state) uses
+
+        phi* = phi*_B(phi_t) - phi*_B(anchor_phi) + anchor_full,
+
+    refreshing the anchor with the current iterate when t enters a new
+    epoch (the two minibatch terms then cancel exactly).
+    """
+    model, mb, rep = ses.model, ses.minibatch, ses.replication
+    if mb is None:
+        data_t, st_new = ses.stream_data, st
+    else:
+        st_new, idx, mb_mask = stream_lib.advance(
+            st, ses.base_mask, t, mb.batch_size, mb.perm_fn)
+        data_t = model.take_minibatch(ses.stream_data, idx, mb_mask)
+    if st is not None and st.anchor_phi is not None:
+        if st_new.epoch != st.epoch:
+            anchor_phi = phi
+            anchor_full = model.local_optimum(ses.stream_data, phi, rep)
+        else:
+            anchor_phi, anchor_full = st.anchor_phi, st.anchor_full
+        st_new = st_new._replace(anchor_phi=anchor_phi,
+                                 anchor_full=anchor_full)
+        phi_star = (model.local_optimum(data_t, phi, rep)
+                    - model.local_optimum(data_t, anchor_phi, rep)
+                    + anchor_full)
+    else:
+        phi_star = model.local_optimum(data_t, phi, rep)
+    phi, carry, diag = ses.topology.step(model, phi, carry, phi_star, t,
+                                         ses.schedule)
+    return phi, carry, st_new, diag
 
 
 def vb_run(state: VBState, n_iters: int) -> tuple[VBState, VBRun]:
@@ -758,14 +842,11 @@ def vb_run(state: VBState, n_iters: int) -> tuple[VBState, VBRun]:
                          "with vb_init(...)")
     if n_iters < 1:
         raise ValueError(f"n_iters must be >= 1: {n_iters}")
-    model, topology = ses.model, ses.topology
-    phi, carry = state.phi, state.carry
+    model = ses.model
+    phi, carry, st = state.phi, state.carry, state.stream
     kls, msds, diags = [], [], []
     for t in range(state.t, state.t + n_iters):
-        phi_star = model.local_optimum(ses.stream_data, phi,
-                                       ses.replication)
-        phi, carry, diag = topology.step(model, phi, carry, phi_star, t,
-                                         ses.schedule)
+        phi, carry, st, diag = _iteration(ses, phi, carry, st, t)
         phi_m = phi if ses.metric_nodes is None else phi[:ses.metric_nodes]
         kls.append(kl_to_reference(model, phi_m, ses.ref_phi))
         if ses.diagnostics:
@@ -776,6 +857,7 @@ def vb_run(state: VBState, n_iters: int) -> tuple[VBState, VBRun]:
     if diags and diags[-1] is not None:
         stacked = type(diags[-1])(*(torch.stack(f) for f in zip(*diags)))
     state_new = state.replace(phi=phi, t=state.t + n_iters, carry=carry,
+                              stream=st,
                               diag=diags[-1] if ses.diagnostics
                               else state.diag)
     run = VBRun(phi=phi, kl_mean=kls.mean(1),
@@ -811,12 +893,15 @@ def run_vb(model, data, topology, *, n_iters: int,
     init_phi : (N, P) initial naturals; default the prior at every node
     ref_phi : (P,) or (n_refs, P) reference for the Eq. 46 metric
     backend : per-run compute backend ("reference" | "fused" | a
-        `core.backends.Backend`); None keeps the model's own.  Raises if
-        the backend does not support the model.
+        `core.backends.Backend`); None keeps the model's own.  A backend
+        that does not support the model falls back to the reference
+        backend with a warning (once per backend and model type).
+    minibatch : `data.stream.MinibatchSpec` — stream per-node minibatches
+        (and SVRG anchors) instead of the full batch; None = full batch
     diagnostics : also record the per-iteration consensus error
     metric_nodes : evaluate the Eq. 46 metric on the first rows only
     device : where the run executes; None = CUDA (raises without a card)
-    executor, minibatch : not ported yet (raise NotImplementedError)
+    executor : not ported yet (raises NotImplementedError)
 
     Exactly `vb_run(vb_init(<same arguments>), n_iters)[1]`.
     """

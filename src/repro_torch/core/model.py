@@ -158,8 +158,15 @@ class LinRegModel(blocks.BlockModel):
         X, y, mask = data
         return linreg.local_optimum(X, y, mask, self.prior, replication)
 
-    def data_mask(self, data):
+    def _raw_data(self, data):
         if self._is_phi_stack(data):
-            raise ValueError("a precomputed (N, P) phi* stack has no "
-                             "per-sample mask; pass raw (X, y, mask)")
-        return data[-1]
+            raise ValueError(
+                "cannot minibatch a precomputed (N, P) phi* stack; pass "
+                "raw (X, y, mask) node data to stream LinRegModel")
+        return data
+
+    def data_mask(self, data):
+        return self._raw_data(data)[-1]
+
+    def take_minibatch(self, data, idx, mb_mask):
+        return super().take_minibatch(self._raw_data(data), idx, mb_mask)

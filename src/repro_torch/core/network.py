@@ -1,7 +1,10 @@
 """Sensor-network topologies and combination-weight rules (Sec. II, Eq. 47).
 
 Port of the dense half of `repro.core.network`, with the per-iteration
-link coins of a time-varying network.  Graph generation is
+link coins of a time-varying network drawn from a counter-based hash
+(`hash32`) that gives the same bits on the CPU and on the card; the
+streaming layer (data/stream.py) draws its epoch permutations from it
+too.  Graph generation is
 host-side numpy seeded exactly as the reference, so the arrays are equal
 to the reference's; they come back as float64 CPU tensors, which the
 engine's entry points move to the run's device.  The paper's reference
@@ -11,6 +14,7 @@ communication radius 0.8.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -105,47 +109,112 @@ def metropolis_weights(adj: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Counter-based random words: the same bits on every device
+# ---------------------------------------------------------------------------
+_M32 = 0xFFFFFFFF
+#: stream tags: which use a word is drawn for (they key the hash)
+STREAM_LINKS, STREAM_PERMS = 1, 2
+
+
+def _mul32(x, m: int):
+    """(x * m) mod 2^32 for x in [0, 2^32) (an int64 tensor or a Python
+    int) and a 32-bit constant m.  m is split into 16-bit halves, so every
+    intermediate stays below 2^49: int64 never wraps on any device."""
+    return (x * (m & 0xFFFF) + (((x * (m >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def mix32(x):
+    """The "lowbias32" integer finaliser (C. Wellons): a bijection of
+    [0, 2^32) with full avalanche, in int64 ops (or on a Python int).
+
+    >>> [mix32(v) for v in (0, 1)]
+    [0, 1753845952]
+    """
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def seed_state(seed: int) -> int:
+    """The hash state after absorbing a (64-bit) seed."""
+    h = mix32((int(seed) & _M32) ^ 0x9E3779B9)
+    return mix32(h ^ ((int(seed) >> 32) & _M32))
+
+
+def absorb(h, *words):
+    """Absorb 32-bit words into the state h (Python ints or int64 tensors,
+    broadcast): h <- mix32(h ^ w).  For fixed other inputs the state is a
+    bijection of each word."""
+    for w in words:
+        h = mix32(h ^ (w & _M32))
+    return h
+
+
+def hash32(seed: int, *words):
+    """One 32-bit word of (seed, words...), as an int64 in [0, 2^32): a
+    pure function of its inputs, computed with the same integer ops on
+    every device, so a CPU and a CUDA run draw the same bits."""
+    return mix32(absorb(seed_state(seed), *words))
+
+
+def uniform(words: torch.Tensor) -> torch.Tensor:
+    """Uniforms in [0, 1) from 32-bit words, in float64: w / 2^32 is exact,
+    so a comparison `u >= p` decides alike on every device."""
+    return words.to(torch.float64) * (2.0 ** -32)
+
+
+# ---------------------------------------------------------------------------
 # Time-varying links: per-iteration Bernoulli link failures
 # ---------------------------------------------------------------------------
-def link_generator(link_seed: int, t: int, device) -> torch.Generator:
-    """The generator of iteration t's link coins: a `torch.Generator` on
-    `device` seeded from (link_seed, t), so the coins are a function of the
-    absolute iteration (a run split at any t replays them).  The reference
-    draws from `jax.random`, which torch cannot reproduce, and the CPU's and
-    the card's generators differ from each other: the masks are
-    deterministic per device type, and parity tests inject the reference's
-    through `link_mask_fn`."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(((int(link_seed) & 0xFFFFFFFF) << 32)
-                    | (int(t) & 0xFFFFFFFF))
-    return gen
+class LinkCoins(NamedTuple):
+    """The key of iteration t's link coins: (link_seed, t) and the device
+    the coins are drawn on."""
+
+    seed: int
+    t: int
+    device: torch.device
 
 
-def link_keep_matrix(gen: torch.Generator, n: int, drop_prob: float,
+def link_generator(link_seed: int, t: int, device) -> LinkCoins:
+    """The counter-based generator of iteration t's link coins: coin k is
+    `hash32(link_seed, STREAM_LINKS, t, k)`, a function of the absolute
+    iteration (a run split at any t replays it) that gives the same bits
+    on the CPU and on the card.  The reference draws from `jax.random`,
+    which torch cannot reproduce: parity tests inject its masks through
+    `link_mask_fn`."""
+    return LinkCoins(int(link_seed), int(t), torch.device(device))
+
+
+def _link_uniforms(gen: LinkCoins, n_coins: int) -> torch.Tensor:
+    k = torch.arange(n_coins, dtype=torch.int64, device=gen.device)
+    h = absorb(seed_state(gen.seed), STREAM_LINKS, gen.t)     # a host int
+    return uniform(mix32(absorb(h, k)))
+
+
+def link_keep_matrix(gen: LinkCoins, n: int, drop_prob: float,
                      dtype=torch.float32) -> torch.Tensor:
     """Symmetric (N, N) 0/1 keep mask on `gen`'s device: each undirected
-    link (i, j) survives with probability 1 - drop_prob (both directions
-    share one coin: a failed link is failed both ways); the diagonal is
-    always 1 (a node never loses itself).
+    link (i, j), i < j, survives iff its coin (number i N + j) is
+    >= drop_prob (both directions share one coin: a failed link is failed
+    both ways); the diagonal is always 1 (a node never loses itself).
 
     >>> k = link_keep_matrix(link_generator(0, 3, "cpu"), 5, 0.5)
     >>> bool((k == k.T).all()), bool((k.diagonal() == 1).all())
     (True, True)
     """
-    u = torch.rand((n, n), generator=gen, device=gen.device,
-                   dtype=torch.float32).triu(1)
+    u = _link_uniforms(gen, n * n).reshape(n, n).triu(1)
     u = u + u.T                                       # one coin per pair
     keep = (u >= drop_prob).to(dtype)
     return torch.maximum(keep, torch.eye(n, dtype=dtype, device=gen.device))
 
 
-def ring_link_keep(gen: torch.Generator, n: int, drop_prob: float,
+def ring_link_keep(gen: LinkCoins, n: int, drop_prob: float,
                    dtype=torch.float32) -> torch.Tensor:
     """(N,) keep mask of the ring edges on `gen`'s device: entry i gates
-    the undirected link (i, i+1 mod N), one coin per edge."""
-    u = torch.rand((n,), generator=gen, device=gen.device,
-                   dtype=torch.float32)
-    return (u >= drop_prob).to(dtype)
+    the undirected link (i, i+1 mod N), one coin (number i) per edge."""
+    return (_link_uniforms(gen, n) >= drop_prob).to(dtype)
 
 
 def algebraic_connectivity(adj: torch.Tensor) -> float:

@@ -1,5 +1,7 @@
 """The port stands alone: no jax, no repro; the card unless told otherwise;
-no silent fallback; unported options raise."""
+the one fallback is the reference's (a backend that cannot run a model
+warns and runs the reference backend); unported options raise."""
+import warnings
 import os
 import pkgutil
 import subprocess
@@ -29,7 +31,10 @@ def test_import_pulls_in_neither_jax_nor_repro():
               "repro_torch.launch.serve", "repro_torch.configs.yi_6b",
               "repro_torch.core.linreg", "repro_torch.data.datasets",
               "repro_torch.experiments.common",
-              "repro_torch.experiments.paper_figures"):
+              "repro_torch.experiments.paper_figures",
+              "repro_torch.experiments.streaming",
+              "repro_torch.data.stream", "repro_torch.models.hmm",
+              "repro_torch.models.ppca"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"
@@ -106,22 +111,38 @@ class _OtherModel(blocks.BlockModel):
         return phi_nodes
 
 
-def test_fused_backend_on_unsupported_model_raises():
+def test_fused_backend_on_unsupported_model_falls_back():
+    """backend="fused" on a model the kernel cannot run warns once per
+    (backend, model type), "falling back to the reference backend", and
+    gives the reference backend's result."""
     prior, x, mask = _tiny()
-    with pytest.raises(ValueError, match="does not support"):
-        engine.vb_init(_OtherModel(), (x, mask), engine.Isolated(),
-                       backend="fused", device="cpu")
+
+    def check(model, data, phi0=None):
+        backends._WARNED.clear()
+        want = engine.run_vb(model, data, engine.Isolated(), n_iters=2,
+                             init_phi=phi0, backend="reference",
+                             device="cpu")
+        with pytest.warns(UserWarning, match="falling back to the "
+                                             "reference backend"):
+            got = engine.run_vb(model, data, engine.Isolated(), n_iters=2,
+                                init_phi=phi0, backend="fused", device="cpu")
+        assert torch.equal(got.phi, want.phi)
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            engine.vb_init(model, data, engine.Isolated(), init_phi=phi0,
+                           backend="fused", device="cpu")
+
+    check(_OtherModel(), (x, mask), torch.zeros(4, 3))
     # past the wide kernel's shared memory (K > 12 at D = 64)
-    wide = expfam.noninformative_prior(13, 64)
-    with pytest.raises(ValueError, match="does not support"):
-        engine.vb_init(model_lib.GMMModel(wide, device="cpu"),
-                       (torch.zeros(2, 5, 64), torch.ones(2, 5)),
-                       engine.Isolated(), backend="fused", device="cpu")
+    wide = model_lib.GMMModel(expfam.noninformative_prior(13, 64),
+                              device="cpu")
+    assert not backends.FusedBackend().supports(wide)
+    check(wide, (torch.randn(2, 5, 64, dtype=torch.float64),
+                 torch.ones(2, 5, dtype=torch.float64)))
     # the Normal-Gamma instance has no fused backend
     lin = model_lib.LinRegModel(D=2, device="cpu")
-    with pytest.raises(ValueError, match="does not support"):
-        engine.vb_init(lin, torch.zeros(2, lin.flat_dim), engine.Isolated(),
-                       backend="fused", device="cpu")
+    check(lin, torch.randn(2, lin.flat_dim, dtype=torch.float64),
+          torch.zeros(2, lin.flat_dim, dtype=torch.float64))
     assert backends.FusedBackend().supports(
         model_lib.GMMModel(prior, device="cpu"))
 
@@ -139,8 +160,6 @@ def test_unported_options_raise():
     cases = [
         (lambda: engine.vb_init(mdl, (x, mask), engine.Isolated(),
                                 executor=object(), device="cpu"), "item 14"),
-        (lambda: engine.vb_init(mdl, (x, mask), engine.Isolated(),
-                                minibatch=object(), device="cpu"), "item 10"),
         (lambda: engine.RingDiffusion(graph=object()), "item 11"),
         (lambda: engine.Diffusion(_SparseWeights()), "item 11"),
         (lambda: engine.ADMMConsensus(object()), "item 11"),

@@ -10,14 +10,20 @@ Tolerances are those of tests/test_kernels.py: gmm_estep r atol 2e-5;
 R rtol 1e-4; sum_x rtol 1e-4 / atol 5e-4; sum_xx rtol 1e-3 / atol 5e-3;
 flash_attention atol 2e-5 (f32) / 2e-2 (bf16); ssd_scan atol 5e-5 (at
 Mamba-2's full shape: error against f64 at most twice the plain
-version's, as chip_smoke.py holds it).
+version's, as chip_smoke.py holds it).  The streaming cases: the link
+coins and epoch permutations are equal bit for bit on the CPU and the
+card; gmm_estep on masks scaled as `stream.advance` makes them (T/B = 8,
+40.96, 5) at the same bars; full-batch streaming specs bit-equal to the
+full-batch fused run.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import algorithms, expfam, gmm, network, refperm
-from repro_torch.data import synthetic
+from repro_torch.core import algorithms, engine, expfam, gmm, network
+from repro_torch.core import model as model_lib
+from repro_torch.core import refperm
+from repro_torch.data import stream, synthetic
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gmm_estep as ge
 from repro_torch.kernels import ops
@@ -308,3 +314,70 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
             ops.ssd_scan(z(1, 32, 2, P), z(1, 32, 2), z(2), z(1, 32, N),
                          z(1, 32, N), chunk=32)
     assert ops.flash_attention.launches == before
+
+
+# ---------------------------------------------------------------------------
+# streaming: device-independent coins and permutations, scaled masks
+# ---------------------------------------------------------------------------
+def test_coins_and_permutations_equal_on_cpu_and_card(cuda):
+    for seed, t, n in ((0, 0, 7), (5, 3, 300), (2 ** 40 + 1, 123456, 1000)):
+        for drop in (0.2, 0.5):
+            cpu = network.link_keep_matrix(
+                network.link_generator(seed, t, "cpu"), n, drop)
+            card = network.link_keep_matrix(
+                network.link_generator(seed, t, cuda), n, drop)
+            assert torch.equal(cpu, card.cpu())
+            assert torch.equal(
+                network.ring_link_keep(network.link_generator(seed, t, "cpu"),
+                                       n, drop),
+                network.ring_link_keep(network.link_generator(seed, t, cuda),
+                                       n, drop).cpu())
+        for epoch in (0, 1, 77):
+            cpu = stream.epoch_perms(stream.node_keys(n, seed), epoch, 4096)
+            card = stream.epoch_perms(stream.node_keys(n, seed, cuda), epoch,
+                                      4096)
+            assert torch.equal(cpu, card.cpu())
+
+
+@pytest.mark.parametrize("N,T,B,K,D", [
+    (50, 4096, 512, 3, 2), (20, 4096, 100, 3, 2), (8, 100, 20, 3, 2),
+    (6, 1000, 200, 8, 2), (4, 430, 86, 2, 34)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_on_scaled_masks(cuda, N, T, B, K, D, dtype):
+    """The kernel on a streaming gather: (N, B) points, mask T/B on the
+    selected valid points (8, 40.96, 5; the register, shared and wide
+    paths).  Every output is linear in the mask, so both are compared per
+    unit of weight (divided by T/B), in the units of the 0/1 masks the
+    bars were set for.  D > 8 is held against an f64 evaluation, as
+    test_wide_kernel_matches_plain."""
+    x, mask, *terms = _args(N, T, K, D, cuda, dtype=torch.float32)
+    st = stream.init_state(N, 3, T, device=cuda)
+    _, idx, mb = stream.advance(st, mask, 1, B)
+    assert float(mb.max()) == pytest.approx(T / B, rel=1e-6)
+    xb = torch.gather(x, 1, idx[..., None].expand(N, B, D)).to(dtype)
+    mb = mb.to(dtype)
+    got = ops.gmm_estep_nodes(xb, mb, *terms)
+    want = ge.gmm_estep_nodes_plain(
+        xb, mb, *terms, dtype=torch.float64 if D > 8 else torch.float32)
+    scale = T / B
+    _check([g / scale for g in got],
+           [(w / scale).to(g.dtype) for g, w in zip(got, want)])
+
+
+def test_full_batch_streaming_bit_exact_on_card(cuda):
+    K, D, N, T = 3, 2, 40, 512
+    data = synthetic.paper_synthetic(n_nodes=N, n_per_node=T, seed=2,
+                                     dtype=np.float32)
+    prior = expfam.noninformative_prior(K, D, beta0=0.1, w0_scale=10.0,
+                                        device=cuda)
+    adj, _ = network.random_geometric_graph(N, seed=4)
+    W = network.nearest_neighbor_weights(adj)
+    mdl = model_lib.GMMModel(prior, backend="fused", device=cuda)
+    full = engine.run_vb(mdl, (data.x, data.mask), engine.Diffusion(W),
+                         n_iters=10)
+    for cv in (None, "svrg"):
+        got = engine.run_vb(mdl, (data.x, data.mask), engine.Diffusion(W),
+                            n_iters=10,
+                            minibatch=stream.MinibatchSpec(T, 1, cv))
+        assert torch.equal(got.phi, full.phi)
+        assert torch.equal(got.kl_nodes, full.kl_nodes)
