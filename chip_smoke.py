@@ -25,6 +25,10 @@ never JAX or the JAX package, and prints one JSON line per phase:
    it), its ptxas registers and spills, peak device memory, and
    (reported only) what cVB gives with f32 iterates instead of the main
    path's f64 ones;
+4a. smem_path — an over-complete mixture (K=8 on the main path's K=3
+   data, dSVB, 20 iterations) through the kernel's shared-memory path:
+   one launch an iteration, fused vs reference; the shared path timed at
+   K=32, D=3 on 1000 x 4096 points against its bound and plain version;
 5. small_vs_cpu — the same five estimators on a small instance, card
    (fused kernel) against CPU (plain version);
 6. profile — device-busy time by kernel over ten fused dSVB iterations
@@ -32,12 +36,15 @@ never JAX or the JAX package, and prints one JSON line per phase:
    (torch.profiler);
 6a. gmm_wide_kernel_vs_plain — the wide-D kernel (D > 8) against the
    plain version at Table II's (20 x 17, K=2, D=34) and Fig. 13's (10 x
-   14-43, K=2/4/6, D=52) node shapes, f32 and bf16 x, with and without a
-   shift, r on and off (tests/test_kernels.py's bars against an f64
-   evaluation of the same inputs; the share of those bars against the f32
-   plain version beside it), bit-equality under padding and across launches, and a
+   14-43, K=2/4/6, D=52) node shapes and past the first wide design's
+   limit (K=13/16 at D=64, K=2 at D=110, K=227 at D=8), f32 and bf16 x,
+   with and without a shift, r on and off (tests/test_kernels.py's bars
+   against an f64 evaluation of the same inputs; the share of those bars
+   against the f32 plain version beside it), the call's device time at
+   the node shapes, bit-equality under padding and across launches, and a
    deployment shape (1000 sensors x 4096 points, K=2, D=34) timed by CUDA
-   events against its bound;
+   events against its bound (the first wide design's recorded time
+   beside it);
 6b. engine_remainder — at the main path's size, fused, f64 iterates: dSVB
    on RingDiffusion, dSVB on Diffusion with link_drop=0.2, dVB-ADMM with
    adaptive_rho, and with adaptive_rho + per_block + link_drop=0.2: ms
@@ -120,10 +127,12 @@ from repro_torch.models import model as lm_model  # noqa: E402
 from repro_torch.serving import admission, engine  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, f32 outside the
-# tensor cores, bf16 on the tensor cores (dense)
+# tensor cores, bf16 on the tensor cores (dense), f64 on the tensor cores
+# (DMMA, the wide gmm_estep path's log rho and statistics)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 PEAK_BF16_FLOP_PER_S = 989e12
+PEAK_F64_TC_FLOP_PER_S = 67e12
 
 KERNELS = ("gmm_estep", "flash_attention", "ssd_scan")
 
@@ -224,13 +233,15 @@ def phase_device() -> dict:
 def _ptxas_table(report: str) -> list:
     """ptxas -v's registers / spills / shared memory per kernel instance
     (gmm_estep_regs_kernel<D, x dtype>, gmm_estep_smem_kernel<D, x dtype>,
-    gmm_estep_wide_kernel<x dtype>, flash_wgmma_kernel<hd> (bf16),
+    gmm_estep_wide_kernel<x dtype, mode, x from global>, its prep and
+    emit kernels, flash_wgmma_kernel<hd> (bf16),
     flash_simt_kernel<hd, f32>, ssd_states_kernel<dtype>, ssd_pass_kernel,
     ssd_chunk_scan_kernel<dtype>)."""
     rows, cur = [], None
     for ln in report.splitlines():
         m = re.search(r"Compiling entry function '.*?\d+((?:gmm_estep_regs|"
-                      r"gmm_estep_smem|gmm_estep_wide|flash_wgmma|"
+                      r"gmm_estep_smem|gmm_estep_wide_prep|"
+                      r"gmm_estep_wide_emit|gmm_estep_wide|flash_wgmma|"
                       r"flash_simt|ssd_states|"
                       r"ssd_pass|"
                       r"ssd_chunk_scan)_kernel)(I?)([^']*)'", ln)
@@ -242,6 +253,10 @@ def _ptxas_table(report: str) -> list:
                 if dim:
                     cur["D" if m.group(1).startswith("gmm") else "hd"] = int(
                         dim.group(1))
+                mode = re.search(r"Li(\d)ELb(\d)E", m.group(3))
+                if m.group(1) == "gmm_estep_wide_kernel" and mode:
+                    cur["mode"] = ("fused", "lse", "split")[int(mode.group(1))]
+                    cur["x_from_global"] = mode.group(2) == "1"
             rows.append(cur)
         elif cur is not None:
             for key, pat in (("registers", r"Used (\d+) registers"),
@@ -266,6 +281,12 @@ def phase_build() -> dict:
              library=os.path.relpath(built[name].path, HERE),
              ptxas=tables[name])
     emit("build_all", kernels=list(KERNELS), wall_seconds=round(wall, 3))
+    wide = [r for r in tables["gmm_estep"]
+            if r["kernel"].startswith("gmm_estep_wide")]
+    if not wide or any(r.get("spill_stores", 0) or r.get("spill_loads", 0)
+                       for r in wide):
+        raise AssertionError(f"the wide gmm_estep kernels spill (or were "
+                             f"not found): {wide}")
     return tables
 
 
@@ -571,6 +592,89 @@ def phase_precision(inst, ref_cvb, dev):
 
 
 # ---------------------------------------------------------------------------
+# 4a. an over-complete mixture on the main path's data (the shared path)
+# ---------------------------------------------------------------------------
+# K = 8 components on the paper's K = 3 data: a user who does not know K
+# fits more components and lets VB empty the extra ones.  K (1 + D +
+# D(D+1)/2) = 48 floats is past the register path's budget, so the
+# kernel's shared-memory path runs it
+SMEM_K, SMEM_ITERS = 8, 20
+# the shared path timed at phase_kernel_vs_plain's K=32, D=3 case, at the
+# main path's 1000 sensors x 4096 points
+SMEM_TIMED = (1000, 4096, 32, 3)
+SMEM_PLAIN_NODES = 8
+
+
+def phase_smem_path(inst, dev) -> dict:
+    cfg, x, mask, adj, W, prior, ref, init_q = inst
+    K = SMEM_K
+    if gmm_estep.kernel_variant(K, cfg.D) != "shared":
+        raise AssertionError(f"K={K}, D={cfg.D} does not take the shared "
+                             f"path")
+    prior_k = expfam.noninformative_prior(
+        K, cfg.D, alpha0=cfg.alpha0, beta0=cfg.beta0, w0_scale=cfg.w0_scale,
+        dtype=torch.float64, device=dev)
+    u = np.random.default_rng(SEED + 1).uniform(size=(K, cfg.D))
+    lo, hi = x.reshape(-1, cfg.D).amin(0), x.reshape(-1, cfg.D).amax(0)
+    init_k = prior_k._replace(m=(lo + (hi - lo) * torch.tensor(
+        u, dtype=torch.float32, device=dev)).double())
+    kw = dict(K=K, D=cfg.D, tau=cfg.tau, d0=cfg.d0, init_q=init_k,
+              device=dev)
+    algorithms.run_dsvb(x, mask, W, prior_k, n_iters=2, backend="fused",
+                        **kw)                              # warm-up
+    torch.cuda.synchronize()
+    zero_launches()                                # this path's window
+    t0 = time.perf_counter()
+    run = algorithms.run_dsvb(x, mask, W, prior_k, n_iters=SMEM_ITERS,
+                              backend="fused", **kw)
+    torch.cuda.synchronize()
+    ms_iter = (time.perf_counter() - t0) * 1e3 / SMEM_ITERS
+    launches = read_gmm_variant_launches()
+    ref_run = algorithms.run_dsvb(x, mask, W, prior_k, n_iters=SMEM_ITERS,
+                                  backend="reference", **kw)
+    rel = float(((run.phi - ref_run.phi).abs()
+                 / ref_run.phi.abs().clamp_min(1e-30)).max())
+    weights = expfam.unpack_natural(run.phi, K, cfg.D).alpha[0]
+    torch.testing.assert_close(run.phi, ref_run.phi, rtol=1e-3, atol=1e-3)
+    if launches["shared"] != SMEM_ITERS:
+        raise AssertionError(f"the over-complete run launched {launches}")
+
+    # the shared path alone at SMEM_TIMED against its plain version (first
+    # nodes) and its bound
+    rng = np.random.default_rng(17)
+    N, T, Kt, D = SMEM_TIMED
+    gen = torch.Generator(dev).manual_seed(17)
+    xt = torch.randn(N, T, D, generator=gen, device=dev) * 2
+    mt = (torch.rand(N, T, generator=gen, device=dev) > 0.1).float()
+    terms = _random_terms(N, Kt, D, dev, rng)
+    shift = torch.randn(N, Kt, D, generator=gen, device=dev)
+    n0 = SMEM_PLAIN_NODES
+    got = ops.gmm_estep_nodes(xt, mt, *terms, shift=shift, return_r=False)
+    err, share = _compare([None] + [g[:n0] for g in got[1:]],
+                          gmm_estep.gmm_estep_nodes_plain(
+                              xt[:n0], mt[:n0], *(t[:n0] for t in terms),
+                              shift=shift[:n0], return_r=False))
+    del got
+    ms = time_ms(lambda: ops.gmm_estep_nodes(xt, mt, *terms, shift=shift,
+                                             return_r=False), 20)
+    plain_ms = time_ms(lambda: gmm_estep.gmm_estep_nodes_plain(
+        xt, mt, *terms, shift=shift, return_r=False), 2)
+    bound, by, n_bytes, flops = _gmm_bound(xt, mt, terms, shift, Kt, D)
+    emit("smem_path", estimator="dsvb", K=K, D=cfg.D, n_iters=SMEM_ITERS,
+         variant="shared", launches=launches, ms_per_iter=ms_iter,
+         max_rel_phi_diff_vs_reference=rel,
+         component_weights_node0=weights.tolist(),
+         timed={"shape": list(SMEM_TIMED), "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound, "bound_by": by, "bytes": n_bytes,
+                "flops": flops, "fraction_of_bound": bound / ms,
+                "max_abs_err_first_nodes": err, "bar_share": share})
+    del xt, mt, terms
+    torch.cuda.empty_cache()
+    return {"launches": launches["shared"], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "max_abs_err": err}
+
+
+# ---------------------------------------------------------------------------
 # 5. small instance: card (kernel) against CPU (plain version)
 # ---------------------------------------------------------------------------
 def phase_small_vs_cpu(dev):
@@ -651,6 +755,14 @@ WIDE_CASES = ((20, 17, 2, 34), (10, 14, 2, 52), (10, 28, 4, 52),
 WIDE_DEPLOY = (1000, 4096, 2, 34)
 WIDE_PLAIN_NODES = 8
 WIDE_PLAIN_CHUNK = 25
+# shapes past the first wide kernel's shared memory (K <= 12 at D = 64,
+# K <= 226 at D = 8, no K at D >= 108): a node's statistics over several
+# blocks (the lse + split launches)
+WIDE_PAST_LIMIT = ((3, 77, 13, 64), (2, 50, 16, 64), (2, 40, 2, 110),
+                   (2, 90, 227, 8))
+# the deployment shape's time with the first wide design (its recorded
+# run in PERF.md's bring-up table), beside the redesign's
+FIRST_DESIGN_WIDE_MS = 4.458329772949218
 
 
 # At D = 34 and 52 two f32 versions of the E-step do not agree to
@@ -693,17 +805,26 @@ def _wide_bound(x, mask, terms, shift, K, D):
     """(bound ms, by, bytes, flops) of one gmm_estep_nodes call without r
     at D > 8: x and mask in their dtype, the f32 terms and shift read
     once, the statistics written once; per point and component the
-    centring (D), y' Wn y as the tile product and row dot (2 D^2 + 2 D),
-    y.b (2 D), the combine and softmax (~10), r y (D), sum_x (D), the
-    upper triangle of sum_xx (D (D + 1)) and R (1): 3 D^2 + 8 D + 11."""
+    function's own work (no padding to the kernel's shapes): log rho in
+    f64, the centring (D), y' Wn y as the tile product and row dot
+    (2 D^2 + 2 D) and y.b (2 D), priced at the FP64 tensor cores' peak;
+    the combine and softmax (~10) at the f32 peak; the statistics r y
+    (D), sum_x (D), the upper triangle of sum_xx (D (D + 1)) and R (1),
+    which the kernel forms on the FP64 tensor cores, at their peak:
+    3 D^2 + 8 D + 11 in all."""
     N, T = mask.shape
     n_bytes = (x.numel() * x.element_size()
                + mask.numel() * mask.element_size()
                + sum(t.numel() * 4 for t in (*terms, shift))
                + N * (K + K * D + K) * D * 4)
-    flops = N * T * K * (3 * D * D + 8 * D + 11)
+    per = N * T * K
+    f64_log_rho = per * (2 * D * D + 5 * D)
+    softmax = per * 10
+    stats = per * (D * D + 3 * D + 1)
+    flops = f64_log_rho + softmax + stats
     bound = {"bytes": n_bytes / PEAK_BYTES_PER_S * 1e3,
-             "operations": flops / PEAK_F32_FLOP_PER_S * 1e3}
+             "operations": ((f64_log_rho + stats) / PEAK_F64_TC_FLOP_PER_S
+                            + softmax / PEAK_F32_FLOP_PER_S) * 1e3}
     by = max(bound, key=bound.get)
     return bound[by], by, n_bytes, flops
 
@@ -711,7 +832,7 @@ def _wide_bound(x, mask, terms, shift, K, D):
 def phase_gmm_wide_kernel_vs_plain(dev) -> dict:
     rng = np.random.default_rng(15)
     cases = []
-    for N, T, K, D in WIDE_CASES:
+    for N, T, K, D in WIDE_CASES + WIDE_PAST_LIMIT:
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.tensor(rng.normal(size=(N, T, D)) * 2, dtype=dtype,
                              device=dev)
@@ -732,10 +853,24 @@ def phase_gmm_wide_kernel_vs_plain(dev) -> dict:
                         dtype=torch.float64))
                 cases.append({"shape": [N, T, K, D], "x": str(dtype)[6:],
                               "variant": gmm_estep.kernel_variant(K, D),
+                              "blocks_a_node": gmm_estep.wide_plan(
+                                  K, D, x.element_size())["nby"],
                               "return_r": return_r, "shift": s is not None,
                               "max_abs_err_vs_f64": err,
                               "bar_share_vs_f64": share,
                               "bar_share_vs_plain": share_plain})
+    # the call's device time at Table II's and Fig. 13's node shapes
+    # (launch-bound: a prep, one or two main and an emit launch)
+    node_ms = []
+    for N, T, K, D in WIDE_CASES:
+        x = torch.tensor(rng.normal(size=(N, T, D)) * 2, dtype=torch.float32,
+                         device=dev)
+        mask = torch.ones(N, T, device=dev)
+        terms = _random_terms(N, K, D, dev, rng)
+        node_ms.append({"shape": [N, T, K, D], "ms": graph_time_ms(
+            lambda: ops.gmm_estep_nodes(x, mask, *terms, 3.0,
+                                        return_r=False), 20),
+                        "blocks_a_node": gmm_estep.wide_plan(K, D)["nby"]})
     # bit equality: trailing zero padding (1, 64, 500 points) and two
     # launches, plain and centred, at Fig. 13's widest K
     x, mask = (torch.tensor(a, dtype=torch.float32, device=dev) for a in
@@ -794,6 +929,9 @@ def phase_gmm_wide_kernel_vs_plain(dev) -> dict:
                        "fraction_of_bound": bound / ms,
                        "achieved_TFLOPs": flops / ms / 1e9,
                        "achieved_GBps": n_bytes / ms / 1e6}
+        if bound / ms > 1.0:
+            raise AssertionError(f"the wide kernel beat its bound: {bound} "
+                                 f"ms against {ms} ms")
     del got
 
     def plain_all():
@@ -815,12 +953,16 @@ def phase_gmm_wide_kernel_vs_plain(dev) -> dict:
          worst_bar_share_vs_plain=max(c["bar_share_vs_plain"]
                                       for c in cases),
         padding_bit_equal=pad_equal, launches_bit_equal=repeat_equal,
+        node_shapes_ms=node_ms,
         deployment={"shape": list(WIDE_DEPLOY),
                     "variant": gmm_estep.kernel_variant(K, D),
                     "vs_plain_first_nodes": n0, "vs_plain": deploy_err,
                     "by_dtype": timed, "plain_ms": plain_ms,
+                    "first_design_ms": FIRST_DESIGN_WIDE_MS,
                     "plain_chunk_nodes": WIDE_PLAIN_CHUNK,
-                    "smem_bytes": gmm_estep.wide_smem_bytes(K, D)},
+                    "plan": gmm_estep.wide_plan(K, D),
+                    "workspace_bytes": gmm_estep.wide_workspace_bytes(
+                        N, T, K, D)},
         **{k: out[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
     del x32, m32, x, mask
     torch.cuda.empty_cache()
@@ -1713,6 +1855,7 @@ def main():
          seconds=round(time.perf_counter() - t0, 3))
     phase_kernel_vs_plain(x, mask, dev)
     mp = phase_main_path(inst, dev, ptxas["gmm_estep"])
+    sm = phase_smem_path(inst, dev)
     phase_small_vs_cpu(dev)
     phase_profile(inst, dev)
     phase_engine_remainder(inst, dev)
@@ -1744,6 +1887,15 @@ def main():
         "max_err": mp["max_abs_err"], "ms": mp["ms"],
         "plain_ms": mp["plain_ms"], "bound_ms": mp["bound_ms"],
         "bound_by": mp["bound_by"], "library_ms": None}, {
+        # the same function's shared-memory path: launched by the
+        # over-complete mixture (K=8, D=2), timed at SMEM_TIMED
+        "name": "gmm_estep_nodes_smem", "route": "cuda",
+        "source": "src/repro_torch/csrc/gmm_estep.cu",
+        "replaces": "src/repro/kernels/gmm_estep.py:118",
+        "launches": sm["launches"], "max_abs_err": sm["max_abs_err"],
+        "max_err": sm["max_abs_err"], "ms": sm["ms"],
+        "plain_ms": sm["plain_ms"], "bound_ms": sm["bound_ms"],
+        "bound_by": sm["bound_by"], "library_ms": None}, {
         # the same function's wide path (D > 8): launched on the Sec. V
         # path (Table II, Fig. 13), timed at WIDE_DEPLOY
         "name": "gmm_estep_nodes_wide", "route": "cuda",

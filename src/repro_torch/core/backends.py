@@ -121,9 +121,9 @@ class FusedBackend:
 
     def supports(self, model) -> bool:
         """The kernels implement exactly the GMM E-step (models tag their
-        hot-path family with `kernel_family`) at every (K, D) they take
-        (`kernels.gmm_estep.supported`: all but the wide path's shapes past
-        a block's shared memory, e.g. K > 12 at D = 64)."""
+        hot-path family with `kernel_family`) at every K, D >= 1
+        (`kernels.gmm_estep.supported`: the wide path splits a node's
+        statistics over blocks where one block cannot hold them)."""
         from repro_torch.kernels.gmm_estep import supported
         return (getattr(model, "kernel_family", None) == "gmm"
                 and supported(getattr(model, "K", 0), getattr(model, "D", 0)))

@@ -30,9 +30,10 @@
 // tile) took 67 us.
 //
 // At D = 34 (1000 nodes x 4096 points, K = 2) the function is ~31 GFLOP
-// against 0.6 GB: operations bind (~0.46 ms at 67 TFLOP/s f32).
+// against 0.6 GB: operations bind (~0.46 ms at 67 TFLOP/s, the rate of
+// both the f32 CUDA cores and the FP64 tensor cores).
 //
-// Three kernels; the wrapper (kernels/gmm_estep.py::kernel_variant) picks
+// Three paths; the wrapper (kernels/gmm_estep.py::kernel_variant) picks
 // one by (K, D) alone, never by T or N:
 //
 // * gmm_estep_regs_kernel, when the K (1 + D + D(D+1)/2) statistics fit
@@ -70,36 +71,62 @@
 //   warp's slot in shared memory, the warp slots summed in warp order at
 //   the end.  The first design, kept for the shapes the register path does
 //   not take, for D <= 8 and up to its shared memory at block_t = 512.
-// * gmm_estep_wide_kernel, for everything else (the paper's real-data
-//   tables run D = 34 and D = 52): D is a runtime value.  One block of
-//   kWideThreads = 256 per node; a tile of kWideTile = 64 points sits
-//   transposed in shared memory.  Per tile and component, Wn_k and the
-//   centred tile Y_k are staged in shared memory in f64 and the quadratic
-//   form runs as the Pallas kernel's tile product Z = Y_k Wn_k (items of
-//   one point x 4 columns, f64 FMA on the CUDA cores) followed by the row
-//   dot with Y_k; log rho and its differences to the point's largest are
-//   formed in f64, exp and r in f32 (at D = 52 an f32 log rho, a sum of
-//   D^2 products ~1e3, is off by ~1e-4 and moves r near ties past
-//   tests/test_kernels.py's bars, as the plain version's own f32 rounding
-//   does; the f64 products make the kernel ~1.3x slower at D = 34);
-//   then the statistics, f32 products and sums, as 4 x 4 blocks of
-//   sum_t r y' y'^T with y' = (y, 1, 0, ...), upper-triangle blocks only,
-//   so that sum_xx,
-//   sum_x (the column of the 1) and R (its corner) come from one product.
-//   Each statistics item (point group, component, block) belongs to one
-//   thread and lives in shared memory across the node's tiles, which add
-//   their sums into it one tile at a time (short f32 chains); when there
-//   are fewer items than threads, a tile's points are split into up to 16
-//   groups (a function of (K, D)) whose partial sums are added in group
-//   order at the end.  Its shared memory (gmm_estep_wide_smem_bytes)
-//   bounds the shapes it takes (`supported` in the wrapper).  A simple
-//   design on the CUDA cores (TF32 tensor cores would likely miss the
-//   sum_xx bars).
+// * the wide path, for everything else (the paper's real-data tables run
+//   D = 34 and D = 52; any K and D): log rho and the statistics in f64 on
+//   the FP64 tensor cores with mma.sync (m16n8k8 for the quadratic form,
+//   m16n8k16 for the statistics; m8n8k4 runs at half the rate on the
+//   H100, tools/dmma_probe.cu), in up to four launches a call:
+//   - gmm_estep_wide_prep_kernel folds each (node, component)'s terms into
+//     one f64 matrix U_k with x'^T U_k x' = y^T Wn y - 2 y.b + c for
+//     x' = (x, 1), y = x - s_k: M = [[Wn, -v], [-v^T, cc]], v = (Wn +
+//     Wn^T) s / 2 + b, cc = s^T Wn s + 2 s.b + c, kept on the 8 x 8 blocks
+//     on and above the diagonal (M_ij + M_ji above it: 15 of 25 blocks at
+//     D = 34), written once a call in fragment order to the workspace.
+//     The expanded form is safe in f64 (f32 x carries 29 fewer bits).
+//   - gmm_estep_wide_kernel<x dtype, mode, x from global>: one block of
+//     kWideThreads = 256 per node (and component group, below) walks the
+//     node's tiles of kWideTile = 128 points (halved while a tile does not
+//     fit).  The raw tile arrives by cp.async into a double buffer (the
+//     next tile's copy overlaps this tile's work) and is converted to an
+//     f64 tile x' = (x, 1, 0 ..) whose row stride is 4 mod 16
+//     (conflict-free fragment loads).  Quadratic form: warp w takes 16
+//     points and holds their A fragments in registers across the
+//     components (kWideSteps k-steps of 8 at a time); per column block J,
+//     a switch on its k-steps gives straight-line code: the U fragments
+//     (staged once a block in shared memory when they fit), two
+//     accumulators, the row dot with x'.  log rho is f64 (an f32 log rho
+//     misses tests/test_kernels.py's bars at D = 52, PERF.md); the softmax
+//     takes 256 / tile threads a point (xor butterflies), exp and r in
+//     f32.  Statistics: sum_t r x' x'^T as 16 x 8 items (row block I,
+//     column block J >= 2I: the upper triangle; its column D gives sum_x,
+//     its corner R), m16n8k16 products over 16 points, each warp holding
+//     up to kWideItems = 9 items in registers across the node's tiles; a
+//     block's items are chunked and split over point groups so that the
+//     busiest warp has the least work, and the groups' sums are added in
+//     group order at the end.  Nothing of a node's statistics has to fit
+//     one block: a block takes up to 8 x 9 items (whole components when
+//     they fit, else one component's items over several blocks), and
+//     when a node needs more than one block a first launch (mode kLse)
+//     writes each point's largest log rho and softmax denominator
+//     (online over chunks of kWideComps components) and the blocks (mode
+//     kSplit) read them.  The entries i <= j of every item go to an f64
+//     workspace.  Past a 16-point tile's shared memory (D > ~1790) the
+//     fragments read x from global memory (XG).
+//   - gmm_estep_wide_emit_kernel centres the statistics on s_k in f64,
+//     times `rep`, and writes the f32 rows.
+//   What bounds it (PERF.md; tools/gmm_wide_profile.py): at D = 34
+//   (K = 2) a 128-point tile is ~4,200 cycles of each SM sub-partition's
+//   tensor pipe (30 m16n8k8 and 18 m16n8k16 products a warp, two warps a
+//   sub-partition) but takes ~16,700: the quadratic form ~6,000 and the
+//   statistics ~5,300 (dependent load -> multiply -> product chains in
+//   in-order issue, two warps a sub-partition to hide them at 236
+//   registers a thread), the conversion ~2,200 and the softmax ~1,600,
+//   which run beside no tensor work.
 //
 // Determinism: no atomics.  The association order of every statistic
 // depends on the point index and the compile-time constants (kThreads,
-// kGroup; block_t on the shared path; kWideTile and the groups, a
-// function of (K, D), on the wide path), never on T: points at or
+// kGroup; block_t on the shared path; the plan, a function of (K, D) and
+// x's dtype, on the wide path), never on T: points at or
 // past T read as x = 0, mask = 0 and contribute exact zeros, exactly like
 // trailing mask-zero padding in memory, which only appends zero terms to
 // each thread's sequence.  Stats for x and for x with zero rows appended
@@ -589,311 +616,894 @@ __global__ void __launch_bounds__(kMaxThreads) gmm_estep_smem_kernel(
 // ===========================================================================
 // Wide path: any D, and the (K, D) shapes the two paths above do not take
 // ===========================================================================
-// threads per block, points per tile, most point groups of the statistics
-// phase; repro_torch/kernels/gmm_estep.py mirrors them (WIDE_THREADS,
-// WIDE_TILE, WIDE_MAX_GROUPS) and checks its shared-memory size against
-// gmm_estep_wide_smem_bytes
+// repro_torch/kernels/gmm_estep.py mirrors these (WIDE_THREADS, WIDE_TILE,
+// WIDE_ITEMS, WIDE_STEPS, WIDE_COMPS) and checks its plan against
+// gmm_estep_wide_plan.
 constexpr int kWideThreads = 256;
-constexpr int kWideTile = 64;
-constexpr int kWideMaxGroups = 16;
-// row stride of the transposed point tile: odd, so that threads reading
-// consecutive points, or consecutive coordinates of one point, hit
-// distinct banks
-constexpr int kWideTS = kWideTile + 1;
+constexpr int kWideWarps = kWideThreads / 32;
+constexpr int kWideTile = 128;    // points a tile (halved while it does not fit)
+constexpr int kWideItems = 9;     // statistics items a warp holds in registers
+constexpr int kWideSteps = 5;    // k-steps of 8 of A fragments a warp holds
+static_assert(kWideItems == 9 && kWideSteps == 5,
+              "the WIDE_STATS switch takes 1 .. 9, WIDE_QUAD 1 .. 5");
+constexpr int kWideComps = 32;    // components whose log rho rows a block holds
+constexpr int kWideSmem = 227 * 1024;
 
-// Sizes and shared-memory offsets (in floats) of one wide-path block.
-// The statistics are 4 x 4 blocks of the (Dp x Dp) matrix sum_t r y' y'^T,
-// y' = (y, 1, 0, ...): its upper-triangle blocks hold sum_xx, the column
-// of the constant 1 holds sum_x and its corner R.
-struct WideLayout {
-  int Dp;      // D + 1 rounded up to a multiple of 4
-  int nb;      // 4 x 4 blocks a side, Dp / 4
-  int nbt;     // blocks of the upper triangle, nb (nb + 1) / 2
-  int nbq;     // 4-column blocks of Wn_k, ceil(D / 4)
-  int ws;      // row stride of the staged Wn_k, 4 nbq
-  int groups;  // point groups a tile's statistics are split into
-  int items;   // statistics items (group, component, block), 16 floats each
-  int acc, w, xt, yd, pq, pc, lr, s, b, lp, c, m, total;
+enum WideMode { kFused = 0, kLse = 1, kSplit = 2 };
+// Phase profile (tools/gmm_wide_profile.py builds with -DGMM_WIDE_PROFILE):
+// thread 0 of each block adds the clock cycles between the marks of a
+// tile into g_wprof[i]; otherwise the marks compile to nothing.
+#ifdef GMM_WIDE_PROFILE
+__device__ unsigned long long g_wprof[8];
+#define WPROF_START long long _t = clock64();
+#define WPROF(i)                                                  \
+  if (tid == 0) {                                                 \
+    const long long _c = clock64();                               \
+    atomicAdd(&g_wprof[i], (unsigned long long)(_c - _t));        \
+    _t = _c;                                                      \
+  }
+#else
+#define WPROF_START
+#define WPROF(i)
+#endif
+
+__host__ __device__ inline int wmin(int a, int b) { return a < b ? a : b; }
+__host__ __device__ inline int wmax(int a, int b) { return a > b ? a : b; }
+
+// The wide path's shape at (K, D) and x's element size.  x' = (x, 1) has
+// Dq = D + 1 coordinates.  The quadratic form x'^T U_k x' runs as
+// m16n8k8 DMMA products over nS = nJ k-steps of 8 coordinates and nJ
+// column blocks of 8; U_k keeps only the blocks on or above the 8 x 8
+// diagonal (column block J takes k-steps 0 .. J), nfrag fragments of 64
+// doubles.  The statistics sum_t r x' x'^T are m16n8k16 products over 16
+// points, items of 16 x 8 (row block I, column block J >= 2I), nitems a
+// component.
+struct WidePlan {
+  int Dq, nS, nJ, nI, nfrag, nitems, ntri;
+  int kb;       // components a block (0: one component over nsplit blocks)
+  int nsplit;   // blocks a component when its items exceed one block's
+  int per;      // items a block then
+  int nby;      // blocks a node (1: one fused launch)
+  int kq;       // components whose q / r rows a block holds at once
+  int tp;       // points a tile
+  int xs;       // row stride of the f64 point tile, 16 nI + 4 (= 4 mod 16)
+  int xg;       // 1: no point tile fits shared memory; x is read from global
+  int raw;      // bytes of one raw tile buffer (16 spare for alignment)
+  int su;       // 1: a split or fused block's U fragments fit shared memory
+  int off_xt, off_raw, off_q, off_m, off_lp, off_u, smem;   // smem bytes
 };
 
-__host__ __device__ inline WideLayout wide_layout(int K, int D) {
-  WideLayout L;
-  L.Dp = (D + 4) / 4 * 4;
-  L.nb = L.Dp / 4;
-  L.nbt = L.nb * (L.nb + 1) / 2;
-  L.nbq = (D + 3) / 4;
-  L.ws = 4 * L.nbq;
-  int g = 1;   // the most groups (a power of two) that keep items <= threads
-  while (g < kWideMaxGroups && 2 * g * K * L.nbt <= kWideThreads) g *= 2;
-  L.groups = g;
-  L.items = g * K * L.nbt;
-  // offsets in floats; every f64 array starts on a 16-byte boundary
+__host__ __device__ inline WidePlan wide_plan(int K, int D, int esize) {
+  WidePlan P;
+  P.Dq = D + 1;
+  P.nJ = (P.Dq + 7) / 8;
+  P.nS = P.nJ;
+  P.nI = (P.Dq + 15) / 16;
+  P.nfrag = P.nJ * (P.nJ + 1) / 2;
+  P.nitems = 0;
+  for (int I = 0; 2 * I < P.nJ; ++I) P.nitems += P.nJ - 2 * I;
+  P.ntri = P.Dq * (P.Dq + 1) / 2;
+  const int cap = kWideWarps * kWideItems;
+  if (P.nitems <= cap) {
+    P.kb = wmin(wmin(K, kWideComps), cap / P.nitems);
+    P.nsplit = 1;
+    P.per = 0;
+    P.nby = (K + P.kb - 1) / P.kb;
+  } else {
+    P.kb = 0;
+    P.nsplit = (P.nitems + cap - 1) / cap;
+    P.per = (P.nitems + P.nsplit - 1) / P.nsplit;
+    P.nby = K * P.nsplit;
+  }
+  P.kq = wmin(K, kWideComps);
+  P.xs = 16 * P.nI + 4;
+  P.xg = 1;
+  P.tp = kWideTile;
+  P.raw = 0;
+  for (int tp = kWideTile; tp >= 16; tp /= 2) {
+    const long long raw = ((long long)tp * D * esize + 15) / 16 * 16 + 16;
+    const long long need = (long long)tp * P.xs * 8 + 2 * raw +
+                           (long long)P.kq * tp * 8 + tp * 4;
+    if (need <= kWideSmem) {
+      P.tp = tp;
+      P.xg = 0;
+      P.raw = (int)raw;
+      break;
+    }
+  }
   int o = 0;
-  L.acc = o; o += 16 * L.items;           // statistics items
-  L.w = o;   o += 2 * D * L.ws;           // Wn_k in f64, columns to ws
-  L.xt = o;  o += L.Dp * kWideTS;         // the tile, transposed: [d][t]
-  L.yd = o;  o += 2 * D * kWideTile;      // Y_k in f64: [d][t]
-  L.pq = o;  o += 2 * L.nbq * kWideTile;  // y'Wn_k y per column block, f64
-  L.pc = o;  o += 2 * L.nbq * kWideTile;  // y.b_k per column block, f64
-  L.lr = o;  o += 2 * K * kWideTile;      // log rho in f64, then r: [k][t]
-  L.s = o;   o += K * L.Dp;               // shift, zero-padded to Dp
-  L.b = o;   o += K * D;
-  L.lp = o;  o += K;
-  L.c = o;   o += K;
-  L.m = o;   o += kWideTile;          // the tile's mask
-  L.total = o;
-  return L;
+  P.off_xt = o;
+  o += P.xg ? 0 : P.tp * P.xs * 8;
+  P.off_raw = o;
+  o += 2 * P.raw;
+  P.off_q = o;
+  o += P.kq * P.tp * 8;
+  P.off_m = o;
+  o += P.tp * 4;
+  P.off_lp = o;
+  o += (P.kq * 8 + 15) / 16 * 16;
+  const long long ub = (long long)(P.kb > 0 ? P.kb : 1) * P.nfrag * 512;
+  P.su = o + ub <= kWideSmem;
+  P.off_u = o;
+  o += P.su ? (int)ub : 0;
+  // the end's reduction reuses the whole area: every warp's items
+  P.smem = wmax(o, kWideWarps * kWideItems * 128 * 8);
+  return P;
 }
 
-template <typename Tin>
-__global__ void __launch_bounds__(kWideThreads) gmm_estep_wide_kernel(
-    const Tin* __restrict__ x, const Tin* __restrict__ mask,
-    const float* __restrict__ log_prior, const float* __restrict__ Wn,
-    const float* __restrict__ b, const float* __restrict__ c,
-    const float* __restrict__ shift, float* __restrict__ r_out,
-    float* __restrict__ stats, int T, int K, int D, float rep) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const WideLayout L = wide_layout(K, D);
-  float* s_acc = smem + L.acc;
-  double* s_w = reinterpret_cast<double*>(smem + L.w);
-  float* s_xt = smem + L.xt;
-  double* s_yd = reinterpret_cast<double*>(smem + L.yd);
-  double* s_pq = reinterpret_cast<double*>(smem + L.pq);
-  double* s_pc = reinterpret_cast<double*>(smem + L.pc);
-  // log rho of (k, t) in f64; the softmax then writes r into the first
-  // float of the same 8 bytes, which only its own thread reads
-  double* s_lr = reinterpret_cast<double*>(smem + L.lr);
-  float* s_r = smem + L.lr;
-  float* s_s = smem + L.s;
-  float* s_b = smem + L.b;
-  float* s_lp = smem + L.lp;
-  float* s_c = smem + L.c;
-  float* s_m = smem + L.m;
-  const int n = blockIdx.x;
-  const int tid = threadIdx.x;
-  const size_t nK = (size_t)n * K;
+// items of one block: [lo, hi) of the node's list (component-major, then
+// row block I, then column block J), components kbase .. kbase + nkb - 1
+struct WideBlock {
+  int lo, hi, kbase, nkb, first;   // first: this block writes r
+};
 
-  for (int i = tid; i < 16 * L.items; i += kWideThreads) s_acc[i] = 0.f;
-  for (int i = tid; i < K * L.Dp; i += kWideThreads) {
-    const int k = i / L.Dp, d = i % L.Dp;
-    s_s[i] = (d < D && shift != nullptr) ? shift[(nK + k) * D + d] : 0.f;
+__device__ __forceinline__ WideBlock wide_block(const WidePlan& P, int K,
+                                                int y) {
+  WideBlock B;
+  if (P.kb > 0) {
+    B.kbase = y * P.kb;
+    B.nkb = wmin(K, B.kbase + P.kb) - B.kbase;
+    B.lo = B.kbase * P.nitems;
+    B.hi = (B.kbase + B.nkb) * P.nitems;
+    B.first = 1;
+  } else {
+    B.kbase = y / P.nsplit;
+    const int j = y % P.nsplit;
+    B.nkb = 1;
+    B.lo = B.kbase * P.nitems + j * P.per;
+    B.hi = B.kbase * P.nitems + wmin(P.nitems, (j + 1) * P.per);
+    B.first = j == 0;
   }
-  for (int i = tid; i < K * D; i += kWideThreads) s_b[i] = b[nK * D + i];
-  for (int i = tid; i < K; i += kWideThreads) {
-    s_lp[i] = log_prior[nK + i];
-    s_c[i] = c[nK + i];
-  }
-  // rows D .. Dp - 1 of the tile: the constant 1, then zeros (the tile
-  // loads write rows < D only)
-  for (int i = tid; i < (L.Dp - D) * kWideTS; i += kWideThreads)
-    s_xt[D * kWideTS + i] = i < kWideTS ? 1.f : 0.f;
+  return B;
+}
 
-  const Tin* xn = x + (size_t)n * T * D;
-  const Tin* mn = mask + (size_t)n * T;
-  const int ntiles = (T + kWideTile - 1) / kWideTile;
-  const int tp = kWideTile / L.groups;    // points of a group in a tile
-  const int ws2 = L.ws / 2;               // double2s a row of Wn_k
-  const double2* w2 = reinterpret_cast<const double2*>(s_w);
-
-  for (int tile = 0; tile < ntiles; ++tile) {
-    const int p0 = tile * kWideTile;
-    __syncthreads();   // the last tile's statistics are done with s_xt, s_r
-    // the tile, transposed; points at or past T read as x = 0, mask = 0
-    for (int i = tid; i < kWideTile * D; i += kWideThreads) {
-      const int t = i / D, d = i % D;
-      const int p = p0 + t;
-      s_xt[d * kWideTS + t] = p < T ? to_f32(xn[(size_t)p * D + d]) : 0.f;
+// A block's nbi items over its warps: nchunk chunks of csz consecutive
+// items (at most kWideItems), each over G point groups (a power of two,
+// at most the tile's k-steps of 16 points), nchunk * G <= kWideWarps;
+// of the choices, the one with the least work for the busiest warp
+// (csz items x tile / 16 / G k-steps), then the fewest warps.
+__host__ __device__ inline void wide_chunks(int nbi, int tp, int& nchunk,
+                                            int& csz, int& G) {
+  int best = -1;
+  for (int nc = (nbi + kWideItems - 1) / kWideItems; nc <= kWideWarps;
+       ++nc) {
+    const int cs = (nbi + nc - 1) / nc;
+    if ((nc - 1) * cs >= nbi) continue;   // a chunk would be empty
+    int g = 1;
+    while (2 * g * nc <= kWideWarps && 2 * g <= tp / 16) g *= 2;
+    const int work = cs * (tp / 16 / g);
+    if (best < 0 || work < best) {
+      best = work;
+      nchunk = nc;
+      csz = cs;
+      G = g;
     }
-    for (int t = tid; t < kWideTile; t += kWideThreads)
-      s_m[t] = p0 + t < T ? to_f32(mn[p0 + t]) : 0.f;
+  }
+}
 
-    // log rho in f64, a component at a time: Y_k (the tile centred on
-    // s_k) and Wn_k staged in f64; Z = Y_k Wn_k as items of one point x 4
-    // columns, then per item the row dot of those columns of Z with y and
-    // of y with b_k; the column blocks' partial sums added in block order.
-    // In f32 the D^2-term sums round log rho by ~1e-4 at D = 52 (|y' Wn
-    // y| ~ 1e3), which moves r near ties past tests/test_kernels.py's
-    // bars
-    for (int k = 0; k < K; ++k) {
-      __syncthreads();   // the tile is in; s_w, s_yd, s_pq, s_pc are free
-      for (int i = tid; i < D * L.ws; i += kWideThreads) {
-        const int d = i / L.ws, e = i % L.ws;
-        s_w[i] = e < D ? (double)Wn[((nK + k) * D + d) * D + e] : 0.0;
-      }
-      const float* sk = s_s + k * L.Dp;
-      for (int i = tid; i < D * kWideTile; i += kWideThreads) {
-        const int d = i / kWideTile, t = i % kWideTile;
-        s_yd[i] = (double)s_xt[d * kWideTS + t] - (double)sk[d];
-      }
-      __syncthreads();
-      for (int i = tid; i < kWideTile * L.nbq; i += kWideThreads) {
-        const int t = i % kWideTile, eb = i / kWideTile;
-        double z[4] = {0.0, 0.0, 0.0, 0.0};
-        for (int d = 0; d < D; ++d) {
-          const double y = s_yd[d * kWideTile + t];
-          const double2 wa = w2[d * ws2 + 2 * eb];
-          const double2 wb = w2[d * ws2 + 2 * eb + 1];
-          z[0] = fma(y, wa.x, z[0]);
-          z[1] = fma(y, wa.y, z[1]);
-          z[2] = fma(y, wb.x, z[2]);
-          z[3] = fma(y, wb.y, z[3]);
-        }
-        double q = 0.0, cr = 0.0;
+// item `local` of a component -> row block I, column block J
+__device__ __forceinline__ void wide_item(const WidePlan& P, int local,
+                                          int& I, int& J) {
+  I = 0;
+  while (local >= P.nJ - 2 * I) {
+    local -= P.nJ - 2 * I;
+    ++I;
+  }
+  J = 2 * I + local;
+}
+
+// D = C + A B in f64 on the tensor cores; lane l = 4 g + t holds D rows g,
+// g + 8 of columns 2t, 2t + 1 (tools/dmma_probe.cu checks these layouts
+// on the card).  m16n8k8: A 16 x 8 (a0..a3: rows g, g + 8 of column t,
+// then of column t + 4), B 8 x 8 (b0, b1: rows t, t + 4 of column g)
+__device__ __forceinline__ void dmma8(double (&d)[4], const double (&a)[4],
+                                      double b0, double b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b0), "d"(b1));
+}
+
+// m16n8k16: A 16 x 16 (a[2j], a[2j + 1]: rows g, g + 8 of column t + 4j),
+// B 16 x 8 (b[j]: row t + 4j of column g)
+__device__ __forceinline__ void dmma16(double (&d)[4], const double (&a)[8],
+                                       const double (&b)[4]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7,%8,%9,%10,%11}, {%12,%13,%14,%15}, {%0,%1,%2,%3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]), "d"(a[5]),
+        "d"(a[6]), "d"(a[7]), "d"(b[0]), "d"(b[1]), "d"(b[2]), "d"(b[3]));
+}
+
+__device__ __forceinline__ double wide_shfl(double v, int o) {
+  return __shfl_xor_sync(0xffffffffu, v, o);
+}
+
+// v = *a (a shared address) when p, else v unchanged: a predicated load
+__device__ __forceinline__ void lds_f64_if(double& v, bool p,
+                                           const double* a) {
+  asm volatile(
+      "{\n .reg .pred q;\n setp.ne.b32 q, %1, 0;\n"
+      " @q ld.shared.f64 %0, [%2];\n}\n"
+      : "+d"(v)
+      : "r"((int)p), "r"((unsigned)__cvta_generic_to_shared(a)));
+}
+
+__device__ __forceinline__ void cp_async16(void* s, const void* g) {
+  const unsigned sa = (unsigned)__cvta_generic_to_shared(s);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(sa),
+               "l"(g));
+}
+
+// coordinate c of x' for tile point p: the f64 tile in shared memory, or
+// (XG) x itself, read and converted (points at or past T are x = 0)
+template <typename Tin, bool XG>
+struct WideX {
+  const double* xt;
+  int xs;
+  const Tin* xn;   // x of the node, from point p0
+  int valid, D;    // points of the tile before T
+  __device__ __forceinline__ double operator()(int p, int c) const {
+    if constexpr (XG) {
+      if (c == D) return 1.0;
+      return (c < D && p < valid) ? (double)to_f32(xn[(size_t)p * D + c])
+                                  : 0.0;
+    } else {
+      return xt[p * xs + c];
+    }
+  }
+};
+
+// One column block of the quadratic form over NS k-steps of 8 (NS known
+// at compile time): the fragments (a lane's two values adjacent) and x'
+// values first, then the products on two accumulators (even and odd
+// k-steps), then the row dot with x'.
+template <int NS, typename XT>
+__device__ __forceinline__ void wide_quad_block(
+    const double* U, const double (&av)[kWideSteps][4], const XT& X, int pr,
+    int c, double& qa, double& qb) {
+  double2 ub[NS];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int e = 4 * eb + j;
-          if (e < D) {
-            const double y = s_yd[e * kWideTile + t];
-            q = fma(z[j], y, q);
-            cr = fma(y, (double)s_b[k * D + e], cr);
+  for (int i = 0; i < NS; ++i)
+    ub[i] = *reinterpret_cast<const double2*>(U + i * 64);
+  const double x0 = X(pr, c), x1 = X(pr, c + 1);
+  const double x2 = X(pr + 8, c), x3 = X(pr + 8, c + 1);
+  double z0[4] = {0.0, 0.0, 0.0, 0.0}, z1[4] = {0.0, 0.0, 0.0, 0.0};
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    if (i & 1)
+      dmma8(z1, av[i], ub[i].x, ub[i].y);
+    else
+      dmma8(z0, av[i], ub[i].x, ub[i].y);
+  }
+  qa = fma(z0[0] + z1[0], x0, qa);
+  qa = fma(z0[1] + z1[1], x1, qa);
+  qb = fma(z0[2] + z1[2], x2, qb);
+  qb = fma(z0[3] + z1[3], x3, qb);
+}
+
+// q = x'^T U_k x' of each point of the tile and each component kk <
+// ncomp (U fragments of component kk at Ub + kk nfrag 64), into
+// s_q[kk][p].  Warp w takes the 16 points of block w % npb and the
+// components kk = w / npb, w / npb + 8 / npb, ...; its A fragments (the
+// points' coordinates) stay in registers across the components, in
+// chunks of kWideSteps k-steps of 8 (the chunks' row dots add up in s_q);
+// per column block J, a switch on its k-steps in the chunk.
+template <typename Tin, bool XG>
+__device__ __forceinline__ void wide_quad(const WidePlan& P,
+                                          const WideX<Tin, XG>& X,
+                                          const double* Ub, int ncomp,
+                                          double* s_q, int warp, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const int npb = P.tp / 16;
+  const int pr = (warp % npb) * 16 + g;
+  for (int sc = 0; sc < P.nS; sc += kWideSteps) {
+    const int se = wmin(P.nS, sc + kWideSteps);
+    double av[kWideSteps][4];
+#pragma unroll
+    for (int i = 0; i < kWideSteps; ++i) {
+      const int c = 8 * (sc + i) + t;
+      const bool in = sc + i < se;
+      av[i][0] = in ? X(pr, c) : 0.0;
+      av[i][1] = in ? X(pr + 8, c) : 0.0;
+      av[i][2] = in ? X(pr, c + 4) : 0.0;
+      av[i][3] = in ? X(pr + 8, c + 4) : 0.0;
+    }
+    for (int kk = warp / npb; kk < ncomp; kk += kWideWarps / npb) {
+      const double* U = Ub + (size_t)kk * P.nfrag * 64 + 2 * lane;
+      double qa = 0.0, qb = 0.0;
+      for (int J = sc; J < P.nJ; ++J) {
+        // column block J's k-steps sc .. min(J + 1, se) - 1
+        const double* Uj = U + (size_t)(J * (J + 1) / 2 + sc) * 64;
+        switch (wmin(J + 1, se) - sc) {
+#define WIDE_QUAD(NN)                                                     \
+  case NN:                                                                \
+    wide_quad_block<NN>(Uj, av, X, pr, 8 * J + 2 * t, qa, qb);            \
+    break;
+          WIDE_QUAD(1) WIDE_QUAD(2) WIDE_QUAD(3) WIDE_QUAD(4) WIDE_QUAD(5)
+#undef WIDE_QUAD
+          default:
+            break;
+        }
+      }
+      qa += wide_shfl(qa, 1);
+      qa += wide_shfl(qa, 2);
+      qb += wide_shfl(qb, 1);
+      qb += wide_shfl(qb, 2);
+      if (t == 0) {
+        double* q = s_q + kk * P.tp + pr;
+        q[0] = sc == 0 ? qa : q[0] + qa;
+        q[8] = sc == 0 ? qb : q[8] + qb;
+      }
+    }
+  }
+}
+
+// k-steps st0 .. st1 - 1 of a tile (16 points each; lane t's points
+// 16 st + t + 4 j, j < 4) for a warp's L statistics items, L known at
+// compile time: per k-step the items' (component, I, J) walk, then per
+// item A = x'[rows 16 I ..] (loaded where (component, I) changes, by
+// predicated loads, so that no item branches), r of the component (where
+// it changes), B = r x'[columns 8 J ..] and the product.
+template <int L, typename Tin, bool XG>
+__device__ __forceinline__ void wide_stats_tile(
+    const WidePlan& P, const WideX<Tin, XG>& X, const double* s_r, int st0,
+    int st1, int t, int g, int kl0, int I0, int J0,
+    double (&acc)[kWideItems][4]) {
+  for (int st = st0; st < st1; ++st) {
+    const int p = 16 * st + t;
+    int kl[L], ia[L], jb[L];
+    bool newa[L], newr[L];
+    {
+      int k = kl0, I = I0, J = J0;
+#pragma unroll
+      for (int c = 0; c < L; ++c) {
+        newa[c] = newr[c] = c == 0;
+        if (c > 0 && ++J == P.nJ) {
+          newa[c] = true;
+          if (2 * ++I >= P.nJ) {
+            ++k;
+            I = 0;
+            newr[c] = true;
+          }
+          J = 2 * I;
+        }
+        kl[c] = k;
+        ia[c] = 16 * I + g;
+        jb[c] = 8 * J + g;
+      }
+    }
+    double a[8] = {0, 0, 0, 0, 0, 0, 0, 0}, rv[4] = {0, 0, 0, 0};
+#pragma unroll
+    for (int c = 0; c < L; ++c) {
+      double b[4];
+      if constexpr (XG) {
+        if (newa[c]) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            a[2 * j] = X(p + 4 * j, ia[c]);
+            a[2 * j + 1] = X(p + 4 * j, ia[c] + 8);
           }
         }
-        s_pq[eb * kWideTile + t] = q;
-        s_pc[eb * kWideTile + t] = cr;
+        if (newr[c]) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) rv[j] = s_r[kl[c] * P.tp + p + 4 * j];
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const double* row = X.xt + (p + 4 * j) * X.xs;
+          lds_f64_if(a[2 * j], newa[c], row + ia[c]);
+          lds_f64_if(a[2 * j + 1], newa[c], row + ia[c] + 8);
+          lds_f64_if(rv[j], newr[c], s_r + kl[c] * P.tp + p + 4 * j);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = X(p + 4 * j, jb[c]) * rv[j];
+      dmma16(acc[c], a, b);
+    }
+  }
+}
+
+struct WideArgs {
+  const void* x;
+  const void* mask;
+  const float* log_prior;
+  const double* ufrag;   // (N, K, nfrag, 32, 2) U fragments (prep kernel)
+  double* lse_mx;        // (N, T) the points' largest log rho (split)
+  float* lse_den;        // (N, T) their softmax denominators (split)
+  float* r_out;          // (N, T, K) or null
+  double* s64;           // (N, K, ntri) upper triangle of sum r x' x'^T
+  int T, K, D;
+};
+
+// MODE kFused: one block a node takes every component: log rho, the
+// softmax and the statistics.  kLse: one block a node, every component in
+// chunks of kq, writes the points' largest log rho and the softmax
+// denominator (online over the chunks).  kSplit: block (n, y) takes the
+// items wide_block gives it and reads the softmax's terms from kLse.
+template <typename Tin, int MODE, bool XG>
+__global__ void __launch_bounds__(kWideThreads, 1)
+    gmm_estep_wide_kernel(WideArgs a, WidePlan P) {
+  extern __shared__ __align__(16) unsigned char wsm[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int n = blockIdx.x;
+  const int T = a.T, K = a.K, D = a.D, tp = P.tp;
+  const Tin* xn = static_cast<const Tin*>(a.x) + (size_t)n * T * D;
+  const Tin* mn = static_cast<const Tin*>(a.mask) + (size_t)n * T;
+  const float* lp = a.log_prior + (size_t)n * K;
+  const double* U0 = a.ufrag + (size_t)n * K * P.nfrag * 64;
+  double* s_xt = reinterpret_cast<double*>(wsm + P.off_xt);
+  unsigned char* s_raw = wsm + P.off_raw;
+  double* s_q = reinterpret_cast<double*>(wsm + P.off_q);
+  float* s_m = reinterpret_cast<float*>(wsm + P.off_m);
+  const int ntiles = (T + tp - 1) / tp;
+  const int tpp = kWideThreads / tp;   // threads a point in the softmax
+  const int sp = tid / tpp, sh = tid % tpp;
+  const int esize = (int)sizeof(Tin);
+
+  for (int y = blockIdx.y; y < (MODE == kSplit ? P.nby : 1);
+       y += gridDim.y) {
+    WideBlock B;
+    if (MODE == kLse) {
+      B.kbase = 0;
+      B.nkb = K;
+      B.lo = B.hi = 0;
+      B.first = 0;
+    } else {
+      B = wide_block(P, K, y);
+    }
+    // this warp's statistics: chunk `chunk` of the block's items (csz
+    // consecutive items, k-major), point group gi of G (the k-steps
+    // gi * spg .. of each tile)
+    const int nbi = B.hi - B.lo;
+    int nchunk = 0, csz = 0, G = 1;
+    if (MODE != kLse) wide_chunks(nbi, tp, nchunk, csz, G);
+    const int chunk = warp / G, gi = warp % G;
+    const int it0 = B.lo + chunk * csz;
+    const int len = (MODE != kLse && chunk < nchunk)
+                        ? wmin(B.hi, it0 + csz) - it0 : 0;
+    const int spg = tp / 16 / G;   // k-steps of 16 points a group
+    int kl0 = 0, I0 = 0, J0 = 0;
+    if (len > 0) {
+      kl0 = it0 / P.nitems - B.kbase;
+      wide_item(P, it0 % P.nitems, I0, J0);
+    }
+    double acc[kWideItems][4];
+#pragma unroll
+    for (int c = 0; c < kWideItems; ++c)
+      acc[c][0] = acc[c][1] = acc[c][2] = acc[c][3] = 0.0;
+    // the block's U fragments, staged once when they fit
+    const double* Ub = U0 + (size_t)B.kbase * P.nfrag * 64;
+    if (MODE != kLse && P.su) {
+      double* s_u = reinterpret_cast<double*>(wsm + P.off_u);
+      for (int j = tid; j < B.nkb * P.nfrag * 64; j += kWideThreads)
+        s_u[j] = Ub[j];
+      Ub = s_u;
+    }
+    double* s_lp = reinterpret_cast<double*>(wsm + P.off_lp);
+    if (MODE != kLse)
+      for (int j = tid; j < B.nkb; j += kWideThreads)
+        s_lp[j] = (double)lp[B.kbase + j];
+    __syncthreads();
+
+    // the x tile i -> raw buffer: cp.async of the 16-byte chunks, the
+    // buffer offset by the span's misalignment so that both sides are
+    // congruent mod 16; the head and tail elements and the mask through
+    // registers, stored when the tile is converted
+    float m_reg = 0.f;
+    uint32_t pend = 0;
+    int pend_at = -1;
+    auto issue = [&](int i) {
+      const int p0 = i * tp;
+      const int valid = wmin(tp, T - p0);
+      if constexpr (!XG) {
+        const unsigned char* gsrc =
+            reinterpret_cast<const unsigned char*>(xn + (size_t)p0 * D);
+        const int bytes = valid * D * esize;
+        const int mis = (int)(reinterpret_cast<uintptr_t>(gsrc) & 15);
+        unsigned char* dst = s_raw + (i & 1) * P.raw + mis;
+        const int head = wmin(bytes, (16 - mis) & 15);
+        const int body = (bytes - head) / 16;
+        for (int j = tid; j < body; j += kWideThreads)
+          cp_async16(dst + head + 16 * j, gsrc + head + 16 * j);
+        asm volatile("cp.async.commit_group;\n" ::);
+        const int tail = bytes - head - 16 * body;
+        pend_at = -1;
+        if (tid < head / esize) {
+          pend_at = (i & 1) * P.raw + mis + tid * esize;
+        } else if (tid >= 8 && tid - 8 < tail / esize) {
+          pend_at = (i & 1) * P.raw + mis + head + 16 * body +
+                    (tid - 8) * esize;
+        }
+        if (pend_at >= 0) {
+          const unsigned char* gp =
+              gsrc + (pend_at - (i & 1) * P.raw - mis);
+          pend = esize == 4 ? __ldg(reinterpret_cast<const uint32_t*>(gp))
+                            : (uint32_t)__ldg(
+                                  reinterpret_cast<const unsigned short*>(gp));
+        }
+        m_reg = tid < valid ? to_f32(mn[p0 + tid]) : 0.f;
+      }
+    };
+    if (ntiles > 0) issue(0);
+    WPROF_START
+    for (int i = 0; i < ntiles; ++i) {
+      const int p0 = i * tp;
+      const int valid = wmin(tp, T - p0);
+      WideX<Tin, XG> X{s_xt, P.xs, xn + (size_t)p0 * D, valid, D};
+      if constexpr (!XG) {
+        asm volatile("cp.async.wait_all;\n" ::: "memory");
+        if (pend_at >= 0) {
+          if (esize == 4)
+            *reinterpret_cast<uint32_t*>(s_raw + pend_at) = pend;
+          else
+            *reinterpret_cast<unsigned short*>(s_raw + pend_at) =
+                (unsigned short)pend;
+        }
+        if (tid < tp) s_m[tid] = m_reg;
+        WPROF(0)
+        __syncthreads();   // the raw tile is in; the last tile is done
+        WPROF(1)
+        // x' = (x, 1, 0, ...) in f64: warp w converts points w, w + 8, ...
+        const unsigned char* gsrc =
+            reinterpret_cast<const unsigned char*>(xn + (size_t)p0 * D);
+        const int mis = (int)(reinterpret_cast<uintptr_t>(gsrc) & 15);
+        const Tin* raw =
+            reinterpret_cast<const Tin*>(s_raw + (i & 1) * P.raw + mis);
+        // (four points by 64 columns a step, the loads first)
+        const int wx = 16 * P.nI;
+        for (int pw = warp; pw < tp; pw += 4 * kWideWarps) {
+          for (int cb = 0; cb < wx; cb += 64) {
+            float v[4][2];
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int pp = pw + j * kWideWarps, c = cb + lane + 32 * h;
+                v[j][h] = (c < D && pp < valid) ? to_f32(raw[pp * D + c])
+                                                : 0.f;
+              }
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int pp = pw + j * kWideWarps, c = cb + lane + 32 * h;
+                if (pp < tp && c < wx)
+                  s_xt[pp * P.xs + c] = c == D ? 1.0 : (double)v[j][h];
+              }
+          }
+        }
+        __syncthreads();   // the f64 tile is in; its raw buffer is free
+        WPROF(2)
+        if (i + 1 < ntiles) issue(i + 1);
+        WPROF(3)
+      }
+
+      if constexpr (MODE == kLse) {
+        // every component in chunks of kq: q, then the online max and
+        // denominator of each point (tpp threads a point, components
+        // kk = sh, sh + tpp, ...; butterflies give every lane the same)
+        double mx = -INFINITY;
+        float den = 0.f;
+        for (int c0 = 0; c0 < K; c0 += P.kq) {
+          const int nc = wmin(P.kq, K - c0);
+          wide_quad<Tin, XG>(P, X, U0 + (size_t)c0 * P.nfrag * 64, nc, s_q,
+                             warp, lane);
+          __syncthreads();
+          double cm = -INFINITY;
+          for (int kk = sh; kk < nc; kk += tpp) {
+            const double lr = (double)lp[c0 + kk] - 0.5 * s_q[kk * tp + sp];
+            s_q[kk * tp + sp] = lr;
+            cm = fmax(cm, lr);
+          }
+          for (int o = 1; o < tpp; o <<= 1) cm = fmax(cm, wide_shfl(cm, o));
+          const double mnew = fmax(mx, cm);
+          float part = 0.f;
+          for (int kk = sh; kk < nc; kk += tpp)
+            part += expf((float)(s_q[kk * tp + sp] - mnew));
+          for (int o = 1; o < tpp; o <<= 1)
+            part += __shfl_xor_sync(0xffffffffu, part, o);
+          den = den * expf((float)(mx - mnew)) + part;
+          mx = mnew;
+          __syncthreads();   // s_q is free for the next chunk
+        }
+        if (sh == 0 && sp < valid) {
+          a.lse_mx[(size_t)n * T + p0 + sp] = mx;
+          a.lse_den[(size_t)n * T + p0 + sp] = den;
+        }
+      } else {
+        wide_quad<Tin, XG>(P, X, Ub, B.nkb, s_q, warp, lane);
+        WPROF(4)
+        __syncthreads();   // q of every point and component is in
+        WPROF(5)
+        // r of each point and component, in place of q (as f64)
+        {
+          const int pg = p0 + sp;
+          float m;
+          if constexpr (XG)
+            m = sp < valid ? to_f32(mn[pg]) : 0.f;
+          else
+            m = s_m[sp];
+          double mx;
+          float den;
+          if (MODE == kFused) {
+            mx = -INFINITY;
+            for (int kk = sh; kk < B.nkb; kk += tpp) {
+              const double lr = s_lp[kk] - 0.5 * s_q[kk * tp + sp];
+              s_q[kk * tp + sp] = lr;
+              mx = fmax(mx, lr);
+            }
+            for (int o = 1; o < tpp; o <<= 1) mx = fmax(mx, wide_shfl(mx, o));
+            den = 0.f;
+            for (int kk = sh; kk < B.nkb; kk += tpp) {
+              const float e = expf((float)(s_q[kk * tp + sp] - mx));
+              s_q[kk * tp + sp] = (double)e;
+              den += e;
+            }
+            for (int o = 1; o < tpp; o <<= 1)
+              den += __shfl_xor_sync(0xffffffffu, den, o);
+          } else {
+            mx = sp < valid ? a.lse_mx[(size_t)n * T + pg] : 0.0;
+            den = sp < valid ? a.lse_den[(size_t)n * T + pg] : 1.f;
+            for (int kk = sh; kk < B.nkb; kk += tpp)
+              s_q[kk * tp + sp] = (double)expf(
+                  (float)(s_lp[kk] - 0.5 * s_q[kk * tp + sp] - mx));
+          }
+          // s_q holds e = exp(log rho - max) (exact in f64)
+          for (int kk = sh; kk < B.nkb; kk += tpp) {
+            const float r =
+                sp < valid ? (float)s_q[kk * tp + sp] / den * m : 0.f;
+            s_q[kk * tp + sp] = (double)r;
+            if (a.r_out != nullptr && B.first && sp < valid)
+              a.r_out[((size_t)n * T + pg) * K + B.kbase + kk] = r;
+          }
+        }
+        __syncthreads();   // r is in
+        WPROF(6)
+        // the statistics: per k-step (4 points, lane t's point 4 st + t)
+        // the warp's items in order; A = r x'[rows 16 I ..] is formed
+        // when (component, I) changes, B = x'[columns 8 J ..]
+        switch (len) {
+#define WIDE_STATS(LL)                                                    \
+  case LL:                                                                \
+    wide_stats_tile<LL, Tin, XG>(P, X, s_q, gi * spg, (gi + 1) * spg, t, \
+                                 g, kl0, I0, J0, acc);                    \
+    break;
+          WIDE_STATS(1) WIDE_STATS(2) WIDE_STATS(3) WIDE_STATS(4)
+          WIDE_STATS(5) WIDE_STATS(6) WIDE_STATS(7) WIDE_STATS(8)
+          WIDE_STATS(9)
+#undef WIDE_STATS
+          default:
+            break;
+        }
+      }
+      if constexpr (XG) __syncthreads();   // s_q is free for the next tile
+      WPROF(7)
+    }
+
+    if constexpr (MODE != kLse) {
+      // the point groups' partial sums, added in group order, then the
+      // entries (i <= j < Dq) of each item written to s64
+      __syncthreads();
+      double* red = reinterpret_cast<double*>(wsm);
+      if (len > 0) {
+#pragma unroll
+        for (int c = 0; c < kWideItems; ++c) {
+          if (c < len) {
+            double* o = red + ((chunk * G + gi) * kWideItems + c) * 128;
+            o[g * 8 + 2 * t] = acc[c][0];
+            o[g * 8 + 2 * t + 1] = acc[c][1];
+            o[(g + 8) * 8 + 2 * t] = acc[c][2];
+            o[(g + 8) * 8 + 2 * t + 1] = acc[c][3];
+          }
+        }
       }
       __syncthreads();
-      for (int t = tid; t < kWideTile; t += kWideThreads) {
-        double q = 0.0, cr = 0.0;
-        for (int eb = 0; eb < L.nbq; ++eb) {
-          q += s_pq[eb * kWideTile + t];
-          cr += s_pc[eb * kWideTile + t];
-        }
-        s_lr[k * kWideTile + t] =
-            (double)s_lp[k] - 0.5 * (q - 2.0 * cr + (double)s_c[k]);
+      for (int idx = tid; idx < nbi * 128; idx += kWideThreads) {
+        const int it = B.lo + idx / 128, e = idx % 128;
+        const int ch = (it - B.lo) / csz, c = (it - B.lo) % csz;
+        double v = red[((ch * G) * kWideItems + c) * 128 + e];
+        for (int gg = 1; gg < G; ++gg)
+          v += red[((ch * G + gg) * kWideItems + c) * 128 + e];
+        int I, J;
+        wide_item(P, it % P.nitems, I, J);
+        const int ri = 16 * I + e / 8, cj = 8 * J + e % 8;
+        if (ri <= cj && cj < P.Dq)
+          a.s64[((size_t)n * K + it / P.nitems) * P.ntri +
+                (long long)ri * P.Dq - (long long)ri * (ri - 1) / 2 +
+                (cj - ri)] = v;
       }
-    }
-    __syncthreads();
-
-    // the masked softmax over components: the differences to the point's
-    // largest log rho in f64, rounded to f32, then exp and r in f32
-    for (int t = tid; t < kWideTile; t += kWideThreads) {
-      double mx = -INFINITY;
-      for (int k = 0; k < K; ++k) mx = fmax(mx, s_lr[k * kWideTile + t]);
-      float den = 0.f;
-      for (int k = 0; k < K; ++k)
-        den += expf((float)(s_lr[k * kWideTile + t] - mx));
-      const bool in = p0 + t < T;
-      for (int k = 0; k < K; ++k) {
-        const float r =
-            expf((float)(s_lr[k * kWideTile + t] - mx)) / den * s_m[t];
-        s_r[2 * (k * kWideTile + t)] = r;
-        if (r_out != nullptr && in)
-          r_out[((size_t)n * T + p0 + t) * K + k] = r;
-      }
-    }
-    __syncthreads();
-
-    // statistics: item w = (group g, component k, block (bi, bj)) sums
-    // (r y_d) y_e over its group's points of the tile, in point order,
-    // then adds that tile sum into its own 16 floats: two short chains
-    // (tp points, then the tiles) instead of one over the node's points,
-    // whose f32 rounding grew with T (at T = 4096 sum_x was 0.1 off an
-    // f64 evaluation where the plain version's pairwise sums were 1e-3)
-    for (int w = tid; w < L.items; w += kWideThreads) {
-      const int g = w / (K * L.nbt), kt = w % (K * L.nbt);
-      const int k = kt / L.nbt;
-      int bi = 0, rem = kt % L.nbt;
-      while (rem >= L.nb - bi) {
-        rem -= L.nb - bi;
-        ++bi;
-      }
-      const int bj = bi + rem;
-      float4* a4 = reinterpret_cast<float4*>(s_acc) + 4 * w;
-      float acc[16];
-#pragma unroll
-      for (int i = 0; i < 16; ++i) acc[i] = 0.f;
-      const float* sk = s_s + k * L.Dp;
-      float sd[4], se[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        sd[i] = sk[4 * bi + i];
-        se[i] = sk[4 * bj + i];
-      }
-      const float* xd = s_xt + 4 * bi * kWideTS;
-      const float* xe = s_xt + 4 * bj * kWideTS;
-      const float* rk = s_r + 2 * k * kWideTile;
-      for (int t = g * tp; t < (g + 1) * tp; ++t) {
-        const float r = rk[2 * t];
-        float ry[4], ye[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          ry[i] = r * (xd[i * kWideTS + t] - sd[i]);
-          ye[i] = xe[i * kWideTS + t] - se[i];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            acc[4 * i + j] = fmaf(ry[i], ye[j], acc[4 * i + j]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 v = a4[i];
-        a4[i] = make_float4(v.x + acc[4 * i], v.y + acc[4 * i + 1],
-                            v.z + acc[4 * i + 2], v.w + acc[4 * i + 3]);
-      }
+      __syncthreads();   // the next y reuses shared memory
     }
   }
-  __syncthreads();
+}
 
-  // the groups' partial sums, added in group order into group 0's items
-  const int per_group = 16 * K * L.nbt;
-  for (int i = tid; i < per_group; i += kWideThreads) {
-    float v = s_acc[i];
-    for (int g = 1; g < L.groups; ++g) v += s_acc[g * per_group + i];
-    s_acc[i] = v;
+// U_k of every (node, component): M = [[Wn, -v], [-v^T, cc]] with
+// v = (Wn + Wn^T) s / 2 + b and cc = s^T Wn s + 2 s.b + c in f64 (so that
+// x'^T M x' = y^T Wn y - 2 y.b + c for y = x - s), folded onto the blocks
+// on and above the 8 x 8 diagonal (M_ij + M_ji above it), written in
+// fragment order: fragment (J, s), s <= J, holds rows 8 s .. 8 s + 7 of
+// columns 8 J .. 8 J + 7, lane 4 g + t rows 8 s + t and 8 s + t + 4 of
+// column 8 J + g, adjacent.
+__global__ void __launch_bounds__(256) gmm_estep_wide_prep_kernel(
+    const float* __restrict__ Wn, const float* __restrict__ b,
+    const float* __restrict__ c, const float* __restrict__ shift,
+    double* __restrict__ v, double* __restrict__ ufrag, long long NK, int D,
+    WidePlan P) {
+  __shared__ double s_part[256];
+  __shared__ double s_cc;
+  for (long long pair = blockIdx.x; pair < NK; pair += gridDim.x) {
+    const float* W = Wn + pair * D * D;
+    const float* sk = shift != nullptr ? shift + pair * D : nullptr;
+    double* vk = v + pair * D;
+    double part = 0.0;
+    for (int d = threadIdx.x; d < D; d += 256) {
+      double acc = 0.0, sw = 0.0;
+      for (int e = 0; e < D; ++e) {
+        const double se = sk != nullptr ? (double)sk[e] : 0.0;
+        const double wde = W[(size_t)d * D + e], wed = W[(size_t)e * D + d];
+        acc = fma(wde + wed, se, acc);
+        sw = fma(wde, se, sw);
+      }
+      const double sd = sk != nullptr ? (double)sk[d] : 0.0;
+      const double bd = b[pair * D + d];
+      vk[d] = 0.5 * acc + bd;
+      part = fma(sd, sw + 2.0 * bd, part);
+    }
+    s_part[threadIdx.x] = part;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      double cc = (double)c[pair];
+      for (int i = 0; i < 256; ++i) cc += s_part[i];
+      s_cc = cc;
+    }
+    __syncthreads();   // cc and v (global) are visible to the block
+    const double cc = s_cc;
+    double* uk = ufrag + pair * P.nfrag * 64;
+    for (int idx = threadIdx.x; idx < P.nfrag * 64; idx += 256) {
+      int f = idx >> 6, J = 0;
+      while (f > J) {
+        f -= J + 1;
+        ++J;
+      }
+      const int l = (idx >> 1) & 31;
+      const int i = 8 * f + (l & 3) + 4 * (idx & 1), j = 8 * J + (l >> 2);
+      double u = 0.0;
+      if (i < P.Dq && j < P.Dq) {
+        auto M = [&](int r, int q) -> double {
+          if (r < D && q < D) return (double)W[(size_t)r * D + q];
+          if (r == D && q == D) return cc;
+          return -vk[r == D ? q : r];
+        };
+        u = i / 8 < j / 8 ? M(i, j) + M(j, i) : M(i, j);
+      }
+      uk[idx] = u;
+    }
+    __syncthreads();   // s_part and s_cc are free
   }
-  __syncthreads();
+}
 
-  // entry (i, j), i <= j, of component k's matrix: sum_x[k][d] is (d, D),
-  // sum_xx[k][d][e] is (min, max) of (d, e), R_k is (D, D)
+// The statistics of each (node, component) from the upper triangle S of
+// sum_t r x' x'^T (f64): R = S(D, D), sum_x = S(., D) - R s, sum_xx =
+// S(i, j) - s_i Sx_j - Sx_i s_j + R s_i s_j with (i, j) = (min, max) (so
+// that it is symmetric bit for bit), times rep, as f32 rows.
+__global__ void __launch_bounds__(256) gmm_estep_wide_emit_kernel(
+    const double* __restrict__ s64, const float* __restrict__ shift,
+    float* __restrict__ stats, long long NK, int K, int D, float rep,
+    int ntri) {
+  const int Dq = D + 1;
   const int rows = K + K * D + K;
-  float* out = stats + (size_t)n * rows * D;
-  for (int o = tid; o < rows * D; o += kWideThreads) {
-    const int row = o / D, col = o % D;
-    int k, i, j;
-    if (row < K) {
-      k = row;
-      i = col;
-      j = D;
-    } else if (row < K + K * D) {
-      k = (row - K) / D;
-      const int d = (row - K) % D;
-      i = d < col ? d : col;
-      j = d < col ? col : d;
-    } else {
-      k = row - K - K * D;
-      i = D;
-      j = D;
+  auto tri = [&](int i, int j) {
+    return (long long)i * Dq - (long long)i * (i - 1) / 2 + (j - i);
+  };
+  for (long long pair = blockIdx.x; pair < NK; pair += gridDim.x) {
+    const long long n = pair / K;
+    const int k = (int)(pair % K);
+    const double* S = s64 + pair * ntri;
+    const float* sk = shift != nullptr ? shift + pair * D : nullptr;
+    const double R = S[tri(D, D)];
+    float* out = stats + n * rows * D;
+    const double r64 = (double)rep;
+    for (int idx = threadIdx.x; idx < D + D * D + D; idx += 256) {
+      if (idx < D) {
+        const double s = sk != nullptr ? (double)sk[idx] : 0.0;
+        out[(size_t)k * D + idx] = (float)((S[tri(idx, D)] - R * s) * r64);
+      } else if (idx < D + D * D) {
+        const int q = idx - D, d = q / D, e = q % D;
+        const int i = wmin(d, e), j = wmax(d, e);
+        const double si = sk != nullptr ? (double)sk[i] : 0.0;
+        const double sj = sk != nullptr ? (double)sk[j] : 0.0;
+        const double val = S[tri(i, j)] - si * S[tri(j, D)] -
+                           S[tri(i, D)] * sj + R * si * sj;
+        out[((size_t)K + (size_t)k * D + d) * D + e] = (float)(val * r64);
+      } else {
+        const int e = idx - D - D * D;
+        out[((size_t)K + (size_t)K * D + k) * D + e] =
+            e == 0 ? (float)(R * r64) : 0.f;
+      }
     }
-    const int bi = i / 4, bj = j / 4;
-    const int tri = bi * L.nb - bi * (bi - 1) / 2 + (bj - bi);
-    float val = s_acc[(k * L.nbt + tri) * 16 + (i % 4) * 4 + (j % 4)];
-    if (row >= K + K * D && col != 0) val = 0.f;
-    out[o] = val * rep;
   }
+}
+
+// the workspace: U fragments, v, the statistics' upper triangles and, when
+// a node takes several blocks, the softmax terms; each part 256-aligned
+struct WideWork {
+  size_t ufrag, v, s64, mx, den, total;
+};
+
+__host__ __device__ inline size_t wide_align(size_t b) {
+  return (b + 255) / 256 * 256;
+}
+
+inline WideWork wide_work(long long N, long long T, int K, int D,
+                          const WidePlan& P) {
+  WideWork w;
+  const long long NK = N * K;
+  size_t o = 0;
+  w.ufrag = o;
+  o += wide_align((size_t)NK * P.nfrag * 64 * 8);
+  w.v = o;
+  o += wide_align((size_t)NK * D * 8);
+  w.s64 = o;
+  o += wide_align((size_t)NK * P.ntri * 8);
+  w.mx = o;
+  o += P.nby > 1 ? wide_align((size_t)N * T * 8) : 0;
+  w.den = o;
+  o += P.nby > 1 ? wide_align((size_t)N * T * 4) : 0;
+  w.total = o;
+  return w;
+}
+
+template <typename Tin, int MODE>
+cudaError_t launch_wide_main(const WideArgs& a, const WidePlan& P, int N,
+                             cudaStream_t stream) {
+  auto kern = P.xg ? gmm_estep_wide_kernel<Tin, MODE, true>
+                   : gmm_estep_wide_kernel<Tin, MODE, false>;
+  if (P.smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, P.smem);
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid(N, MODE == kSplit ? wmin(P.nby, 65535) : 1);
+  kern<<<grid, kWideThreads, P.smem, stream>>>(a, P);
+  return cudaGetLastError();
 }
 
 template <typename Tin>
 cudaError_t launch_wide(const void* x, const void* mask,
                         const void* log_prior, const void* Wn, const void* b,
                         const void* c, const void* shift, void* r,
-                        void* stats, int N, int T, int K, int D, float rep,
-                        cudaStream_t stream) {
-  const int bytes = 4 * wide_layout(K, D).total;
-  auto kern = gmm_estep_wide_kernel<Tin>;
-  if (bytes > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return e;
+                        void* stats, void* work, int N, int T, int K, int D,
+                        float rep, cudaStream_t stream) {
+  const WidePlan P = wide_plan(K, D, (int)sizeof(Tin));
+  const WideWork w = wide_work(N, T, K, D, P);
+  unsigned char* base = static_cast<unsigned char*>(work);
+  const long long NK = (long long)N * K;
+  const int blocks = (int)(NK < (1 << 20) ? NK : (1 << 20));
+  double* ufrag = reinterpret_cast<double*>(base + w.ufrag);
+  double* s64 = reinterpret_cast<double*>(base + w.s64);
+  gmm_estep_wide_prep_kernel<<<blocks, 256, 0, stream>>>(
+      static_cast<const float*>(Wn), static_cast<const float*>(b),
+      static_cast<const float*>(c), static_cast<const float*>(shift),
+      reinterpret_cast<double*>(base + w.v), ufrag, NK, D, P);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  WideArgs a{x, mask, static_cast<const float*>(log_prior), ufrag,
+             reinterpret_cast<double*>(base + w.mx),
+             reinterpret_cast<float*>(base + w.den), static_cast<float*>(r),
+             s64, T, K, D};
+  if (P.nby == 1) {
+    e = launch_wide_main<Tin, kFused>(a, P, N, stream);
+  } else {
+    e = launch_wide_main<Tin, kLse>(a, P, N, stream);
+    if (e == cudaSuccess) e = launch_wide_main<Tin, kSplit>(a, P, N, stream);
   }
-  kern<<<N, kWideThreads, bytes, stream>>>(
-      static_cast<const Tin*>(x), static_cast<const Tin*>(mask),
-      static_cast<const float*>(log_prior), static_cast<const float*>(Wn),
-      static_cast<const float*>(b), static_cast<const float*>(c),
-      static_cast<const float*>(shift), static_cast<float*>(r),
-      static_cast<float*>(stats), T, K, D, rep);
+  if (e != cudaSuccess) return e;
+  gmm_estep_wide_emit_kernel<<<blocks, 256, 0, stream>>>(
+      s64, static_cast<const float*>(shift), static_cast<float*>(stats), NK,
+      K, D, rep, P.ntri);
   return cudaGetLastError();
 }
 
@@ -940,22 +1550,23 @@ cudaError_t launch(int variant, const void* x, const void* mask,
 // variant 0 launches gmm_estep_regs_kernel (K <= gmm_estep_reg_kmax(D);
 // `vec` = 1 allows its vector loads: T % 4 == 0 and x, mask 16-byte
 // aligned), variant 1 gmm_estep_smem_kernel (block_t, smem_bytes),
-// variant 2 gmm_estep_wide_kernel (any D; block_t and smem_bytes unused).  The
+// variant 2 the wide path (any K and D; block_t and smem_bytes unused;
+// `work` is a device workspace of gmm_estep_wide_workspace_bytes).  The
 // caller validates shapes, allocates the outputs and passes the stream.
-// Returns the cudaError_t of the launch (0 = success).
+// Returns the cudaError_t of the launches (0 = success).
 extern "C" int gmm_estep_nodes_launch(
     const void* x, const void* mask, const void* log_prior, const void* Wn,
     const void* b, const void* c, const void* shift, void* r, void* stats,
     int N, int T, int K, int D, int block_t, float rep, int x_bf16,
-    int smem_bytes, int variant, int vec, void* stream) {
+    int smem_bytes, int variant, int vec, void* stream, void* work) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (variant == 2)
     return x_bf16 ? (int)launch_wide<__nv_bfloat16>(
-                        x, mask, log_prior, Wn, b, c, shift, r, stats, N, T,
-                        K, D, rep, s)
+                        x, mask, log_prior, Wn, b, c, shift, r, stats, work,
+                        N, T, K, D, rep, s)
                   : (int)launch_wide<float>(x, mask, log_prior, Wn, b, c,
-                                            shift, r, stats, N, T, K, D, rep,
-                                            s);
+                                            shift, r, stats, work, N, T, K,
+                                            D, rep, s);
 #define GMM_CASE(DD)                                                        \
   case DD:                                                                  \
     return x_bf16 ? (int)launch<DD, __nv_bfloat16>(                         \
@@ -996,8 +1607,38 @@ extern "C" int gmm_estep_reg_kmax(int D) {
   }
 }
 
-// Dynamic shared memory of one wide-path block at (K, D), in bytes; the
-// wrapper checks its own formula (wide_smem_bytes) against it.
-extern "C" int gmm_estep_wide_smem_bytes(int K, int D) {
-  return 4 * wide_layout(K, D).total;
+// The wide path's plan at (K, D, x_bf16) as 9 ints: points a tile, 1 when
+// x is read from global memory (no tile fits), blocks a node, components a
+// block (0: a component takes nsplit blocks), nsplit, statistics items a
+// component, U fragments a component, 1 when a block's U fragments are
+// staged in shared memory, dynamic shared memory in bytes; the
+// wrapper checks its own plan (wide_plan) against it.
+extern "C" void gmm_estep_wide_plan(int K, int D, int x_bf16, int* out) {
+  const WidePlan P = wide_plan(K, D, x_bf16 ? 2 : 4);
+  const int v[9] = {P.tp, P.xg, P.nby, P.kb, P.nsplit, P.nitems, P.nfrag,
+                    P.su, P.smem};
+  for (int i = 0; i < 9; ++i) out[i] = v[i];
+}
+
+#ifdef GMM_WIDE_PROFILE
+// The phase profile's 8 counters (cycles of thread 0 summed over blocks
+// and tiles: waiting for the tile's copies, barrier A, the conversion and
+// the barrier after it, the next tile's copies issued, the quadratic
+// form, the barrier after it, the softmax and the barrier after it, the
+// statistics); reset = 1 zeroes them after the read.
+extern "C" int gmm_estep_wide_prof(unsigned long long* out, int reset) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, g_wprof, sizeof(g_wprof));
+  if (e == cudaSuccess && reset) {
+    const unsigned long long z[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+    e = cudaMemcpyToSymbol(g_wprof, z, sizeof(z));
+  }
+  return (int)e;
+}
+#endif
+
+// Bytes of the wide path's device workspace for one call.
+extern "C" long long gmm_estep_wide_workspace_bytes(int N, int T, int K,
+                                                    int D, int x_bf16) {
+  return (long long)wide_work(N, T, K, D, wide_plan(K, D, x_bf16 ? 2 : 4))
+      .total;
 }

@@ -23,7 +23,7 @@ ops) for CPU tensors.  Nothing falls back: a CUDA tensor launches a
 kernel or raises.  `gmm_estep_nodes.launches` counts the kernel launches
 (`gmm_estep_nodes.variant_launches` those of each kernel).
 
-Three CUDA kernels, chosen by shape alone (`kernel_variant`):
+Three kernel paths, chosen by shape alone (`kernel_variant`):
 * "registers" when K * (1 + D + D(D+1)/2) <= REG_STATS_BUDGET (K <= 4 at
   D = 2, K <= 8 at D = 1, K <= 2 at D = 3, K = 1 at D = 4, 5): one block
   of REG_THREADS per node, statistics in registers, log rho once per point
@@ -31,17 +31,25 @@ Three CUDA kernels, chosen by shape alone (`kernel_variant`):
 * "shared" for the other shapes with D <= MAX_D whose shared memory fits
   at the default block_t: one block per node, per-warp statistics slots
   in shared memory (`block_t` points per tile; `smem_bytes`);
-* "wide" for the rest (the paper's D = 34 and D = 52 tables): any D, one
-  block of WIDE_THREADS per node, a WIDE_TILE-point tile and one
-  component's Wn in shared memory, log rho formed in f64, statistics as
-  4 x 4 blocks held in shared memory (`wide_smem_bytes`, which bounds the
-  shapes it takes: `supported`).
+* "wide" for the rest (the paper's D = 34 and D = 52 tables): any K and
+  D.  log rho and the statistics run on the FP64 tensor cores (m16n8k8
+  and m16n8k16 DMMA): a prep launch folds each component's terms into one
+  f64 matrix U_k (x'^T U_k x' is the quadratic form of x' = (x, 1), kept
+  on the blocks on or above the 8 x 8 diagonal), then blocks of
+  WIDE_THREADS take WIDE_TILE-point tiles, and each warp holds up to
+  WIDE_ITEMS 16 x 8 blocks of sum r x' x'^T in registers across the
+  node's tiles; an emit launch centres them on `shift` in f64 and writes
+  f32.  When a node's statistics need more than one block
+  (`wide_plan`'s `nby` > 1: e.g. K > 4 at D = 52, K > 2 at D = 64), a
+  first launch writes each point's softmax terms and the blocks split
+  the components (`wide_workspace_bytes` sizes the scratch).
 
 Contracts, shared by the kernels and the plain version:
 * x streams as f32 or bf16 (one kernel instance each); an f64 x is cast
   to f32, as the TPU kernel does (the engine casts once per session, see
   `core.backends.FusedBackend.stream_data`).  mask has x's dtype.
-  Products and statistics are f32 (the wide path forms log rho in f64).
+  Products and statistics are f32 (the wide path: f64 on the tensor
+  cores, emitted as f32).
 * `return_r=False` never allocates or writes r.
 * Statistics are BIT-invariant to trailing mask-zero padding of the point
   axis, and two launches on the same inputs are bit-identical (no
@@ -68,11 +76,16 @@ MAX_D = 8
 #: the shared path's tile when the caller does not choose one; the
 #: dispatch rule sizes the shared path's shared memory at it
 DEFAULT_BLOCK_T = 512
-#: wide path: threads per block, points per tile, most point groups of its
-#: statistics phase (kWideThreads, kWideTile, kWideMaxGroups in the source)
+#: wide path: threads per block, points per tile (halved while a tile does
+#: not fit), statistics items a warp holds, k-steps (of 8 coordinates) of
+#: A fragments a warp holds, components whose log rho rows a block holds
+#: (kWideThreads,
+#: kWideTile, kWideItems, kWideSteps, kWideComps in the source)
 WIDE_THREADS = 256
-WIDE_TILE = 64
-WIDE_MAX_GROUPS = 16
+WIDE_TILE = 128
+WIDE_ITEMS = 9
+WIDE_STEPS = 5
+WIDE_COMPS = 32
 #: shared memory a block may use on Hopper
 MAX_SMEM_BYTES = 227 * 1024
 #: floats of per-thread statistics the register path holds (kRegBudget)
@@ -117,47 +130,75 @@ def kernel_variant(K: int, D: int) -> str:
     return "wide"
 
 
-def wide_layout(K: int, D: int) -> dict:
-    """The wide path's sizes at (K, D), as `wide_layout` in the source:
-    Dp = D + 1 rounded up to 4 (coordinates, the constant 1 whose products
-    give sum_x and R, zeros), nb 4 x 4 blocks a side, nbt of them on the
-    upper triangle, nbq 4-column blocks of Wn, the point groups (the most,
-    a power of two up to WIDE_MAX_GROUPS, that keep the statistics items
-    within the block's threads) and the items (group, component, block)."""
-    Dp = (D + 4) // 4 * 4
-    nb = Dp // 4
-    nbt = nb * (nb + 1) // 2
-    nbq = (D + 3) // 4
-    groups = 1
-    while groups < WIDE_MAX_GROUPS and 2 * groups * K * nbt <= WIDE_THREADS:
-        groups *= 2
-    return {"Dp": Dp, "nb": nb, "nbt": nbt, "nbq": nbq, "ws": 4 * nbq,
-            "groups": groups, "items": groups * K * nbt}
+def wide_plan(K: int, D: int, esize: int = 4) -> dict:
+    """The wide path's plan at (K, D) for x elements of `esize` bytes, as
+    `wide_plan` in the source.  x' = (x, 1) has Dq = D + 1 coordinates;
+    the quadratic form takes nS = nJ k-steps of 8 coordinates (m16n8k8)
+    and nJ column blocks of 8 (block J: k-steps 0 .. J, the blocks on or
+    above the 8 x 8 diagonal: nfrag fragments); the statistics are 16 x 8
+    items (row block I < nI, column block J >= 2I: nitems a component),
+    m16n8k16 products over 16 points.
+    A block takes kb components (at most WIDE_COMPS, and WIDE_ITEMS items
+    a warp), or one component's items over nsplit blocks; nby blocks a
+    node.  tp points a tile: WIDE_TILE, halved while the f64 tile (row
+    stride xs), two raw tiles and kq rows of q do not fit MAX_SMEM_BYTES;
+    xg = 1 when none fits (x then read from global memory); su = 1 when
+    a fused or split block's U fragments fit beside them (staged once,
+    else read from global memory)."""
+    Dq = D + 1
+    nJ, nI = (Dq + 7) // 8, (Dq + 15) // 16
+    nS, nfrag = nJ, nJ * (nJ + 1) // 2
+    nitems = sum(nJ - 2 * I for I in range((nJ + 1) // 2))
+    cap = (WIDE_THREADS // 32) * WIDE_ITEMS
+    if nitems <= cap:
+        kb = min(K, WIDE_COMPS, cap // nitems)
+        nsplit, per, nby = 1, 0, -(-K // kb)
+    else:
+        kb, nsplit = 0, -(-nitems // cap)
+        per = -(-nitems // nsplit)
+        nby = K * nsplit
+    kq = min(K, WIDE_COMPS)
+    xs = 16 * nI + 4
+    tp, xg, raw = WIDE_TILE, 1, 0
+    t = WIDE_TILE
+    while t >= 16:
+        r = (t * D * esize + 15) // 16 * 16 + 16
+        if t * xs * 8 + 2 * r + kq * t * 8 + t * 4 <= MAX_SMEM_BYTES:
+            tp, xg, raw = t, 0, r
+            break
+        t //= 2
+    area = ((0 if xg else tp * xs * 8) + 2 * raw + kq * tp * 8 + tp * 4
+            + -(-kq * 8 // 16) * 16)
+    ub = (kb if kb > 0 else 1) * nfrag * 512
+    su = int(area + ub <= MAX_SMEM_BYTES)
+    area += ub if su else 0
+    smem = max(area, (WIDE_THREADS // 32) * WIDE_ITEMS * 128 * 8)
+    return {"Dq": Dq, "nS": nS, "nJ": nJ, "nI": nI, "nfrag": nfrag,
+            "nitems": nitems, "ntri": Dq * (Dq + 1) // 2, "kb": kb,
+            "nsplit": nsplit, "per": per, "nby": nby, "kq": kq, "tp": tp,
+            "xs": xs, "xg": xg, "raw": raw, "su": su, "smem": smem}
 
 
-def wide_smem_bytes(K: int, D: int) -> int:
-    """Dynamic shared memory of one wide-path block: the statistics items
-    (16 floats each), one component's Wn in f64 (rows padded to
-    4 ceil(D/4)), the transposed tile (Dp rows of WIDE_TILE + 1), the
-    centred tile in f64, the column blocks' f64 partial sums, log rho in
-    f64 (then r), the node's shift, b, log_prior and c, the tile's mask.
-
-    >>> wide_smem_bytes(10, 52) <= MAX_SMEM_BYTES < wide_smem_bytes(13, 64)
-    True
-    """
-    L = wide_layout(K, D)
-    floats = (16 * L["items"] + 2 * D * L["ws"] + L["Dp"] * (WIDE_TILE + 1)
-              + 2 * D * WIDE_TILE + 4 * L["nbq"] * WIDE_TILE
-              + 2 * K * WIDE_TILE + K * L["Dp"] + K * D + 2 * K + WIDE_TILE)
-    return 4 * floats
+def wide_workspace_bytes(N: int, T: int, K: int, D: int,
+                         esize: int = 4) -> int:
+    """The wide path's device scratch for one call: the U fragments
+    (N K nfrag 64 f64), v (N K D f64), the statistics' upper triangles
+    (N K Dq(Dq+1)/2 f64) and, when nby > 1, each point's largest log rho
+    (f64) and softmax denominator (f32); each part 256-byte aligned."""
+    P = wide_plan(K, D, esize)
+    al = lambda b: -(-b // 256) * 256  # noqa: E731
+    total = (al(N * K * P["nfrag"] * 64 * 8) + al(N * K * D * 8)
+             + al(N * K * P["ntri"] * 8))
+    if P["nby"] > 1:
+        total += al(N * T * 8) + al(N * T * 4)
+    return total
 
 
 def supported(K: int, D: int) -> bool:
-    """Whether a kernel takes the (K, D) shape: every shape but the wide
-    path's past MAX_SMEM_BYTES (K <= 12 at D = 64, K <= 10 up to D = 68,
-    K <= 226 at D = 8)."""
-    return (K >= 1 and D >= 1 and (kernel_variant(K, D) != "wide"
-                                   or wide_smem_bytes(K, D) <= MAX_SMEM_BYTES))
+    """Whether a kernel takes the (K, D) shape: every K, D >= 1 (the wide
+    path splits a node's statistics over blocks and, past a block's
+    shared memory, reads x from global memory)."""
+    return K >= 1 and D >= 1
 
 
 def vector_loads(x: torch.Tensor, mask: torch.Tensor) -> bool:
@@ -169,14 +210,27 @@ def vector_loads(x: torch.Tensor, mask: torch.Tensor) -> bool:
             and mask.data_ptr() % 16 == 0)
 
 
+#: (K, D) shapes at which `_lib` holds the wrapper's wide plan to the
+#: source's: single-block nodes, split nodes, a split component, a tile
+#: halved, x read from global memory
+WIDE_PLAN_CHECKS = ((1, 1), (2, 34), (6, 52), (13, 64), (2, 110), (227, 8),
+                    (3, 200), (1, 900), (2, 2000))
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     from repro_torch.kernels import build
-    lib = build.load("gmm_estep")
+    return _bind(build.load("gmm_estep"))
+
+
+def _bind(lib):
+    """The launch entry of a loaded csrc/gmm_estep.cu library, its
+    argument types set, after checking the source's register budget and
+    wide plan against the wrapper's."""
     fn = lib.gmm_estep_nodes_launch
     fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                    + [ctypes.c_float] + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
     kmax = lib.gmm_estep_reg_kmax
     kmax.argtypes, kmax.restype = [ctypes.c_int], ctypes.c_int
@@ -185,14 +239,28 @@ def _lib():
             raise RuntimeError(f"csrc/gmm_estep.cu's register path takes "
                                f"K <= {kmax(D)} at D={D}; the wrapper "
                                f"dispatches K <= {reg_kmax(D)}")
-    wide = lib.gmm_estep_wide_smem_bytes
-    wide.argtypes, wide.restype = [ctypes.c_int] * 2, ctypes.c_int
-    for K, D in ((1, 1), (2, 34), (6, 52), (10, 52), (12, 64), (300, 8)):
-        if wide(K, D) != wide_smem_bytes(K, D):
-            raise RuntimeError(f"csrc/gmm_estep.cu's wide path takes "
-                               f"{wide(K, D)} B of shared memory at K={K}, "
-                               f"D={D}; the wrapper computes "
-                               f"{wide_smem_bytes(K, D)}")
+    plan = lib.gmm_estep_wide_plan
+    plan.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    plan.restype = None
+    work = lib.gmm_estep_wide_workspace_bytes
+    work.argtypes, work.restype = [ctypes.c_int] * 5, ctypes.c_longlong
+    keys = ("tp", "xg", "nby", "kb", "nsplit", "nitems", "nfrag", "su",
+            "smem")
+    for K, D in WIDE_PLAN_CHECKS:
+        for esize in (4, 2):
+            out = (ctypes.c_int * 9)()
+            plan(K, D, int(esize == 2), ctypes.addressof(out))
+            want = wide_plan(K, D, esize)
+            if list(out) != [want[k] for k in keys]:
+                raise RuntimeError(f"csrc/gmm_estep.cu's wide plan at K={K},"
+                                   f" D={D}, esize={esize} is {list(out)}; "
+                                   f"the wrapper's is "
+                                   f"{[want[k] for k in keys]}")
+            if work(3, 77, K, D, int(esize == 2)) != wide_workspace_bytes(
+                    3, 77, K, D, esize):
+                raise RuntimeError(f"csrc/gmm_estep.cu's wide workspace at "
+                                   f"K={K}, D={D} differs from the "
+                                   f"wrapper's")
     return fn
 
 
@@ -259,12 +327,6 @@ def _check(x, mask, log_prior, Wn, b, c, shift, block_t, replication):
             f"K={K}, D={D}, block_t={block_t} needs "
             f"{smem_bytes(K, D, block_t)} B of shared memory; a Hopper "
             f"block has {MAX_SMEM_BYTES}")
-    if variant == "wide" and wide_smem_bytes(K, D) > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"K={K}, D={D} is past the wide kernel's limit: it needs "
-            f"{wide_smem_bytes(K, D)} B of shared memory and a Hopper block "
-            f"has {MAX_SMEM_BYTES} (K <= 12 at D = 64, K <= 10 up to "
-            f"D = 68)")
     return x, mask
 
 
@@ -280,6 +342,12 @@ def _launch(x, mask, log_prior, Wn, b, c, shift, replication, block_t,
          if return_r else None)
     stats = torch.empty((N, K + K * D + K, D), dtype=torch.float32,
                         device=x.device)
+    variant = kernel_variant(K, D)
+    work = None
+    if variant == "wide" and N > 0:
+        work = torch.empty(wide_workspace_bytes(N, T, K, D,
+                                                x.element_size()),
+                           dtype=torch.uint8, device=x.device)
     if N > 0:
         err = _lib()(x.data_ptr(), mask.data_ptr(), log_prior.data_ptr(),
                      Wn.data_ptr(), b.data_ptr(), c.data_ptr(),
@@ -288,14 +356,14 @@ def _launch(x, mask, log_prior, Wn, b, c, shift, replication, block_t,
                      N, T, K, D, block_t, float(replication),
                      int(x.dtype == torch.bfloat16),
                      smem_bytes(K, D, block_t),
-                     _VARIANT_CODE[kernel_variant(K, D)],
-                     int(vector_loads(x, mask)),
-                     torch.cuda.current_stream(x.device).cuda_stream)
+                     _VARIANT_CODE[variant], int(vector_loads(x, mask)),
+                     torch.cuda.current_stream(x.device).cuda_stream,
+                     None if work is None else work.data_ptr())
         if err != 0:
             raise RuntimeError(f"gmm_estep_nodes kernel launch failed: "
                                f"cudaError {err}")
         gmm_estep_nodes.launches += 1
-        gmm_estep_nodes.variant_launches[kernel_variant(K, D)] += 1
+        gmm_estep_nodes.variant_launches[variant] += 1
     return r, stats
 
 

@@ -191,12 +191,16 @@ def test_input_checks_raise():
         tops.gmm_estep_nodes(xt, mask, lp, Wn, b, c)
     with pytest.raises(ValueError, match="block_t"):
         tops.gmm_estep_nodes(x, mask, lp, Wn, b, c, block_t=100)
-    with pytest.raises(ValueError, match="wide kernel's limit"):
-        x9, m9, *t9 = map(torch.from_numpy, _args(1, 8, 13, 64))
-        tops.gmm_estep_nodes(x9, m9, *t9)
+    # K=13 at D=64 (past the first wide kernel's shared memory) is taken
+    x9, m9, *t9 = map(torch.from_numpy, _args(1, 8, 13, 64))
+    assert tops.gmm_estep_nodes(x9, m9, *t9)[1].shape == (1, 13)
+    # K=1200 at D=8 goes to the wide kernel, which takes it; the shared
+    # path still raises past a block's shared memory (a caller's block_t)
+    x8, m8, *t8 = map(torch.from_numpy, _args(1, 8, 1200, 8))
+    assert tops.gmm_estep_nodes(x8, m8, *t8)[1].shape == (1, 1200)
     with pytest.raises(ValueError, match="shared memory"):
-        x8, m8, *t8 = map(torch.from_numpy, _args(1, 8, 1200, 8))
-        tops.gmm_estep_nodes(x8, m8, *t8)
+        x8, m8, *t8 = map(torch.from_numpy, _args(1, 8, 221, 8))
+        tops.gmm_estep_nodes(x8, m8, *t8, block_t=1024)
     # the CPU path runs the plain version: no kernel launch is counted
     tops.gmm_estep_nodes(x, mask, lp, Wn, b, c)
     assert tops.gmm_estep_nodes.launches == launches
@@ -235,150 +239,322 @@ def test_wide_d_against_interpret_kernel(N, T, K, D):
     _check(got, (rr, RR * rep, sxr * rep, sxxr * rep), WIDE_R_ATOL(D))
 
 
+def _wide_u(W, b, c, s, P):
+    """U_k as the prep launch builds it, in f64: M = [[W, -v], [-v^T, cc]]
+    with v = (W + W^T) s / 2 + b and cc = s^T W s + 2 s.b + c (so that
+    x'^T M x' = y^T W y - 2 y.b + c for y = x - s), folded onto the 8 x 8
+    blocks on and above the diagonal (M_ij + M_ji above it), padded to
+    (8 nS, 8 nJ)."""
+    D = W.shape[0]
+    Dq, nS, nJ = P["Dq"], P["nS"], P["nJ"]
+    W, s, b = W.double(), s.double(), b.double()
+    v = 0.5 * ((W + W.T) @ s) + b
+    cc = float(c) + float(s @ (W @ s)) + 2.0 * float(s @ b)
+    M = torch.zeros(Dq, Dq, dtype=torch.float64)
+    M[:D, :D] = W
+    M[:D, D] = M[D, :D] = -v
+    M[D, D] = cc
+    blk = torch.arange(Dq) // 8
+    U = torch.zeros(8 * nS, 8 * nJ, dtype=torch.float64)
+    U[:Dq, :Dq] = torch.where(blk[:, None] < blk[None, :], M + M.T,
+                              torch.where(blk[:, None] == blk[None, :], M,
+                                          torch.zeros(())))
+    for J in range(nJ):     # the fragments hold every nonzero of column J
+        assert not U[8 * (J + 1):, 8 * J:8 * J + 8].any()
+    return U
+
+
+def _wide_quad(Xt, U, P):
+    """q = x'^T U x' of a tile's points: per chunk of WIDE_STEPS k-steps
+    of 8 coordinates and column block J (k-steps 0 .. J), Z over its
+    k-steps in the chunk on two accumulators (even and odd k-steps; each
+    k-step one m16n8k8 product per 16 points), the row dot with x', the
+    chunks added in order."""
+    nS, nJ = P["nS"], P["nJ"]
+    q = torch.zeros(Xt.shape[0], dtype=torch.float64)
+    for sc in range(0, nS, tge.WIDE_STEPS):
+        se = min(nS, sc + tge.WIDE_STEPS)
+        part = torch.zeros_like(q)
+        for J in range(sc, nJ):
+            z = [torch.zeros(Xt.shape[0], 8, dtype=torch.float64)
+                 for _ in range(2)]
+            for i, st in enumerate(range(sc, min(J + 1, se))):
+                z[i % 2] += (Xt[:, 8 * st:8 * st + 8]
+                             @ U[8 * st:8 * st + 8, 8 * J:8 * J + 8])
+            part += ((z[0] + z[1]) * Xt[:, 8 * J:8 * J + 8]).sum(1)
+        q = part if sc == 0 else q + part
+    return q
+
+
+def _butterfly(parts, op):
+    """The xor butterfly over a point's threads (every lane ends equal)."""
+    parts = list(parts)
+    o = 1
+    while o < len(parts):
+        parts = [op(parts[h], parts[h ^ o]) for h in range(len(parts))]
+        o *= 2
+    return parts[0]
+
+
+def _wide_chunks(nbi, tp):
+    """A block's items over its warps (wide_chunks in the source):
+    nchunk chunks of csz items (at most WIDE_ITEMS), each over G point
+    groups, nchunk G <= warps; the least work for the busiest warp, then
+    the fewest warps."""
+    warps = tge.WIDE_THREADS // 32
+    best = None
+    for nc in range(-(-nbi // tge.WIDE_ITEMS), warps + 1):
+        cs = -(-nbi // nc)
+        if (nc - 1) * cs >= nbi:
+            continue
+        g = 1
+        while 2 * g * nc <= warps and 2 * g <= tp // 16:
+            g *= 2
+        work = cs * (tp // 16 // g)
+        if best is None or work < best[0]:
+            best = (work, nc, cs, g)
+    return best[1:]
+
+
 def _wide_schedule(x, mask, lp, Wn, b, c, rep=1.0, shift=None):
-    """The wide kernel's schedule (csrc/gmm_estep.cu,
-    gmm_estep_wide_kernel) rendered in plain PyTorch: per node, tiles of
-    WIDE_TILE points held transposed with the constant-1 row at D; per
-    component the Z = Y Wn_k column blocks and their row dots in f64; the
-    masked softmax of log rho minus its largest (f64, then f32); f32
-    statistics
-    items (group, component, upper-triangle 4 x 4 block) in the kernel's
-    item order over their group's points, tile sums added; the groups
-    added in order; the emission's (i, j) lookup."""
+    """The wide path's schedule (csrc/gmm_estep.cu: the prep, fused or
+    lse + split, and emit launches) rendered in plain PyTorch: the plan's
+    tiles, U's fragments on the blocks on or above the 8 x 8 diagonal and
+    the padding to the m16n8k4 shapes, the quadratic form's k-step chunks
+    and accumulators, the softmax over each point's tpp threads (lane h
+    takes components h, h + tpp, ...; online over chunks of kq components
+    in the lse launch), the blocks' items, their chunks and point groups,
+    the groups added in order, and the emit's centring in f64.  What it
+    pins is the indexing and the order around each DMMA product, not the
+    product's own bits (its internal order is the hardware's)."""
     N, T, D = x.shape
     K = lp.shape[1]
-    L = tge.wide_layout(K, D)
-    Dp, nb, nbt, nbq, G = L["Dp"], L["nb"], L["nbt"], L["nbq"], L["groups"]
-    TT = tge.WIDE_TILE
-    tp = TT // G
-    tri_of = {}
-    for bi in range(nb):
-        for bj in range(bi, nb):
-            tri_of[bi, bj] = bi * nb - bi * (bi - 1) // 2 + (bj - bi)
-    assert sorted(tri_of.values()) == list(range(nbt))
-    rows = K + K * D + K
-    stats = torch.zeros(N, rows, D)
+    P = tge.wide_plan(K, D, x.element_size())
+    tp, Dq, nJ, nI = P["tp"], P["Dq"], P["nJ"], P["nI"]
+    tpp = tge.WIDE_THREADS // tp
+    warps = tge.WIDE_THREADS // 32
+    items = [(I, J) for I in range(nI) for J in range(2 * I, nJ)]
+    assert len(items) == P["nitems"]
+    s_all = shift if shift is not None else torch.zeros(N, K, D)
     r_out = torch.zeros(N, T, K)
+    stats = torch.zeros(N, K + K * D + K, D)
+    ntiles = -(-T // tp)
     for n in range(N):
-        s = torch.zeros(K, Dp)
-        if shift is not None:
-            s[:, :D] = shift[n]
-        acc = torch.zeros(G, K, nbt, 4, 4)
-        for p0 in range(0, T, TT):
-            cnt = min(TT, T - p0)
-            xt = torch.zeros(Dp, TT)
-            xt[D] = 1.0
-            xt[:D, :cnt] = x[n, p0:p0 + cnt].float().T
-            m = torch.zeros(TT)
-            m[:cnt] = mask[n, p0:p0 + cnt].float()
-            # log rho in f64; the softmax reads its differences to the
-            # point's largest, rounded to f32
-            lr = torch.zeros(K, TT, dtype=torch.float64)
-            for k in range(K):
-                Y = xt[:D].double() - s[k, :D, None].double()   # (D, TT)
-                Wp = torch.zeros(D, 4 * nbq, dtype=torch.float64)
-                Wp[:, :D] = Wn[n, k].double()
-                q = torch.zeros(TT, dtype=torch.float64)
-                cr = torch.zeros(TT, dtype=torch.float64)
-                for eb in range(nbq):
-                    z = Y.T @ Wp[:, 4 * eb:4 * eb + 4]          # (TT, 4)
-                    e = torch.arange(4 * eb, min(4 * eb + 4, D))
-                    q = q + (z[:, :len(e)] * Y[e].T).sum(1)
-                    cr = cr + (Y[e].T * b[n, k, e].double()).sum(1)
-                lr[k] = (lp[n, k].double()
-                         - 0.5 * (q - 2.0 * cr + c[n, k].double()))
-            ex = torch.exp((lr - lr.max(0).values).float())
-            r = ex / ex.sum(0) * m                               # (K, TT)
-            r_out[n, p0:p0 + cnt] = r[:, :cnt].T
-            for w in range(G * K * nbt):                         # item order
-                g, kt = divmod(w, K * nbt)
-                k, rem = divmod(kt, nbt)
-                bi = 0
-                while rem >= nb - bi:
-                    rem -= nb - bi
-                    bi += 1
-                bj = bi + rem
-                assert tri_of[bi, bj] == kt % nbt
-                t = slice(g * tp, (g + 1) * tp)
-                yd = xt[4 * bi:4 * bi + 4, t] - s[k, 4 * bi:4 * bi + 4, None]
-                ye = xt[4 * bj:4 * bj + 4, t] - s[k, 4 * bj:4 * bj + 4, None]
-                acc[g, k, kt % nbt] += (r[k, t] * yd) @ ye.T
-        tot = acc.sum(0)                                   # groups in order
-        for row in range(rows):
-            for col in range(D):
-                if row < K:
-                    k, i, j = row, col, D
-                elif row < K + K * D:
-                    k, d = divmod(row - K, D)
-                    i, j = min(d, col), max(d, col)
+        U = [_wide_u(Wn[n, k], b[n, k], c[n, k], s_all[n, k], P)
+             for k in range(K)]
+        tiles = []
+        for i in range(ntiles):
+            Xt = torch.zeros(tp, 16 * nI, dtype=torch.float64)
+            v = min(tp, T - i * tp)
+            Xt[:v, :D] = x[n, i * tp:i * tp + v].double()
+            Xt[:, D] = 1.0
+            m = torch.zeros(tp)
+            m[:v] = mask[n, i * tp:i * tp + v].float()
+            tiles.append((Xt, m, v))
+
+        def lr_of(k, Xt):
+            return float(lp[n, k]) - 0.5 * _wide_quad(Xt, U[k], P)
+
+        if P["nby"] > 1:                  # the lse launch
+            lse = []
+            for Xt, m, v in tiles:
+                mx = torch.full((tp,), -torch.inf, dtype=torch.float64)
+                den = torch.zeros(tp)
+                for c0 in range(0, K, P["kq"]):
+                    ks = range(c0, min(K, c0 + P["kq"]))
+                    lr = {k: lr_of(k, Xt) for k in ks}
+                    cm = _butterfly(
+                        [torch.stack([lr[k] for k in ks if k % tpp == h]
+                                     ).max(0).values
+                         if any(k % tpp == h for k in ks)
+                         else torch.full((tp,), -torch.inf,
+                                         dtype=torch.float64)
+                         for h in range(tpp)], torch.maximum)
+                    mnew = torch.maximum(mx, cm)
+                    parts = []
+                    for h in range(tpp):
+                        acc = torch.zeros(tp)
+                        for k in ks:
+                            if (k - c0) % tpp == h:
+                                acc = acc + torch.exp((lr[k] - mnew).float())
+                        parts.append(acc)
+                    den = den * torch.exp((mx - mnew).float()) + _butterfly(
+                        parts, torch.add)
+                    mx = mnew
+                lse.append((mx, den))
+        S = torch.zeros(K, Dq, Dq, dtype=torch.float64)
+        for y in range(P["nby"]):
+            if P["kb"] > 0:
+                kbase = y * P["kb"]
+                nkb = min(K, kbase + P["kb"]) - kbase
+                lo, hi = kbase * P["nitems"], (kbase + nkb) * P["nitems"]
+            else:
+                kbase, j = divmod(y, P["nsplit"])
+                nkb = 1
+                lo = kbase * P["nitems"] + j * P["per"]
+                hi = kbase * P["nitems"] + min(P["nitems"],
+                                               (j + 1) * P["per"])
+            nbi = hi - lo
+            nchunk, csz, G = _wide_chunks(nbi, tp)
+            spg = tp // 16 // G
+            acc = torch.zeros(nchunk, G, csz, 16, 8, dtype=torch.float64)
+            for i, (Xt, m, v) in enumerate(tiles):
+                ks = range(kbase, kbase + nkb)
+                lr = {k: lr_of(k, Xt) for k in ks}
+                if P["nby"] == 1:
+                    mx = _butterfly(
+                        [torch.stack([lr[k] for k in ks if k % tpp == h]
+                                     ).max(0).values
+                         if any(k % tpp == h for k in ks)
+                         else torch.full((tp,), -torch.inf,
+                                         dtype=torch.float64)
+                         for h in range(tpp)], torch.maximum)
+                    parts = []
+                    for h in range(tpp):
+                        a = torch.zeros(tp)
+                        for k in ks:
+                            if (k - kbase) % tpp == h:
+                                a = a + torch.exp((lr[k] - mx).float())
+                        parts.append(a)
+                    den = _butterfly(parts, torch.add)
                 else:
-                    k, i, j = row - K - K * D, D, D
-                val = tot[k, tri_of[i // 4, j // 4], i % 4, j % 4]
-                if row >= K + K * D and col != 0:
-                    val = 0.0
-                stats[n, row, col] = val * rep
+                    mx, den = lse[i]
+                valid = torch.arange(tp) < v
+                r = {k: torch.where(valid, torch.exp((lr[k] - mx).float())
+                                    / den * m, torch.zeros(()))
+                     for k in ks}
+                if y == 0 or P["kb"] > 0 or (y % P["nsplit"]) == 0:
+                    for k in ks:
+                        r_out[n, i * tp:i * tp + v, k] = r[k][:v]
+                for w in range(nchunk * G):
+                    ch, gi = divmod(w, G)
+                    it0 = lo + ch * csz
+                    for st in range(gi * spg, (gi + 1) * spg):
+                        pts = slice(16 * st, 16 * st + 16)
+                        for cix, it in enumerate(range(it0,
+                                                       min(hi, it0 + csz))):
+                            k = it // P["nitems"]
+                            I, J = items[it % P["nitems"]]
+                            A = Xt[pts, 16 * I:16 * I + 16]       # (16, 16)
+                            Bm = (Xt[pts, 8 * J:8 * J + 8]
+                                  * r[k][pts].double()[:, None])  # (16, 8)
+                            acc[ch, gi, cix] += A.T @ Bm
+            for it in range(lo, hi):
+                ch, cix = divmod(it - lo, csz)
+                tot = acc[ch, 0, cix].clone()
+                for gg in range(1, G):
+                    tot = tot + acc[ch, gg, cix]
+                k = it // P["nitems"]
+                I, J = items[it % P["nitems"]]
+                for e in range(128):
+                    ri, cj = 16 * I + e // 8, 8 * J + e % 8
+                    if ri <= cj < Dq:
+                        S[k, ri, cj] = tot[e // 8, e % 8]
+        # emit: centring on the shift in f64, symmetric, times rep, f32
+        for k in range(K):
+            sk = s_all[n, k].double()
+            R = S[k, D, D]
+            Sx = S[k, :D, D]
+            stats[n, k] = ((Sx - R * sk) * rep).float()
+            iu = torch.triu_indices(D, D)
+            up = torch.zeros(D, D, dtype=torch.float64)
+            i, j = iu
+            up[i, j] = (S[k, i, j] - sk[i] * Sx[j] - Sx[i] * sk[j]
+                        + R * sk[i] * sk[j])
+            full = torch.where(torch.arange(D)[:, None]
+                               <= torch.arange(D)[None, :], up, up.T)
+            stats[n, K + k * D:K + (k + 1) * D] = (full * rep).float()
+            stats[n, K + K * D + k, 0] = float(R * rep)
     R = stats[:, K + K * D:, 0]
     return r_out, R, stats[:, :K], stats[:, K:K + K * D].reshape(N, K, D, D)
 
 
 @pytest.mark.parametrize("N,T,K,D,centred", [
-    (2, 17, 2, 34, True),        # Table II; two point groups
-    (1, 43, 6, 52, False),       # Fig. 13 at K = 6
-    (2, 130, 1, 9, True),        # K = 1, D = 9: sixteen groups, 3 tiles
+    (2, 17, 2, 34, True),        # Table II: one block a node, 4 groups
+    (1, 43, 6, 52, False),       # Fig. 13 at K = 6: lse + 2 split blocks
+    (2, 130, 1, 9, True),        # K = 1, D = 9: 2 tiles, 8 groups
     (1, 40, 224, 8, False),      # a K x D the shared path refuses
+    (1, 20, 13, 64, True),       # past the old kernel's limit: 7 blocks
+    (1, 9, 1, 130, True),        # one component over 2 blocks
+    (1, 6, 2, 200, False),       # a 64-point tile
 ])
 def test_wide_schedule_matches_plain(N, T, K, D, centred):
-    """The wide kernel's tiling, item decoding, constant-1 row and
-    emission, rendered in PyTorch, give the plain version's function at
-    the tests/test_kernels.py bars."""
+    """The wide path's schedule, rendered in PyTorch, gives the plain
+    version's function: at the tests/test_kernels.py bars against the f64
+    evaluation (r's scaled as WIDE_R_ATOL), and against the f32 plain
+    version where that one is itself within them of the f64 one."""
     assert tge.kernel_variant(K, D) == "wide"
     a = list(map(torch.from_numpy, _args(N, T, K, D, seed=K)))
     s = (torch.from_numpy(np.random.default_rng(1).normal(
         size=(N, K, D)).astype(np.float32)) if centred else None)
     got = _wide_schedule(*a, rep=2.0, shift=s)
-    want = tge.gmm_estep_nodes_plain(*a, 2.0, shift=s)
-    _check(got, want, WIDE_R_ATOL(D))
+    exact = tge.gmm_estep_nodes_plain(*a, 2.0, shift=s, dtype=torch.float64)
+    _check(got, [e.float() for e in exact], WIDE_R_ATOL(D))
 
 
 def test_wide_dispatch_and_limits():
     """D > 8 and the shapes past the shared path's memory go to the wide
-    kernel, by (K, D) alone; past its own shared memory the wrapper
-    raises, and FusedBackend.supports says no."""
+    kernel, by (K, D) alone; the wide kernel takes every K and D (its plan
+    splits a node's statistics over blocks, halves the tile, or reads x
+    from global memory), and FusedBackend.supports says yes."""
     from repro_torch.core import backends, expfam
     from repro_torch.core import model as model_lib
     for K, D in ((2, 34), (2, 52), (4, 52), (6, 52), (10, 52), (1, 9),
                  (12, 64), (10, 68), (222, 8), (1200, 8)):
         assert tge.kernel_variant(K, D) == "wide", (K, D)
     assert tge.kernel_variant(221, 8) == "shared"
-    for K, D in ((10, 52), (10, 64), (12, 64), (10, 68), (226, 8)):
+    for K, D in ((10, 52), (10, 64), (12, 64), (10, 68), (226, 8), (13, 64),
+                 (10, 69), (227, 8), (2, 110), (1, 1), (5000, 3), (1, 4000)):
         assert tge.supported(K, D), (K, D)
-    for K, D in ((13, 64), (10, 69), (227, 8)):
-        assert not tge.supported(K, D), (K, D)
-    L = tge.wide_layout(2, 34)
-    assert (L["Dp"], L["nb"], L["nbt"], L["nbq"], L["groups"]) == (
-        36, 9, 45, 9, 2)
-    assert tge.wide_layout(10, 52)["groups"] == 1
-    assert tge.wide_layout(1, 1)["groups"] == tge.WIDE_MAX_GROUPS
-    assert tge.wide_smem_bytes(10, 52) == 153104
+    assert not tge.supported(0, 34) and not tge.supported(2, 0)
+    P = tge.wide_plan(2, 34)
+    assert (P["Dq"], P["nS"], P["nJ"], P["nI"], P["nfrag"], P["nitems"]) == (
+        35, 5, 5, 3, 15, 9)
+    assert (P["kb"], P["nby"], P["tp"], P["xg"], P["xs"]) == (2, 1, 128, 0,
+                                                             52)
+    assert P["su"] == 1 and P["smem"] == (
+        128 * 52 * 8 + 2 * (128 * 34 * 4 + 16) + 2 * 128 * 8 + 128 * 4
+        + 16 + 2 * 15 * 512)
+    # past the first wide kernel's shared memory: split over blocks
+    assert (tge.wide_plan(13, 64)["kb"], tge.wide_plan(13, 64)["nby"]) == (
+        2, 7)
+    assert tge.wide_plan(10, 69)["nby"] == 5
+    assert (tge.wide_plan(227, 8)["kb"], tge.wide_plan(227, 8)["nby"]) == (
+        32, 8)
+    # one component over several blocks; a halved tile; x from global
+    assert (tge.wide_plan(2, 150)["kb"], tge.wide_plan(2, 150)["nsplit"],
+            tge.wide_plan(2, 150)["nby"]) == (0, 2, 4)
+    assert tge.wide_plan(2, 200)["tp"] == 64
+    assert tge.wide_plan(1, 2000)["xg"] == 1
+    for K, D in ((2, 34), (13, 64), (227, 8), (1, 2000)):
+        for esize in (4, 2):
+            assert tge.wide_plan(K, D, esize)["smem"] <= tge.MAX_SMEM_BYTES
+    assert tge.wide_workspace_bytes(1000, 4096, 2, 34) == (
+        2000 * 15 * 64 * 8 + 2000 * 34 * 8 + 2000 * 630 * 8)
     fb = backends.FusedBackend()
-    for K, D, ok in ((2, 34, True), (6, 52, True), (13, 64, False)):
+    for K, D in ((2, 34), (6, 52), (13, 64), (2, 110)):
         mdl = model_lib.GMMModel(expfam.noninformative_prior(K, D),
                                  device="cpu")
-        assert fb.supports(mdl) is ok, (K, D)
+        assert fb.supports(mdl), (K, D)
 
 
 def test_wide_constants_mirror_the_source():
-    """WIDE_THREADS, WIDE_TILE and WIDE_MAX_GROUPS are the CUDA source's
-    kWideThreads, kWideTile and kWideMaxGroups."""
+    """WIDE_THREADS, WIDE_TILE, WIDE_ITEMS, WIDE_STEPS and WIDE_COMPS are
+    the CUDA source's kWideThreads, kWideTile, kWideItems, kWideSteps and
+    kWideComps, and MAX_SMEM_BYTES its kWideSmem."""
     import re
     from pathlib import Path
     src = (Path(tge.__file__).resolve().parent.parent / "csrc"
            / "gmm_estep.cu").read_text()
     for name, value in (("kWideThreads", tge.WIDE_THREADS),
                         ("kWideTile", tge.WIDE_TILE),
-                        ("kWideMaxGroups", tge.WIDE_MAX_GROUPS)):
+                        ("kWideItems", tge.WIDE_ITEMS),
+                        ("kWideSteps", tge.WIDE_STEPS),
+                        ("kWideComps", tge.WIDE_COMPS)):
         m = re.search(rf"constexpr int {name} = (\d+);", src)
         assert m is not None and int(m.group(1)) == value, name
+    m = re.search(r"constexpr int kWideSmem = (\d+) \* 1024;", src)
+    assert m is not None and int(m.group(1)) * 1024 == tge.MAX_SMEM_BYTES
 
 
 @pytest.mark.parametrize("K,D", [(2, 34), (4, 52)])

@@ -184,8 +184,11 @@ def test_backend_resolution():
     mdl = tm.GMMModel(prior, device="cpu")
     assert fb.supports(mdl) and tb.ReferenceBackend().supports(mdl)
     assert mdl.with_backend("fused").backend.name == "fused"
-    assert not fb.supports(tm.GMMModel(tx.noninformative_prior(13, 64),
-                                       device="cpu"))
+    # every K x D has a fused kernel (K = 13 at D = 64 was past the first
+    # wide kernel's shared memory); a model with no fused kernel does not
+    assert fb.supports(tm.GMMModel(tx.noninformative_prior(13, 64),
+                                   device="cpu"))
+    assert not fb.supports(tm.LinRegModel(D=2, device="cpu"))
 
 
 @pytest.mark.parametrize("policy", ["f64_data", "bf16"])

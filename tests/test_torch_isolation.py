@@ -133,18 +133,48 @@ def test_fused_backend_on_unsupported_model_falls_back():
                            backend="fused", device="cpu")
 
     check(_OtherModel(), (x, mask), torch.zeros(4, 3))
-    # past the wide kernel's shared memory (K > 12 at D = 64)
-    wide = model_lib.GMMModel(expfam.noninformative_prior(13, 64),
-                              device="cpu")
-    assert not backends.FusedBackend().supports(wide)
-    check(wide, (torch.randn(2, 5, 64, dtype=torch.float64),
-                 torch.ones(2, 5, dtype=torch.float64)))
+    # the port's PPCA has no fused kernel (the kernel is the GMM E-step)
+    from repro_torch.models import ppca
+    pp = ppca.PPCAModel(ppca.prior(4, 2), device="cpu")
+    assert not backends.FusedBackend().supports(pp)
+    px, pmask = ppca.sample_sensors(2, 6, D=4, Q=2, seed=1)[:2]
+    noise = np.random.default_rng(0).normal(size=(4, 2))
+    check(pp, (px, pmask), pp.pack(ppca.perturbed_init(
+        pp.prior, noise)).expand(2, -1).clone())
+    # a GMM past the first wide kernel's shared memory (K > 12 at D = 64)
+    # now has its fused kernel
+    assert backends.FusedBackend().supports(model_lib.GMMModel(
+        expfam.noninformative_prior(13, 64), device="cpu"))
     # the Normal-Gamma instance has no fused backend
     lin = model_lib.LinRegModel(D=2, device="cpu")
     check(lin, torch.randn(2, lin.flat_dim, dtype=torch.float64),
           torch.zeros(2, lin.flat_dim, dtype=torch.float64))
     assert backends.FusedBackend().supports(
         model_lib.GMMModel(prior, device="cpu"))
+
+
+@pytest.mark.parametrize("K,D", [(13, 64), (2, 110)])
+def test_fused_backend_runs_past_the_first_wide_limit(K, D):
+    """backend="fused" runs a GMM past the first wide kernel's shared
+    memory (K = 13 at D = 64; D >= 108) without the fallback warning, and
+    matches backend="reference" at 1e-4 (2 nodes, a handful of points, 3
+    iterations; on the CPU the fused backend runs the kernel's plain
+    version)."""
+    rng = np.random.default_rng(K + D)
+    prior = expfam.noninformative_prior(K, D, beta0=0.05, w0_scale=5.0)
+    x = torch.tensor(rng.normal(size=(2, 9, D)), dtype=torch.float64)
+    mask = torch.ones(2, 9, dtype=torch.float64)
+    init_q = algorithms.perturbed_init(prior, x, rng.uniform(size=(K, D)))
+    runs = {}
+    backends._WARNED.clear()
+    for be in ("fused", "reference"):
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            runs[be] = algorithms.run_dsvb(
+                x, mask, torch.full((2, 2), 0.5), prior, n_iters=3, K=K,
+                D=D, init_q=init_q, backend=be, device="cpu")
+    torch.testing.assert_close(runs["fused"].phi, runs["reference"].phi,
+                               rtol=1e-4, atol=1e-4)
 
 
 class _SparseWeights:

@@ -133,9 +133,12 @@ def test_large_shared_memory_opt_in(cuda):
 @pytest.mark.parametrize("N,T,K,D", [
     (20, 17, 2, 34),                     # Table II
     (10, 14, 2, 52), (10, 28, 4, 52), (10, 43, 6, 52),   # Fig. 13
-    (3, 300, 10, 52), (2, 200, 12, 64),  # the widest K the path takes
-    (2, 130, 1, 9),                      # sixteen point groups
-    (2, 300, 224, 8)])                   # past the shared path's memory
+    (3, 300, 10, 52), (2, 200, 12, 64),  # several blocks a node
+    (2, 130, 1, 9),                      # eight point groups
+    (2, 300, 224, 8),                    # past the shared path's memory
+    # past the first wide design's shared memory
+    (3, 77, 13, 64), (2, 50, 16, 64), (2, 40, 2, 110), (2, 90, 227, 8),
+    (1, 5, 1, 1800)])                    # x read from global memory
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("return_r", [True, False])
 @pytest.mark.parametrize("centred", [False, True])
@@ -144,8 +147,9 @@ def test_wide_kernel_matches_plain(cuda, N, T, K, D, dtype, return_r,
     """The wide kernel at tests/test_kernels.py's bars against an f64
     evaluation of the same inputs (it forms log rho in f64; two f32
     versions do not agree to those bars at D >= 34, where log rho is a
-    sum of D^2 products: chip_smoke.py's note); one wide launch per
-    call."""
+    sum of D^2 products: chip_smoke.py's note); one wide launch counted
+    per call (its prep, main and emit launches, and the lse launch when a
+    node takes several blocks)."""
     assert ge.kernel_variant(K, D) == "wide"
     a = _args(N, T, K, D, cuda, seed=T + K, dtype=dtype)
     shift = (torch.randn(N, K, D, device=cuda, generator=torch.Generator(
