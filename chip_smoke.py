@@ -804,21 +804,23 @@ def _compare_vs_f64(got, plain, exact) -> tuple:
 def _wide_bound(x, mask, terms, shift, K, D):
     """(bound ms, by, bytes, flops) of one gmm_estep_nodes call without r
     at D > 8: x and mask in their dtype, the f32 terms and shift read
-    once, the statistics written once; per point and component the
-    function's own work (no padding to the kernel's shapes): log rho in
-    f64, the centring (D), y' Wn y as the tile product and row dot
-    (2 D^2 + 2 D) and y.b (2 D), priced at the FP64 tensor cores' peak;
-    the combine and softmax (~10) at the f32 peak; the statistics r y
-    (D), sum_x (D), the upper triangle of sum_xx (D (D + 1)) and R (1),
-    which the kernel forms on the FP64 tensor cores, at their peak:
-    3 D^2 + 8 D + 11 in all."""
+    once, the statistics written once; per point and component the least
+    work the function needs (no padding to the kernel's shapes): log rho
+    in f64 as the quadratic form x'^T U_k x' of x' = (x, 1), with y.b, c
+    and the centring folded into U_k once a node and component (O(D^2),
+    left out), on U_k's upper triangle ((D + 1)(D + 2)) and its row dot
+    (2 (D + 1)), priced at the FP64 tensor cores' peak; the combine and
+    softmax (~10) at the f32 peak; the statistics r y (D), sum_x (D), the
+    upper triangle of sum_xx (D (D + 1)) and R (1), which the kernel
+    forms on the FP64 tensor cores, at their peak: 2 D^2 + 8 D + 15 in
+    all."""
     N, T = mask.shape
     n_bytes = (x.numel() * x.element_size()
                + mask.numel() * mask.element_size()
                + sum(t.numel() * 4 for t in (*terms, shift))
                + N * (K + K * D + K) * D * 4)
     per = N * T * K
-    f64_log_rho = per * (2 * D * D + 5 * D)
+    f64_log_rho = per * ((D + 1) * (D + 2) + 2 * (D + 1))
     softmax = per * 10
     stats = per * (D * D + 3 * D + 1)
     flops = f64_log_rho + softmax + stats

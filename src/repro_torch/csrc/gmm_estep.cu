@@ -630,22 +630,6 @@ constexpr int kWideComps = 32;    // components whose log rho rows a block holds
 constexpr int kWideSmem = 227 * 1024;
 
 enum WideMode { kFused = 0, kLse = 1, kSplit = 2 };
-// Phase profile (tools/gmm_wide_profile.py builds with -DGMM_WIDE_PROFILE):
-// thread 0 of each block adds the clock cycles between the marks of a
-// tile into g_wprof[i]; otherwise the marks compile to nothing.
-#ifdef GMM_WIDE_PROFILE
-__device__ unsigned long long g_wprof[8];
-#define WPROF_START long long _t = clock64();
-#define WPROF(i)                                                  \
-  if (tid == 0) {                                                 \
-    const long long _c = clock64();                               \
-    atomicAdd(&g_wprof[i], (unsigned long long)(_c - _t));        \
-    _t = _c;                                                      \
-  }
-#else
-#define WPROF_START
-#define WPROF(i)
-#endif
 
 __host__ __device__ inline int wmin(int a, int b) { return a < b ? a : b; }
 __host__ __device__ inline int wmax(int a, int b) { return a > b ? a : b; }
@@ -1128,7 +1112,6 @@ __global__ void __launch_bounds__(kWideThreads, 1)
       }
     };
     if (ntiles > 0) issue(0);
-    WPROF_START
     for (int i = 0; i < ntiles; ++i) {
       const int p0 = i * tp;
       const int valid = wmin(tp, T - p0);
@@ -1143,9 +1126,7 @@ __global__ void __launch_bounds__(kWideThreads, 1)
                 (unsigned short)pend;
         }
         if (tid < tp) s_m[tid] = m_reg;
-        WPROF(0)
         __syncthreads();   // the raw tile is in; the last tile is done
-        WPROF(1)
         // x' = (x, 1, 0, ...) in f64: warp w converts points w, w + 8, ...
         const unsigned char* gsrc =
             reinterpret_cast<const unsigned char*>(xn + (size_t)p0 * D);
@@ -1176,9 +1157,7 @@ __global__ void __launch_bounds__(kWideThreads, 1)
           }
         }
         __syncthreads();   // the f64 tile is in; its raw buffer is free
-        WPROF(2)
         if (i + 1 < ntiles) issue(i + 1);
-        WPROF(3)
       }
 
       if constexpr (MODE == kLse) {
@@ -1215,9 +1194,7 @@ __global__ void __launch_bounds__(kWideThreads, 1)
         }
       } else {
         wide_quad<Tin, XG>(P, X, Ub, B.nkb, s_q, warp, lane);
-        WPROF(4)
         __syncthreads();   // q of every point and component is in
-        WPROF(5)
         // r of each point and component, in place of q (as f64)
         {
           const int pg = p0 + sp;
@@ -1261,7 +1238,6 @@ __global__ void __launch_bounds__(kWideThreads, 1)
           }
         }
         __syncthreads();   // r is in
-        WPROF(6)
         // the statistics: per k-step (4 points, lane t's point 4 st + t)
         // the warp's items in order; A = r x'[rows 16 I ..] is formed
         // when (component, I) changes, B = x'[columns 8 J ..]
@@ -1280,7 +1256,6 @@ __global__ void __launch_bounds__(kWideThreads, 1)
         }
       }
       if constexpr (XG) __syncthreads();   // s_q is free for the next tile
-      WPROF(7)
     }
 
     if constexpr (MODE != kLse) {
@@ -1355,8 +1330,9 @@ __global__ void __launch_bounds__(256) gmm_estep_wide_prep_kernel(
     s_part[threadIdx.x] = part;
     __syncthreads();
     if (threadIdx.x == 0) {
+      // threads past D hold exact zeros: the chain stops at D
       double cc = (double)c[pair];
-      for (int i = 0; i < 256; ++i) cc += s_part[i];
+      for (int i = 0; i < wmin(D, 256); ++i) cc += s_part[i];
       s_cc = cc;
     }
     __syncthreads();   // cc and v (global) are visible to the block
@@ -1619,22 +1595,6 @@ extern "C" void gmm_estep_wide_plan(int K, int D, int x_bf16, int* out) {
                     P.su, P.smem};
   for (int i = 0; i < 9; ++i) out[i] = v[i];
 }
-
-#ifdef GMM_WIDE_PROFILE
-// The phase profile's 8 counters (cycles of thread 0 summed over blocks
-// and tiles: waiting for the tile's copies, barrier A, the conversion and
-// the barrier after it, the next tile's copies issued, the quadratic
-// form, the barrier after it, the softmax and the barrier after it, the
-// statistics); reset = 1 zeroes them after the read.
-extern "C" int gmm_estep_wide_prof(unsigned long long* out, int reset) {
-  cudaError_t e = cudaMemcpyFromSymbol(out, g_wprof, sizeof(g_wprof));
-  if (e == cudaSuccess && reset) {
-    const unsigned long long z[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-    e = cudaMemcpyToSymbol(g_wprof, z, sizeof(z));
-  }
-  return (int)e;
-}
-#endif
 
 // Bytes of the wide path's device workspace for one call.
 extern "C" long long gmm_estep_wide_workspace_bytes(int N, int T, int K,

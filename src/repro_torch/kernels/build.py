@@ -53,23 +53,18 @@ def source_digest(name: str) -> str:
     return h.hexdigest()[:16]
 
 
-def build(name: str, *, force: bool = False, defines=()) -> Built:
-    """Compile csrc/<name>.cu unless the library for this exact source
-    (and these preprocessor `defines`, e.g. a profiling switch) is already
-    in BUILD_DIR (or `force`).  Raises with the compiler's output on
-    failure."""
+def build(name: str, *, force: bool = False) -> Built:
+    """Compile csrc/<name>.cu unless the library for this exact source is
+    already in BUILD_DIR (or `force`).  Raises with the compiler's output
+    on failure."""
     src = CSRC / f"{name}.cu"
     digest = source_digest(name)
-    if defines:
-        digest += "_" + hashlib.sha256(
-            "\0".join(defines).encode()).hexdigest()[:8]
     out = BUILD_DIR / f"lib{name}_{digest}.so"
     if out.exists() and not force:
         return Built(out, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o",
-           str(tmp), str(src)]
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0

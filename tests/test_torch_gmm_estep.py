@@ -475,21 +475,32 @@ def _wide_schedule(x, mask, lp, Wn, b, c, rep=1.0, shift=None):
     (2, 130, 1, 9, True),        # K = 1, D = 9: 2 tiles, 8 groups
     (1, 40, 224, 8, False),      # a K x D the shared path refuses
     (1, 20, 13, 64, True),       # past the old kernel's limit: 7 blocks
+    (1, 20, 13, 64, False),      # the same, against the JAX package
     (1, 9, 1, 130, True),        # one component over 2 blocks
     (1, 6, 2, 200, False),       # a 64-point tile
 ])
 def test_wide_schedule_matches_plain(N, T, K, D, centred):
     """The wide path's schedule, rendered in PyTorch, gives the plain
-    version's function: at the tests/test_kernels.py bars against the f64
-    evaluation (r's scaled as WIDE_R_ATOL), and against the f32 plain
-    version where that one is itself within them of the f64 one."""
+    version's function: at the tests/test_kernels.py bars (r's scaled as
+    WIDE_R_ATOL) against the f64 evaluation, and, where the JAX package
+    computes the same function (no shift; or K = 1, whose shift is x's
+    alone), against its Pallas kernel in interpret mode and its oracle."""
     assert tge.kernel_variant(K, D) == "wide"
     a = list(map(torch.from_numpy, _args(N, T, K, D, seed=K)))
     s = (torch.from_numpy(np.random.default_rng(1).normal(
         size=(N, K, D)).astype(np.float32)) if centred else None)
-    got = _wide_schedule(*a, rep=2.0, shift=s)
-    exact = tge.gmm_estep_nodes_plain(*a, 2.0, shift=s, dtype=torch.float64)
+    rep = 2.0
+    got = _wide_schedule(*a, rep=rep, shift=s)
+    exact = tge.gmm_estep_nodes_plain(*a, rep, shift=s, dtype=torch.float64)
     _check(got, [e.float() for e in exact], WIDE_R_ATOL(D))
+    if centred and K > 1:
+        return
+    j = [jnp.asarray(v.numpy()) for v in a]
+    if centred:
+        j[0] = jnp.asarray((a[0] - s[:, :1]).numpy())
+    _check(got, jops.gmm_estep_nodes(*j, rep, block_t=32), WIDE_R_ATOL(D))
+    rr, RR, sxr, sxxr = jref.gmm_estep_nodes(*j)
+    _check(got, (rr, RR * rep, sxr * rep, sxxr * rep), WIDE_R_ATOL(D))
 
 
 def test_wide_dispatch_and_limits():
