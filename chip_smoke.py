@@ -28,7 +28,10 @@ never JAX or the JAX package, and prints one JSON line per phase:
 4a. smem_path — an over-complete mixture (K=8 on the main path's K=3
    data, dSVB, 20 iterations) through the kernel's shared-memory path:
    one launch an iteration, fused vs reference; the shared path timed at
-   K=32, D=3 on 1000 x 4096 points against its bound and plain version;
+   K=32/D=3 (f32 and bf16 x), K=8/D=2 and K=4/D=8 on 1000 x 4096 points
+   against its bound, each against the plain version and the f64
+   evaluation on its first nodes; bit-equality under padding and across
+   launches; K=221/D=8 and K=600/D=3 once against f64;
 5. small_vs_cpu — the same five estimators on a small instance, card
    (fused kernel) against CPU (plain version);
 6. profile — device-busy time by kernel over ten fused dSVB iterations
@@ -232,7 +235,8 @@ def phase_device() -> dict:
 # ---------------------------------------------------------------------------
 def _ptxas_table(report: str) -> list:
     """ptxas -v's registers / spills / shared memory per kernel instance
-    (gmm_estep_regs_kernel<D, x dtype>, gmm_estep_smem_kernel<D, x dtype>,
+    (gmm_estep_regs_kernel<D, x dtype>, gmm_estep_smem_kernel<D, x dtype,
+    component blocks a warp holds>,
     gmm_estep_wide_kernel<x dtype, mode, x from global>, its prep and
     emit kernels, flash_wgmma_kernel<hd> (bf16),
     flash_simt_kernel<hd, f32>, ssd_states_kernel<dtype>, ssd_pass_kernel,
@@ -253,6 +257,10 @@ def _ptxas_table(report: str) -> list:
                 if dim:
                     cur["D" if m.group(1).startswith("gmm") else "hd"] = int(
                         dim.group(1))
+                cbm = re.match(r"Li\d+E(?:f|13__nv_bfloat16)Li(\d+)E",
+                               m.group(3))
+                if m.group(1) == "gmm_estep_smem_kernel" and cbm:
+                    cur["cbm"] = int(cbm.group(1))
                 mode = re.search(r"Li(\d)ELb(\d)E", m.group(3))
                 if m.group(1) == "gmm_estep_wide_kernel" and mode:
                     cur["mode"] = ("fused", "lse", "split")[int(mode.group(1))]
@@ -281,12 +289,23 @@ def phase_build() -> dict:
              library=os.path.relpath(built[name].path, HERE),
              ptxas=tables[name])
     emit("build_all", kernels=list(KERNELS), wall_seconds=round(wall, 3))
+    # the wide and shared paths' instances: none spills (at up to 255
+    # registers a thread small edits have tipped them into spills)
     wide = [r for r in tables["gmm_estep"]
             if r["kernel"].startswith("gmm_estep_wide")]
     if not wide or any(r.get("spill_stores", 0) or r.get("spill_loads", 0)
                        for r in wide):
         raise AssertionError(f"the wide gmm_estep kernels spill (or were "
                              f"not found): {wide}")
+    shared = [r for r in tables["gmm_estep"]
+              if r["kernel"] == "gmm_estep_smem_kernel"]
+    want = {(D, x, cbm) for D in range(1, gmm_estep.MAX_D + 1)
+            for x in ("f32", "bf16") for cbm in (1, gmm_estep.shared_cbmax(D))}
+    if ({(r.get("D"), r.get("x"), r.get("cbm")) for r in shared} != want
+            or any(r.get("spill_stores", 0) or r.get("spill_loads", 0)
+                   for r in shared)):
+        raise AssertionError(f"the shared gmm_estep kernels spill (or an "
+                             f"instance was not found): {shared}")
     return tables
 
 
@@ -452,20 +471,30 @@ def _estimate(name, cfg, x, mask, adj, W, prior, ref, init_q, backend,
 
 
 def _gmm_bound(x, mask, terms, shift, K, D):
-    """(bound ms, by, bytes, flops) of one gmm_estep_nodes launch without
-    r: x and mask in their dtype, the f32 terms and shift read once, the
-    statistics written once; per point and component: centring, log rho
-    (y'Wy, y.b, combine), softmax, and the R / sum_x / upper-triangle
-    sum_xx accumulations."""
+    """(bound ms, by, bytes, flops) of one gmm_estep_nodes call without r,
+    any path: x and mask in their dtype, the f32 terms and shift read
+    once, the statistics written once; per point and component the least
+    work the function needs (no padding to a kernel's shapes): log rho as
+    the quadratic form x'^T U_k x' of x' = (x, 1), with y.b, c and the
+    centring folded into U_k once a node and component (O(D^2), left out),
+    on U_k's upper triangle ((D + 1)(D + 2)) and its row dot (2 (D + 1));
+    the combine and softmax (~10); the statistics r y (D), sum_x (D), the
+    upper triangle of sum_xx (D (D + 1)) and R (1): 2 D^2 + 8 D + 15 in
+    all.  The f64 parts are priced at the FP64 tensor cores' peak, the
+    softmax at the f32 peak (both 67 TFLOP/s on the H100)."""
     N, T = mask.shape
     n_bytes = (x.numel() * x.element_size()
                + mask.numel() * mask.element_size()
                + sum(t.numel() * 4 for t in (*terms, shift))
                + N * (K + K * D + K) * D * 4)
-    flops = N * T * K * (D + 2 * D * D + 4 * D + 8
-                         + 1 + 2 * D + 3 * D * (D + 1) // 2)
+    per = N * T * K
+    f64_log_rho = per * ((D + 1) * (D + 2) + 2 * (D + 1))
+    softmax = per * 10
+    stats = per * (D * D + 3 * D + 1)
+    flops = f64_log_rho + softmax + stats
     bound = {"bytes": n_bytes / PEAK_BYTES_PER_S * 1e3,
-             "operations": flops / PEAK_F32_FLOP_PER_S * 1e3}
+             "operations": ((f64_log_rho + stats) / PEAK_F64_TC_FLOP_PER_S
+                            + softmax / PEAK_F32_FLOP_PER_S) * 1e3}
     by = max(bound, key=bound.get)
     return bound[by], by, n_bytes, flops
 
@@ -599,10 +628,29 @@ def phase_precision(inst, ref_cvb, dev):
 # D(D+1)/2) = 48 floats is past the register path's budget, so the
 # kernel's shared-memory path runs it
 SMEM_K, SMEM_ITERS = 8, 20
-# the shared path timed at phase_kernel_vs_plain's K=32, D=3 case, at the
-# main path's 1000 sensors x 4096 points
-SMEM_TIMED = (1000, 4096, 32, 3)
+# the shared path timed at 1000 sensors x 4096 points (f32 x, a shift):
+# K=32/D=3 (phase_kernel_vs_plain's case; the kernels line's), K=8/D=2
+# (the over-complete run's own shape), K=4/D=8 (the widest D the path
+# takes; x is 131 MB); each against the plain version and the f64
+# evaluation on its first SMEM_PLAIN_NODES nodes
+SMEM_TIMED = ((1000, 4096, 32, 3), (1000, 4096, 8, 2), (1000, 4096, 4, 8))
 SMEM_PLAIN_NODES = 8
+# run once against the f64 evaluation: the path's largest K at D = 8 and
+# a large K at D = 3 (an lse pass, then passes of component blocks)
+SMEM_LARGE_K = ((4, 1000, 221, 8), (4, 1000, 600, 3))
+# the first shared-path design's time at SMEM_TIMED[0] (its recorded run,
+# PERF.md's bring-up table; NVIDIA H100 80GB HBM3, 700 W), beside this
+# run's
+FIRST_DESIGN_SMEM_MS = 0.8888031959533691
+
+
+def _smem_inputs(N, T, K, D, dev, seed, dtype=torch.float32):
+    gen = torch.Generator(dev).manual_seed(seed)
+    x = (torch.randn(N, T, D, generator=gen, device=dev) * 2).to(dtype)
+    mask = (torch.rand(N, T, generator=gen, device=dev) > 0.1).to(dtype)
+    terms = _random_terms(N, K, D, dev, np.random.default_rng(seed))
+    shift = torch.randn(N, K, D, generator=gen, device=dev)
+    return x, mask, terms, shift
 
 
 def phase_smem_path(inst, dev) -> dict:
@@ -636,42 +684,108 @@ def phase_smem_path(inst, dev) -> dict:
                  / ref_run.phi.abs().clamp_min(1e-30)).max())
     weights = expfam.unpack_natural(run.phi, K, cfg.D).alpha[0]
     torch.testing.assert_close(run.phi, ref_run.phi, rtol=1e-3, atol=1e-3)
-    if launches["shared"] != SMEM_ITERS:
+    if launches["shared"] != SMEM_ITERS or launches["registers"] or (
+            launches["wide"]):
         raise AssertionError(f"the over-complete run launched {launches}")
 
-    # the shared path alone at SMEM_TIMED against its plain version (first
-    # nodes) and its bound
-    rng = np.random.default_rng(17)
-    N, T, Kt, D = SMEM_TIMED
-    gen = torch.Generator(dev).manual_seed(17)
-    xt = torch.randn(N, T, D, generator=gen, device=dev) * 2
-    mt = (torch.rand(N, T, generator=gen, device=dev) > 0.1).float()
-    terms = _random_terms(N, Kt, D, dev, rng)
-    shift = torch.randn(N, Kt, D, generator=gen, device=dev)
+    # the shared path alone at SMEM_TIMED: against its plain version and
+    # the f64 evaluation (first nodes), timed (CUDA events) against its
+    # bound; bf16 x at the first shape
     n0 = SMEM_PLAIN_NODES
-    got = ops.gmm_estep_nodes(xt, mt, *terms, shift=shift, return_r=False)
-    err, share = _compare([None] + [g[:n0] for g in got[1:]],
-                          gmm_estep.gmm_estep_nodes_plain(
-                              xt[:n0], mt[:n0], *(t[:n0] for t in terms),
-                              shift=shift[:n0], return_r=False))
-    del got
-    ms = time_ms(lambda: ops.gmm_estep_nodes(xt, mt, *terms, shift=shift,
-                                             return_r=False), 20)
-    plain_ms = time_ms(lambda: gmm_estep.gmm_estep_nodes_plain(
-        xt, mt, *terms, shift=shift, return_r=False), 2)
-    bound, by, n_bytes, flops = _gmm_bound(xt, mt, terms, shift, Kt, D)
+    timed = []
+    for N, T, Kt, D in SMEM_TIMED:
+        for dt in ((torch.float32, torch.bfloat16) if (Kt, D) == (32, 3)
+                   else (torch.float32,)):
+            if gmm_estep.kernel_variant(Kt, D) != "shared":
+                raise AssertionError(f"K={Kt}, D={D} is not a shared shape")
+            xt, mt, terms, shift = _smem_inputs(N, T, Kt, D, dev, 17, dt)
+            got = ops.gmm_estep_nodes(xt, mt, *terms, shift=shift,
+                                      return_r=False)
+            first = (xt[:n0], mt[:n0], *(t[:n0] for t in terms))
+            plain = gmm_estep.gmm_estep_nodes_plain(
+                *first, shift=shift[:n0], return_r=False)
+            err, share = _compare([None] + [g[:n0] for g in got[1:]], plain)
+            err64, share64, _ = _compare_vs_f64(
+                [None] + [g[:n0] for g in got[1:]], plain,
+                gmm_estep.gmm_estep_nodes_plain(
+                    *first, shift=shift[:n0], return_r=False,
+                    dtype=torch.float64))
+            del got
+            # 100 calls: a window of 10-40 ms
+            ms = time_ms(lambda: ops.gmm_estep_nodes(
+                xt, mt, *terms, shift=shift, return_r=False), 100)
+            bound, by, n_bytes, flops = _gmm_bound(xt, mt, terms, shift, Kt,
+                                                   D)
+            row = {"shape": [N, T, Kt, D], "x": str(dt)[6:], "ms": ms,
+                   "bound_ms": bound, "bound_by": by, "bytes": n_bytes,
+                   "flops": flops, "fraction_of_bound": bound / ms,
+                   "plan": {k: gmm_estep.shared_plan(
+                       Kt, D, xt.element_size())[k]
+                       for k in ("cbm", "chunked", "npass", "smem")},
+                   "max_abs_err_first_nodes": err, "bar_share": share,
+                   "max_abs_err_vs_f64": err64, "bar_share_vs_f64": share64}
+            if (Kt, D) == (32, 3) and dt == torch.float32:
+                row["plain_ms"] = time_ms(
+                    lambda: gmm_estep.gmm_estep_nodes_plain(
+                        xt, mt, *terms, shift=shift, return_r=False), 2)
+                row["first_design_ms"] = FIRST_DESIGN_SMEM_MS
+            if bound / ms > 1.0:
+                raise AssertionError(f"the shared kernel beat its bound: "
+                                     f"{row}")
+            timed.append(row)
+            del xt, mt, terms, shift
+            torch.cuda.empty_cache()
+    # bit equality: trailing zero padding (1, 24, 3000 points) and two
+    # launches, one fused shape and one that takes passes, centred
+    pad_equal = repeat_equal = True
+    for Kt, D in ((8, 2), (40, 3)):
+        xt, mt, terms, shift = _smem_inputs(8, 1000, Kt, D, dev, 5)
+        base = ops.gmm_estep_nodes(xt, mt, *terms, 5.0, shift=shift,
+                                   return_r=False)
+        again = ops.gmm_estep_nodes(xt, mt, *terms, 5.0, shift=shift,
+                                    return_r=False)
+        repeat_equal &= all(torch.equal(a, b)
+                            for a, b in zip(base[1:], again[1:]))
+        for pad in (1, 24, 3000):
+            padded = ops.gmm_estep_nodes(
+                torch.cat([xt, xt.new_zeros(8, pad, D)], 1),
+                torch.cat([mt, mt.new_zeros(8, pad)], 1), *terms, 5.0,
+                shift=shift, return_r=False)
+            pad_equal &= all(torch.equal(a, b)
+                             for a, b in zip(base[1:], padded[1:]))
+    torch.cuda.synchronize()
+    if not (pad_equal and repeat_equal):
+        raise AssertionError("the shared gmm_estep kernel is not "
+                             "bit-invariant")
+    # the largest K at D = 8 and a large K at D = 3, once, against f64
+    large = []
+    for N, T, Kt, D in SMEM_LARGE_K:
+        xt, mt, terms, shift = _smem_inputs(N, T, Kt, D, dev, 7)
+        args = (xt, mt, *terms, 3.0)
+        err64, share64, share_plain = _compare_vs_f64(
+            ops.gmm_estep_nodes(*args, shift=shift),
+            gmm_estep.gmm_estep_nodes_plain(*args, shift=shift),
+            gmm_estep.gmm_estep_nodes_plain(*args, shift=shift,
+                                            dtype=torch.float64))
+        large.append({"shape": [N, T, Kt, D],
+                      "variant": gmm_estep.kernel_variant(Kt, D),
+                      "plan": {k: gmm_estep.shared_plan(Kt, D)[k]
+                               for k in ("cbm", "chunked", "npass")},
+                      "max_abs_err_vs_f64": err64,
+                      "bar_share_vs_f64": share64,
+                      "bar_share_vs_plain": share_plain})
+    main = timed[0]
     emit("smem_path", estimator="dsvb", K=K, D=cfg.D, n_iters=SMEM_ITERS,
          variant="shared", launches=launches, ms_per_iter=ms_iter,
          max_rel_phi_diff_vs_reference=rel,
-         component_weights_node0=weights.tolist(),
-         timed={"shape": list(SMEM_TIMED), "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound, "bound_by": by, "bytes": n_bytes,
-                "flops": flops, "fraction_of_bound": bound / ms,
-                "max_abs_err_first_nodes": err, "bar_share": share})
-    del xt, mt, terms
+         component_weights_node0=weights.tolist(), tolerance=TOL,
+         timed=timed, padding_bit_equal=pad_equal,
+         launches_bit_equal=repeat_equal, large_k_vs_f64=large)
     torch.cuda.empty_cache()
-    return {"launches": launches["shared"], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": by, "max_abs_err": err}
+    return {"launches": launches["shared"], "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"],
+            "max_abs_err": max(r["max_abs_err_first_nodes"] for r in timed)}
 
 
 # ---------------------------------------------------------------------------
@@ -801,36 +915,6 @@ def _compare_vs_f64(got, plain, exact) -> tuple:
     return err, share, share_plain
 
 
-def _wide_bound(x, mask, terms, shift, K, D):
-    """(bound ms, by, bytes, flops) of one gmm_estep_nodes call without r
-    at D > 8: x and mask in their dtype, the f32 terms and shift read
-    once, the statistics written once; per point and component the least
-    work the function needs (no padding to the kernel's shapes): log rho
-    in f64 as the quadratic form x'^T U_k x' of x' = (x, 1), with y.b, c
-    and the centring folded into U_k once a node and component (O(D^2),
-    left out), on U_k's upper triangle ((D + 1)(D + 2)) and its row dot
-    (2 (D + 1)), priced at the FP64 tensor cores' peak; the combine and
-    softmax (~10) at the f32 peak; the statistics r y (D), sum_x (D), the
-    upper triangle of sum_xx (D (D + 1)) and R (1), which the kernel
-    forms on the FP64 tensor cores, at their peak: 2 D^2 + 8 D + 15 in
-    all."""
-    N, T = mask.shape
-    n_bytes = (x.numel() * x.element_size()
-               + mask.numel() * mask.element_size()
-               + sum(t.numel() * 4 for t in (*terms, shift))
-               + N * (K + K * D + K) * D * 4)
-    per = N * T * K
-    f64_log_rho = per * ((D + 1) * (D + 2) + 2 * (D + 1))
-    softmax = per * 10
-    stats = per * (D * D + 3 * D + 1)
-    flops = f64_log_rho + softmax + stats
-    bound = {"bytes": n_bytes / PEAK_BYTES_PER_S * 1e3,
-             "operations": ((f64_log_rho + stats) / PEAK_F64_TC_FLOP_PER_S
-                            + softmax / PEAK_F32_FLOP_PER_S) * 1e3}
-    by = max(bound, key=bound.get)
-    return bound[by], by, n_bytes, flops
-
-
 def phase_gmm_wide_kernel_vs_plain(dev) -> dict:
     rng = np.random.default_rng(15)
     cases = []
@@ -925,7 +1009,7 @@ def phase_gmm_wide_kernel_vs_plain(dev) -> dict:
                             "bar_share_vs_plain": share_plain}
         ms = time_ms(lambda: ops.gmm_estep_nodes(
             x, mask, *terms, 1.0, shift=shift, return_r=False), 5)
-        bound, by, n_bytes, flops = _wide_bound(x, mask, terms, shift, K, D)
+        bound, by, n_bytes, flops = _gmm_bound(x, mask, terms, shift, K, D)
         timed[name] = {"ms": ms, "bound_ms": bound, "bound_by": by,
                        "bytes": n_bytes, "flops": flops,
                        "fraction_of_bound": bound / ms,

@@ -65,12 +65,43 @@
 //     than it gained at the main path (PERF.md).
 //   - Registers bound the occupancy: a budget of 48 floats (K <= 8 at
 //     D = 2) took 127 registers and ran slower at K = 3.
-// * gmm_estep_smem_kernel, for larger K * D (up to the shared-memory
-//   limit): one block per node, K a runtime loop with log rho recomputed
-//   per pass, per tile a warp butterfly per statistic added into the
-//   warp's slot in shared memory, the warp slots summed in warp order at
-//   the end.  The first design, kept for the shapes the register path does
-//   not take, for D <= 8 and up to its shared memory at block_t = 512.
+// * gmm_estep_smem_kernel<D, x dtype, CBM>, for the other (K, D) with
+//   D <= 8 (the wrapper's SHARED_KMAX, while the plan's shared memory
+//   fits).  Operations bind it: the function needs 2 D^2 + 8 D + 15 of
+//   them a point and component, 7.5 GFLOP at K = 32, D = 3 on 1000 x 4096
+//   points (0.11 ms at 67 TFLOP/s) against 49 MB of x and mask (0.015 ms).
+//   It runs them on the FP64 tensor cores:
+//   - each point becomes its features phi = the upper triangle of
+//     x' x'^T, x' = (x, 1) (F = (D+1)(D+2)/2; exact products of f32 in
+//     f64), converted once into the converting warp's f64 tile; each
+//     component's terms, shift and log_prior fold once a node into u_k on
+//     the same triangle (sm_u), so log rho = phi . u_k is one chain of
+//     m16n8k8 products (16 points by a block of 8 components, NS k-steps
+//     of 8 features), formed once a point and component;
+//   - the softmax stays in registers (a point's components of a block
+//     over the four lanes of its row: max, one expf a value, the sum by
+//     two xor shuffles; a warp holding several blocks keeps their log rho
+//     in its shared memory meanwhile, which leaves the instances of
+//     D <= 4 at <= 128 registers, two blocks an SM); e goes through a
+//     small per-warp transpose in shared memory, and each point's mask /
+//     denominator is applied as B is formed;
+//   - sum_t r_tk phi(x_t) holds R, sum_x and sum_xx at once: m16n8k16
+//     products (A = phi^T, features x points; B = r, points x
+//     components) accumulated in each warp's registers across all of the
+//     node's tiles (no per-tile reduction), added in warp order at the
+//     end and centred on s_k in f64, times rep, at emit.
+//   One block of 8 warps a node; block_t points a tile arrive by cp.async
+//   into a double buffer (one barrier a tile), and warp w takes the
+//   tile's 16-point steps w, w + 8, ...  A warp holds CBM blocks of 8
+//   components (the instance: 1, or 4 at D <= 4 and 2 above); past that
+//   the node takes an lse pass (each point's largest log rho and softmax
+//   denominator, online over the blocks, to a workspace) and passes of
+//   CBM blocks.  What bounds it (PERF.md): instruction issue and latency
+//   around the products (the conversion, softmax, transpose and their
+//   addressing take several times the tensor pipe's cycles at small K)
+//   at one or two blocks an SM (holding every block's log rho in
+//   registers took ~170 of them, one block an SM, and ran slower at
+//   K = 32, D = 3).
 // * the wide path, for everything else (the paper's real-data tables run
 //   D = 34 and D = 52; any K and D): log rho and the statistics in f64 on
 //   the FP64 tensor cores with mma.sync (m16n8k8 for the quadratic form,
@@ -125,8 +156,8 @@
 //
 // Determinism: no atomics.  The association order of every statistic
 // depends on the point index and the compile-time constants (kThreads,
-// kGroup; block_t on the shared path; the plan, a function of (K, D) and
-// x's dtype, on the wide path), never on T: points at or
+// kGroup; kSmWarps and kSmStep on the shared path; the plan, a function
+// of (K, D) and x's dtype, on the wide path), never on T: points at or
 // past T read as x = 0, mask = 0 and contribute exact zeros, exactly like
 // trailing mask-zero padding in memory, which only appends zero terms to
 // each thread's sequence.  Stats for x and for x with zero rows appended
@@ -448,170 +479,6 @@ __global__ void __launch_bounds__(kThreads)
     out[o] = val * rep;
   }
 }
-
-// ===========================================================================
-// Shared-memory path
-// ===========================================================================
-// points per thread per tile; repro_torch/kernels/gmm_estep.py mirrors it
-constexpr int kPts = 4;
-constexpr int kMaxThreads = 256;
-
-// y = x - s_k, component k's coordinates of a point
-template <int D>
-__device__ __forceinline__ void centre(const float (&x)[D], const float* sk,
-                                       float (&y)[D]) {
-#pragma unroll
-  for (int d = 0; d < D; ++d) y[d] = x[d] - sk[d];
-}
-
-template <int D, typename Tin>
-__global__ void __launch_bounds__(kMaxThreads) gmm_estep_smem_kernel(
-    const Tin* __restrict__ x, const Tin* __restrict__ mask,
-    const float* __restrict__ log_prior, const float* __restrict__ Wn,
-    const float* __restrict__ b, const float* __restrict__ c,
-    const float* __restrict__ shift, float* __restrict__ r_out,
-    float* __restrict__ stats, int T, int K, int block_t, float rep) {
-  // per component: R, sum_x (D), upper triangle of sum_xx (D(D+1)/2)
-  constexpr int SK = 1 + D + D * (D + 1) / 2;
-  extern __shared__ float smem[];
-  const int n = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int nthreads = blockDim.x;
-  const int nwarps = nthreads >> 5;
-  const int S = K * SK;
-  float* s_lp = smem;
-  float* s_c = s_lp + K;
-  float* s_b = s_c + K;
-  float* s_w = s_b + K * D;
-  float* s_s = s_w + K * D * D;    // per-component shift (K*D)
-  float* s_acc = s_s + K * D;      // nwarps slots of S floats
-
-  for (int i = tid; i < K; i += nthreads) {
-    s_lp[i] = log_prior[(size_t)n * K + i];
-    s_c[i] = c[(size_t)n * K + i];
-  }
-  for (int i = tid; i < K * D; i += nthreads) {
-    s_b[i] = b[(size_t)n * K * D + i];
-    s_s[i] = shift != nullptr ? shift[(size_t)n * K * D + i] : 0.f;
-  }
-  for (int i = tid; i < K * D * D; i += nthreads)
-    s_w[i] = Wn[(size_t)n * K * D * D + i];
-  for (int i = tid; i < nwarps * S; i += nthreads) s_acc[i] = 0.f;
-  __syncthreads();
-
-  const Tin* xn = x + (size_t)n * T * D;
-  const Tin* mn = mask + (size_t)n * T;
-  float* acc = s_acc + (tid >> 5) * S;
-  const int ntiles = (T + block_t - 1) / block_t;
-
-  for (int tile = 0; tile < ntiles; ++tile) {
-    float xv[kPts][D];
-    float mv[kPts];
-    int pt[kPts];
-#pragma unroll
-    for (int j = 0; j < kPts; ++j) {
-      const int p = tile * block_t + j * nthreads + tid;
-      const bool in = p < T;
-      pt[j] = p;
-#pragma unroll
-      for (int d = 0; d < D; ++d)
-        xv[j][d] = in ? to_f32(xn[(size_t)p * D + d]) : 0.f;
-      mv[j] = in ? to_f32(mn[p]) : 0.f;
-    }
-    // softmax over components: max, then the denominator
-    float mx[kPts], den[kPts];
-#pragma unroll
-    for (int j = 0; j < kPts; ++j) {
-      mx[j] = -INFINITY;
-      den[j] = 0.f;
-    }
-    float yv[kPts][D];
-    for (int k = 0; k < K; ++k) {
-#pragma unroll
-      for (int j = 0; j < kPts; ++j) {
-        centre<D>(xv[j], s_s + k * D, yv[j]);
-        mx[j] = fmaxf(mx[j], log_rho<D>(s_w + k * D * D, s_b + k * D,
-                                        s_lp[k], s_c[k], yv[j]));
-      }
-    }
-    for (int k = 0; k < K; ++k) {
-#pragma unroll
-      for (int j = 0; j < kPts; ++j) {
-        centre<D>(xv[j], s_s + k * D, yv[j]);
-        den[j] += expf(log_rho<D>(s_w + k * D * D, s_b + k * D, s_lp[k],
-                                  s_c[k], yv[j]) - mx[j]);
-      }
-    }
-    for (int k = 0; k < K; ++k) {
-      float rk[kPts];
-#pragma unroll
-      for (int j = 0; j < kPts; ++j) {
-        centre<D>(xv[j], s_s + k * D, yv[j]);
-        rk[j] = expf(log_rho<D>(s_w + k * D * D, s_b + k * D, s_lp[k],
-                                s_c[k], yv[j]) - mx[j]) / den[j] * mv[j];
-        if (r_out != nullptr && pt[j] < T)
-          r_out[((size_t)n * T + pt[j]) * K + k] = rk[j];
-      }
-      // statistic s of component k lives at acc[k*SK + s]; after the
-      // butterfly every lane holds the warp total, lane s%32 adds it
-      float* a = acc + k * SK;
-      int s = 0;
-      float v = 0.f;
-#pragma unroll
-      for (int j = 0; j < kPts; ++j) v += rk[j];
-      v = warp_sum(v);
-      if (lane == ((k * SK + s) & 31)) a[s] += v;
-      ++s;
-#pragma unroll
-      for (int d = 0; d < D; ++d, ++s) {
-        v = 0.f;
-#pragma unroll
-        for (int j = 0; j < kPts; ++j) v += rk[j] * yv[j][d];
-        v = warp_sum(v);
-        if (lane == ((k * SK + s) & 31)) a[s] += v;
-      }
-#pragma unroll
-      for (int d = 0; d < D; ++d) {
-#pragma unroll
-        for (int e = d; e < D; ++e, ++s) {
-          v = 0.f;
-#pragma unroll
-          for (int j = 0; j < kPts; ++j) v += (rk[j] * yv[j][d]) * yv[j][e];
-          v = warp_sum(v);
-          if (lane == ((k * SK + s) & 31)) a[s] += v;
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-  // fixed-order sum across warps into slot 0 (thread s owns statistic s)
-  for (int s = tid; s < S; s += nthreads) {
-    float tot = s_acc[s];
-    for (int w = 1; w < nwarps; ++w) tot += s_acc[w * S + s];
-    s_acc[s] = tot;
-  }
-  __syncthreads();
-
-  const int rows = K + K * D + K;
-  float* out = stats + (size_t)n * rows * D;
-  for (int o = tid; o < rows * D; o += nthreads) {
-    const int row = o / D, col = o % D;
-    float val;
-    if (row < K) {
-      val = s_acc[row * SK + 1 + col];
-    } else if (row < K + K * D) {
-      const int k = (row - K) / D, d = (row - K) % D;
-      const int i = d < col ? d : col, j = d < col ? col : d;
-      val = s_acc[k * SK + 1 + D + i * D - i * (i - 1) / 2 + (j - i)];
-    } else {
-      val = col == 0 ? s_acc[(row - K - K * D) * SK] : 0.f;
-    }
-    out[o] = val * rep;
-  }
-}
-
 
 // ===========================================================================
 // Wide path: any D, and the (K, D) shapes the two paths above do not take
@@ -1484,39 +1351,608 @@ cudaError_t launch_wide(const void* x, const void* mask,
 }
 
 
+// ===========================================================================
+// Shared-memory path: D <= 8, the (K, D) past the register budget
+// ===========================================================================
+// repro_torch/kernels/gmm_estep.py mirrors these (SHARED_THREADS,
+// SHARED_STEP, SHARED_RT, shared_cbmax) and checks its plan against
+// gmm_estep_shared_plan.
+constexpr int kSmThreads = 256;
+constexpr int kSmWarps = kSmThreads / 32;
+constexpr int kSmStep = 16;   // points a warp takes at a time
+constexpr int kSmRt = 20;     // row stride (floats) of a warp's r transpose
+
+// component blocks of 8 whose statistics a warp holds in registers: the
+// kernel instances take 1 or this many
+__host__ __device__ constexpr int sm_cbmax(int D) { return D <= 4 ? 4 : 2; }
+
+// x' = (x, 1) and its features phi = the upper triangle of x' x'^T, row
+// by row (feature (i, j), i <= j <= D, at i (D + 1) - i (i - 1) / 2 +
+// j - i; the last, (D, D), is 1): F of them, NS k-steps of 8 (log rho,
+// m16n8k8), NF row blocks of 16 (the statistics, m16n8k16), XS = 16 NF + 4
+// doubles a row of a warp's phi tile
+template <int D>
+struct SmShape {
+  static constexpr int F = (D + 1) * (D + 2) / 2;
+  static constexpr int NS = (F + 7) / 8;
+  static constexpr int NF = (F + 15) / 16;
+  static constexpr int XS = 16 * NF + 4;
+};
+
+// The shared path's plan at (K, D), x's element size and block_t (points
+// staged a tile): ncb component blocks of 8; an instance holding cbm of
+// them a warp (1, or sm_cbmax(D) when ncb > 1); when ncb > cbm the node
+// takes an lse pass and npass statistics passes of cbm blocks, else one
+// fused pass.  Shared memory: the u fragments of every block, then a
+// region (the warps' phi tiles, r transposes and, when cbm > 1, log rho
+// of their blocks, two raw x tiles, two mask tiles) reused at the end of
+// a pass for the warps' statistics.
+struct SmPlan {
+  int F, NS, NF, XS, ncb, cbm, chunked, npass, raw;
+  int off_u, off_phi, off_rt, off_lr, off_raw, off_m, smem;
+};
+
+__host__ __device__ inline SmPlan sm_plan(int K, int D, int esize,
+                                          int block_t) {
+  SmPlan P;
+  P.F = (D + 1) * (D + 2) / 2;
+  P.NS = (P.F + 7) / 8;
+  P.NF = (P.F + 15) / 16;
+  P.XS = 16 * P.NF + 4;
+  P.ncb = (K + 7) / 8;
+  P.cbm = P.ncb <= 1 ? 1 : sm_cbmax(D);
+  P.chunked = P.ncb > P.cbm;
+  P.npass = (P.ncb + P.cbm - 1) / P.cbm;
+  P.raw = (block_t * D * esize + 15) / 16 * 16 + 16;
+  int o = 0;
+  P.off_u = o;
+  o += P.ncb * P.NS * 512;
+  const int region = o;
+  P.off_phi = o;
+  o += kSmWarps * (kSmStep * P.XS + 4) * 8;
+  P.off_rt = o;
+  o += kSmWarps * (P.cbm * 8 * kSmRt + kSmStep) * 4;
+  P.off_lr = o;
+  o += P.cbm > 1 ? kSmWarps * P.cbm * 128 * 8 : 0;
+  P.off_raw = o;
+  o += 2 * P.raw;
+  P.off_m = o;
+  o += 2 * block_t * 4;
+  P.smem = wmax(o, region + kSmWarps * P.cbm * P.NF * 128 * 8);
+  return P;
+}
+
+// row p (< 16) of a warp's phi tile starts at p XS + p / 4 doubles: with
+// XS = 4 mod 16 the conversion's stores (a point a lane), log rho's
+// fragment loads (rows g, g + 8, columns 8 s + t) and the statistics'
+// (rows t + 4 q, columns 16 fb + g) all fall in distinct banks, and every
+// column offset is a constant
+__host__ __device__ inline int sm_row(int p, int XS) {
+  return p * XS + (p >> 2);
+}
+
+struct SmArgs {
+  const void* x;
+  const void* mask;
+  const float *log_prior, *Wn, *b, *c, *shift;
+  float* r_out;     // (N, T, K) or null
+  float* stats;     // (N, K + K D + K, D)
+  double* lse_mx;   // (N, T) the points' largest log rho (chunked)
+  float* lse_den;   // (N, T) their softmax denominators (chunked)
+  int T, K, block_t;
+  float rep;
+};
+
+// u_k . phi(x) = log rho of component k: feature (i, j) of u_k is
+// -(M_ij + M_ji) / 2 above the diagonal and -M_ii / 2 on it, for M =
+// [[Wn, -v], [-v^T, cc]], v = (Wn + Wn^T) s / 2 + b, cc = s^T Wn s + 2 s.b
+// + c, plus log_prior at (D, D); in f64 (the expanded form cancels in f32)
+template <int D>
+__device__ double sm_u(const SmArgs& a, int n, int k, int f) {
+  int i = 0, row = D + 1;
+  while (f >= row) {
+    f -= row;
+    ++i;
+    --row;
+  }
+  const int j = i + f;
+  const size_t nk = (size_t)n * a.K + k;
+  const float* W = a.Wn + nk * D * D;
+  const float* bk = a.b + nk * D;
+  const float* s = a.shift != nullptr ? a.shift + nk * D : nullptr;
+  if (j < D)
+    return i == j ? -0.5 * (double)W[i * D + i]
+                  : -0.5 * ((double)W[i * D + j] + (double)W[j * D + i]);
+  if (i < D) {
+    double v = 0.0;
+    if (s != nullptr)
+      for (int e = 0; e < D; ++e)
+        v = fma(0.5 * ((double)W[i * D + e] + (double)W[e * D + i]),
+                (double)s[e], v);
+    return v + (double)bk[i];
+  }
+  double cc = (double)a.c[nk];
+  if (s != nullptr)
+    for (int d = 0; d < D; ++d) {
+      double sw = 0.0;
+      for (int e = 0; e < D; ++e)
+        sw = fma((double)W[d * D + e], (double)s[e], sw);
+      cc = fma((double)s[d], sw + 2.0 * (double)bk[d], cc);
+    }
+  return (double)a.log_prior[nk] - 0.5 * cc;
+}
+
+// log rho of the 16 points of a warp's phi tile and the 8 components of
+// block cb: m16n8k8 products of A = phi (points x features) by B = u (the
+// block's fragments in shared memory), NS k-steps in order.  lr[e] is
+// point g + 8 (e >> 1), component 8 cb + 2 t + (e & 1); past K, -inf.
+template <int D>
+__device__ __forceinline__ void sm_log_rho(const double* s_phi,
+                                           const double* s_u, int cb, int K,
+                                           int lane, double (&lr)[4]) {
+  using S = SmShape<D>;
+  const int g = lane >> 2, t = lane & 3;
+  const double* r0 = s_phi + sm_row(g, S::XS) + t;
+  const double* r8 = s_phi + sm_row(g + 8, S::XS) + t;
+  const double* u = s_u + (size_t)cb * S::NS * 64 + 2 * lane;
+  lr[0] = lr[1] = lr[2] = lr[3] = 0.0;
+#pragma unroll
+  for (int s = 0; s < S::NS; ++s) {
+    double af[4];
+    af[0] = r0[8 * s];
+    af[1] = r8[8 * s];
+    if (8 * s + 4 < S::F) {
+      af[2] = r0[8 * s + 4];
+      af[3] = r8[8 * s + 4];
+    } else {
+      af[2] = af[3] = 0.0;
+    }
+    const double2 b = *reinterpret_cast<const double2*>(u + s * 64);
+    dmma8(lr, af, b.x, b.y);
+  }
+  if (8 * (cb + 1) > K)   // the last block: part padding
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (8 * cb + 2 * t + (e & 1) >= K) lr[e] = -INFINITY;
+}
+
+__device__ __forceinline__ double sm_max(double a, double b) {
+  return a > b ? a : b;
+}
+
+// the online softmax terms (running max m, denominator d) after value v
+__device__ __forceinline__ void sm_online(double& m, float& d, double v) {
+  if (v > m) {
+    d = d * expf((float)(m - v)) + 1.f;
+    m = v;
+  } else {
+    d += expf((float)(v - m));
+  }
+}
+
+// One block of kSmWarps warps a node.  The node's points come in tiles of
+// block_t (cp.async into a double buffer, one barrier a tile); warp w
+// takes the tile's 16-point steps w, w + 8, ...: it converts its points
+// to phi rows in its own f64 tile, forms log rho once a point and
+// component on the FP64 tensor cores, the softmax in registers, passes r
+// through a small transpose in shared memory, and adds sum_t r_tk phi(x_t)
+// (m16n8k16: A = phi^T, features x points; B = r, points x components)
+// into statistics fragments held across all of the node's tiles.  At the
+// end of a pass the warps' statistics are added in warp order and
+// emitted, centred on the shift in f64.  When the node's component blocks
+// exceed the instance's CBM, an lse pass first writes each point's
+// largest log rho and softmax denominator (online over the blocks) and
+// each statistics pass takes CBM blocks.
+template <int D, typename Tin, int CBM>
+__global__ void __launch_bounds__(kSmThreads, D <= 4 ? 2 : 1)
+    gmm_estep_smem_kernel(SmArgs a, SmPlan P) {
+  using S = SmShape<D>;
+  extern __shared__ __align__(16) unsigned char ssm[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int n = blockIdx.x;
+  const int T = a.T, K = a.K, bt = a.block_t;
+  const Tin* xn = static_cast<const Tin*>(a.x) + (size_t)n * T * D;
+  const Tin* mn = static_cast<const Tin*>(a.mask) + (size_t)n * T;
+  double* s_u = reinterpret_cast<double*>(ssm + P.off_u);
+  double* s_phi = reinterpret_cast<double*>(ssm + P.off_phi) +
+                  warp * (kSmStep * S::XS + 4);
+  // a warp's softmax area: e of its blocks (component rows, point
+  // columns), then each point's mask / denominator; and, when it holds
+  // several blocks, their log rho (fragment order)
+  float* s_rt = reinterpret_cast<float*>(ssm + P.off_rt) +
+                warp * (CBM * 8 * kSmRt + kSmStep);
+  float* s_inv = s_rt + CBM * 8 * kSmRt;
+  double* s_lr = reinterpret_cast<double*>(ssm + P.off_lr) + warp * CBM * 128;
+  unsigned char* s_raw = ssm + P.off_raw;
+  float* s_m = reinterpret_cast<float*>(ssm + P.off_m);
+  double* red = reinterpret_cast<double*>(ssm + P.off_phi);
+  const int ntiles = (T + bt - 1) / bt;
+  const int esize = (int)sizeof(Tin);
+  // an lse pass and passes of CBM blocks (never when a warp holds one)
+  const bool chunked = CBM > 1 && P.chunked;
+
+  // u in fragment order: block cb, k-step s, lane 4 g + t holds features
+  // 8 s + t and 8 s + t + 4 of component 8 cb + g (zero past K and F)
+  for (int idx = tid; idx < P.ncb * S::NS * 64; idx += kSmThreads) {
+    const int cb = idx / (S::NS * 64), rem = idx % (S::NS * 64);
+    const int l = (rem >> 1) & 31;
+    const int k = 8 * cb + (l >> 2);
+    const int f = 8 * (rem / 64) + (l & 3) + 4 * (rem & 1);
+    s_u[idx] = (k < K && f < S::F) ? sm_u<D>(a, n, k, f) : 0.0;
+  }
+
+  // the x tile i -> raw buffer i & 1, as the wide path: cp.async of the
+  // 16-byte chunks (both sides congruent mod 16), the head and tail
+  // elements and the mask through registers, stored after the wait
+  float m_reg[4];
+  uint32_t pend = 0;
+  int pend_at = -1;
+  auto issue = [&](int i) {
+    const int p0 = i * bt;
+    const int valid = wmin(bt, T - p0);
+    const unsigned char* gsrc =
+        reinterpret_cast<const unsigned char*>(xn + (size_t)p0 * D);
+    const int bytes = valid * D * esize;
+    const int mis = (int)(reinterpret_cast<uintptr_t>(gsrc) & 15);
+    unsigned char* dst = s_raw + (i & 1) * P.raw + mis;
+    const int head = wmin(bytes, (16 - mis) & 15);
+    const int body = (bytes - head) / 16;
+    for (int j = tid; j < body; j += kSmThreads)
+      cp_async16(dst + head + 16 * j, gsrc + head + 16 * j);
+    asm volatile("cp.async.commit_group;\n" ::);
+    const int tail = bytes - head - 16 * body;
+    pend_at = -1;
+    if (tid < head / esize) {
+      pend_at = (i & 1) * P.raw + mis + tid * esize;
+    } else if (tid >= 8 && tid - 8 < tail / esize) {
+      pend_at = (i & 1) * P.raw + mis + head + 16 * body + (tid - 8) * esize;
+    }
+    if (pend_at >= 0) {
+      const unsigned char* gp = gsrc + (pend_at - (i & 1) * P.raw - mis);
+      pend = esize == 4
+                 ? __ldg(reinterpret_cast<const uint32_t*>(gp))
+                 : (uint32_t)__ldg(reinterpret_cast<const unsigned short*>(gp));
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int p = tid + kSmThreads * q;
+      m_reg[q] = p < valid ? to_f32(mn[p0 + p]) : 0.f;
+    }
+  };
+
+  for (int pass = chunked ? -1 : 0; pass < P.npass; ++pass) {
+    const int cb0 = pass < 0 ? 0 : pass * CBM;
+    const int ncp = pass < 0 ? P.ncb : wmin(CBM, P.ncb - cb0);
+    __syncthreads();   // u is in; the last pass's emit is done with red
+    // this warp's phi rows (the columns of features past F stay zero)
+    for (int i = lane; i < kSmStep * S::XS + 4; i += 32) s_phi[i] = 0.0;
+    double acc[CBM][S::NF][4];
+#pragma unroll
+    for (int cb = 0; cb < CBM; ++cb)
+#pragma unroll
+      for (int fb = 0; fb < S::NF; ++fb)
+        acc[cb][fb][0] = acc[cb][fb][1] = acc[cb][fb][2] = acc[cb][fb][3] =
+            0.0;
+    if (ntiles > 0) issue(0);
+    for (int i = 0; i < ntiles; ++i) {
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      if (pend_at >= 0) {
+        if (esize == 4)
+          *reinterpret_cast<uint32_t*>(s_raw + pend_at) = pend;
+        else
+          *reinterpret_cast<unsigned short*>(s_raw + pend_at) =
+              (unsigned short)pend;
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int p = tid + kSmThreads * q;
+        if (p < bt) s_m[(i & 1) * bt + p] = m_reg[q];
+      }
+      __syncthreads();   // tile i is in; every warp is done with tile i - 1
+      if (i + 1 < ntiles) issue(i + 1);
+      const int p0 = i * bt, valid = wmin(bt, T - p0);
+      const int mis =
+          (int)(reinterpret_cast<uintptr_t>(xn + (size_t)p0 * D) & 15);
+      const Tin* raw =
+          reinterpret_cast<const Tin*>(s_raw + (i & 1) * P.raw + mis);
+      const float* msk = s_m + (i & 1) * bt;
+      for (int j = warp; j * kSmStep < valid; j += kSmWarps) {
+        const int pl = j * kSmStep;   // the step's first point in the tile
+        const int nv = valid - pl;    // the step's points before T
+        const size_t pg = (size_t)n * T + p0 + pl;
+        // phi of the step's points: lane p < 16 converts point p (exact
+        // products of f32 values in f64)
+        __syncwarp();
+        if (lane < kSmStep) {
+          double xv[D + 1];
+#pragma unroll
+          for (int d = 0; d < D; ++d)
+            xv[d] = lane < nv ? (double)to_f32(raw[(pl + lane) * D + d])
+                              : 0.0;
+          xv[D] = 1.0;
+          double* row = s_phi + sm_row(lane, S::XS);
+          int f = 0;
+#pragma unroll
+          for (int ii = 0; ii <= D; ++ii)
+#pragma unroll
+            for (int jj = ii; jj <= D; ++jj, ++f) row[f] = xv[ii] * xv[jj];
+        }
+        __syncwarp();
+        if (chunked && pass < 0) {
+          // the lse pass: every block, online in each lane, then over the
+          // four lanes of a point (t)
+          double m0 = -INFINITY, m1 = -INFINITY;
+          float d0 = 0.f, d1 = 0.f;
+          for (int cb = 0; cb < P.ncb; ++cb) {
+            double lr[4];
+            sm_log_rho<D>(s_phi, s_u, cb, K, lane, lr);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (8 * cb + 2 * t + (e & 1) < K) {
+                if (e < 2)
+                  sm_online(m0, d0, lr[e]);
+                else
+                  sm_online(m1, d1, lr[e]);
+              }
+          }
+#pragma unroll
+          for (int o = 1; o < 4; o <<= 1) {
+            const double om0 = wide_shfl(m0, o), om1 = wide_shfl(m1, o);
+            const float od0 = __shfl_xor_sync(0xffffffffu, d0, o);
+            const float od1 = __shfl_xor_sync(0xffffffffu, d1, o);
+            const double M0 = sm_max(m0, om0), M1 = sm_max(m1, om1);
+            d0 = d0 * expf((float)(m0 - M0)) + od0 * expf((float)(om0 - M0));
+            d1 = d1 * expf((float)(m1 - M1)) + od1 * expf((float)(om1 - M1));
+            m0 = M0;
+            m1 = M1;
+          }
+          if (g < nv) {
+            a.lse_mx[pg + g] = m0;
+            a.lse_den[pg + g] = d0;
+          }
+          if (g + 8 < nv) {
+            a.lse_mx[pg + g + 8] = m1;
+            a.lse_den[pg + g + 8] = d1;
+          }
+          continue;
+        }
+        // each point's largest log rho over the blocks (chunked: over all
+        // components, the lse pass's), then e = exp(log rho - max) into
+        // the warp's transpose with the lane's share of the denominator;
+        // a warp holding several blocks keeps their log rho in its shared
+        // memory meanwhile, not in registers
+        double mx0 = 0.0, mx1 = 0.0;
+        double lr[4];
+        if (chunked) {
+          if (g < nv) mx0 = a.lse_mx[pg + g];
+          if (g + 8 < nv) mx1 = a.lse_mx[pg + g + 8];
+        } else {
+          mx0 = mx1 = -INFINITY;
+#pragma unroll
+          for (int cb = 0; cb < CBM; ++cb) {
+            if (cb < ncp) {
+              sm_log_rho<D>(s_phi, s_u, cb0 + cb, K, lane, lr);
+              mx0 = sm_max(mx0, sm_max(lr[0], lr[1]));
+              mx1 = sm_max(mx1, sm_max(lr[2], lr[3]));
+              if (CBM > 1)
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                  s_lr[(cb * 4 + e) * 32 + lane] = lr[e];
+            }
+          }
+          mx0 = sm_max(mx0, wide_shfl(mx0, 1));
+          mx0 = sm_max(mx0, wide_shfl(mx0, 2));
+          mx1 = sm_max(mx1, wide_shfl(mx1, 1));
+          mx1 = sm_max(mx1, wide_shfl(mx1, 2));
+        }
+        float sd0 = 0.f, sd1 = 0.f;
+#pragma unroll
+        for (int cb = 0; cb < CBM; ++cb) {
+          if (cb < ncp) {
+            if (chunked) {
+              sm_log_rho<D>(s_phi, s_u, cb0 + cb, K, lane, lr);
+            } else if (CBM > 1) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                lr[e] = s_lr[(cb * 4 + e) * 32 + lane];
+            }
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float ev = expf((float)(lr[e] - (e < 2 ? mx0 : mx1)));
+              s_rt[(cb * 8 + 2 * t + (e & 1)) * kSmRt + g + 8 * (e >> 1)] =
+                  ev;
+              if (e < 2)
+                sd0 += ev;
+              else
+                sd1 += ev;
+            }
+          }
+        }
+        // mask / denominator of each point (chunked: the lse pass's)
+        float den0 = 1.f, den1 = 1.f;
+        if (chunked) {
+          if (g < nv) den0 = a.lse_den[pg + g];
+          if (g + 8 < nv) den1 = a.lse_den[pg + g + 8];
+        } else {
+          sd0 += __shfl_xor_sync(0xffffffffu, sd0, 1);
+          sd0 += __shfl_xor_sync(0xffffffffu, sd0, 2);
+          sd1 += __shfl_xor_sync(0xffffffffu, sd1, 1);
+          sd1 += __shfl_xor_sync(0xffffffffu, sd1, 2);
+          den0 = sd0;
+          den1 = sd1;
+        }
+        if (t == 0) {
+          s_inv[g] = __fdividef(msk[pl + g], den0);
+          s_inv[g + 8] = __fdividef(msk[pl + g + 8], den1);
+        }
+        __syncwarp();
+        // r of points t + 4 q (B's rows) and component 8 cb + g (its
+        // column), formed where a product needs it
+        const float* rt = s_rt + g * kSmRt + t;
+        const float* iv = s_inv + t;
+        if (a.r_out != nullptr) {
+#pragma unroll
+          for (int cb = 0; cb < CBM; ++cb)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const int k = 8 * (cb0 + cb) + g, p = t + 4 * q;
+              if (cb < ncp && p < nv && k < K)
+                a.r_out[(pg + p) * K + k] =
+                    rt[cb * 8 * kSmRt + 4 * q] * iv[4 * q];
+            }
+        }
+        // the statistics: A = phi^T (features 16 fb + g and + 8 of points
+        // t + 4 q), B = r
+#pragma unroll
+        for (int fb = 0; fb < S::NF; ++fb) {
+          double a2[8];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const double* row = s_phi + sm_row(t + 4 * q, S::XS) + g;
+            a2[2 * q] = row[16 * fb];
+            a2[2 * q + 1] = 16 * fb + 8 < S::F ? row[16 * fb + 8] : 0.0;
+          }
+#pragma unroll
+          for (int cb = 0; cb < CBM; ++cb) {
+            if (cb < ncp) {
+              double rb[4];
+#pragma unroll
+              for (int q = 0; q < 4; ++q)
+                rb[q] = (double)(rt[cb * 8 * kSmRt + 4 * q] * iv[4 * q]);
+              dmma16(acc[cb][fb], a2, rb);
+            }
+          }
+        }
+      }
+    }
+    if (pass < 0) continue;
+
+    // the warps' statistics added in warp order: entry (cb, fb, e, lane)
+    // is feature 16 fb + g + 8 (e >> 1) of component 8 cb + 2 t + (e & 1)
+    __syncthreads();   // every warp is done with the pass's tiles
+    const int per = S::NF * 128;
+#pragma unroll
+    for (int cb = 0; cb < CBM; ++cb)
+      if (cb < ncp)
+#pragma unroll
+        for (int fb = 0; fb < S::NF; ++fb)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            red[(warp * CBM + cb) * per + fb * 128 + e * 32 + lane] =
+                acc[cb][fb][e];
+    __syncthreads();
+    for (int idx = tid; idx < ncp * per; idx += kSmThreads) {
+      const int cb = idx / per, rem = idx % per;
+      double v = red[cb * per + rem];
+      for (int w = 1; w < kSmWarps; ++w) v += red[(w * CBM + cb) * per + rem];
+      red[cb * per + rem] = v;
+    }
+    __syncthreads();
+    // emit the pass's components, centred on the shift in f64, times rep
+    auto Sv = [&](int kl, int i, int j) {   // S_k(i, j), i <= j <= D
+      const int f = i * (D + 1) - i * (i - 1) / 2 + (j - i);
+      const int kk = kl & 7, fr = f & 15;
+      return red[(kl >> 3) * per + (f >> 4) * 128 +
+                 (2 * (fr >> 3) + (kk & 1)) * 32 + 4 * (fr & 7) + (kk >> 1)];
+    };
+    const int rows = K + K * D + K;
+    float* out = a.stats + (size_t)n * rows * D;
+    const int k0 = 8 * cb0, nk = wmin(K, 8 * (cb0 + ncp)) - k0;
+    const int per_k = D + D * D + D;
+    const double rep = (double)a.rep;
+    for (int idx = tid; idx < nk * per_k; idx += kSmThreads) {
+      const int kl = idx / per_k, o = idx % per_k, k = k0 + kl;
+      const float* sk =
+          a.shift != nullptr ? a.shift + ((size_t)n * K + k) * D : nullptr;
+      const double R = Sv(kl, D, D);
+      if (o < D) {
+        const double s = sk != nullptr ? (double)sk[o] : 0.0;
+        out[(size_t)k * D + o] = (float)((Sv(kl, o, D) - R * s) * rep);
+      } else if (o < D + D * D) {
+        const int q = o - D, d = q / D, e = q % D;
+        const int i = wmin(d, e), j = wmax(d, e);
+        const double si = sk != nullptr ? (double)sk[i] : 0.0;
+        const double sj = sk != nullptr ? (double)sk[j] : 0.0;
+        const double val = Sv(kl, i, j) - si * Sv(kl, j, D) -
+                           Sv(kl, i, D) * sj + R * si * sj;
+        out[((size_t)K + (size_t)k * D + d) * D + e] = (float)(val * rep);
+      } else {
+        const int e = o - D - D * D;
+        out[((size_t)K + (size_t)K * D + k) * D + e] =
+            e == 0 ? (float)(R * rep) : 0.f;
+      }
+    }
+  }
+}
+
+template <int D, typename Tin, int CBM>
+cudaError_t launch_smem_inst(const SmArgs& a, const SmPlan& P, int N,
+                             cudaStream_t stream) {
+  auto kern = gmm_estep_smem_kernel<D, Tin, CBM>;
+  if (P.smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, P.smem);
+    if (e != cudaSuccess) return e;
+  }
+  kern<<<N, kSmThreads, P.smem, stream>>>(a, P);
+  return cudaGetLastError();
+}
+
+// bytes of the shared path's device workspace: the lse pass's terms when a
+// node's components take several passes (256-aligned parts), else none
+inline size_t sm_work_bytes(long long N, long long T, const SmPlan& P) {
+  return P.chunked ? wide_align((size_t)N * T * 8) +
+                         wide_align((size_t)N * T * 4)
+                   : 0;
+}
+
+template <int D, typename Tin>
+cudaError_t launch_smem(const void* x, const void* mask,
+                        const void* log_prior, const void* Wn, const void* b,
+                        const void* c, const void* shift, void* r, void* stats,
+                        void* work, int N, int T, int K, int block_t,
+                        float rep, int smem_bytes, cudaStream_t stream) {
+  const SmPlan P = sm_plan(K, D, (int)sizeof(Tin), block_t);
+  if (P.smem != smem_bytes || P.smem > kWideSmem ||
+      (P.chunked && work == nullptr))
+    return cudaErrorInvalidValue;
+  unsigned char* base = static_cast<unsigned char*>(work);
+  SmArgs a{x, mask, static_cast<const float*>(log_prior),
+           static_cast<const float*>(Wn), static_cast<const float*>(b),
+           static_cast<const float*>(c), static_cast<const float*>(shift),
+           static_cast<float*>(r), static_cast<float*>(stats),
+           P.chunked ? reinterpret_cast<double*>(base) : nullptr,
+           P.chunked ? reinterpret_cast<float*>(
+                           base + wide_align((size_t)N * T * 8))
+                     : nullptr,
+           T, K, block_t, rep};
+  if (P.cbm == 1) return launch_smem_inst<D, Tin, 1>(a, P, N, stream);
+  return launch_smem_inst<D, Tin, sm_cbmax(D)>(a, P, N, stream);
+}
+
+
 template <int D, typename Tin>
 cudaError_t launch(int variant, const void* x, const void* mask,
                    const void* log_prior, const void* Wn, const void* b,
                    const void* c, const void* shift, void* r, void* stats,
-                   int N, int T, int K, int block_t, float rep,
+                   void* work, int N, int T, int K, int block_t, float rep,
                    int smem_bytes, int vec, cudaStream_t stream) {
-  const Tin* xi = static_cast<const Tin*>(x);
-  const Tin* mi = static_cast<const Tin*>(mask);
-  const float* lp = static_cast<const float*>(log_prior);
-  const float* w = static_cast<const float*>(Wn);
-  const float* bb = static_cast<const float*>(b);
-  const float* cc = static_cast<const float*>(c);
-  const float* sh = static_cast<const float*>(shift);
-  float* ro = static_cast<float*>(r);
-  float* st = static_cast<float*>(stats);
   if (variant == 0) {
     if constexpr (RegShape<D>::KMAX > 0) {
       if (K > RegShape<D>::KMAX) return cudaErrorInvalidValue;
       gmm_estep_regs_kernel<D, Tin><<<N, kThreads, 0, stream>>>(
-          xi, mi, lp, w, bb, cc, sh, ro, st, T, K, rep, vec);
+          static_cast<const Tin*>(x), static_cast<const Tin*>(mask),
+          static_cast<const float*>(log_prior), static_cast<const float*>(Wn),
+          static_cast<const float*>(b), static_cast<const float*>(c),
+          static_cast<const float*>(shift), static_cast<float*>(r),
+          static_cast<float*>(stats), T, K, rep, vec);
       return cudaGetLastError();
     }
     return cudaErrorInvalidValue;
   }
-  auto kern = gmm_estep_smem_kernel<D, Tin>;
-  if (smem_bytes > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (e != cudaSuccess) return e;
-  }
-  kern<<<N, block_t / kPts, smem_bytes, stream>>>(xi, mi, lp, w, bb, cc, sh,
-                                                  ro, st, T, K, block_t, rep);
-  return cudaGetLastError();
+  return launch_smem<D, Tin>(x, mask, log_prior, Wn, b, c, shift, r, stats,
+                             work, N, T, K, block_t, rep, smem_bytes, stream);
 }
 
 }  // namespace
@@ -1525,7 +1961,9 @@ cudaError_t launch(int variant, const void* x, const void* mask,
 // or bf16 (x_bf16 = 1); every other array is f32; shift and r may be null.
 // variant 0 launches gmm_estep_regs_kernel (K <= gmm_estep_reg_kmax(D);
 // `vec` = 1 allows its vector loads: T % 4 == 0 and x, mask 16-byte
-// aligned), variant 1 gmm_estep_smem_kernel (block_t, smem_bytes),
+// aligned), variant 1 gmm_estep_smem_kernel (block_t points a tile;
+// smem_bytes must be its plan's, gmm_estep_shared_plan; `work` a device
+// workspace of gmm_estep_shared_workspace_bytes when that is not 0),
 // variant 2 the wide path (any K and D; block_t and smem_bytes unused;
 // `work` is a device workspace of gmm_estep_wide_workspace_bytes).  The
 // caller validates shapes, allocates the outputs and passes the stream.
@@ -1547,11 +1985,12 @@ extern "C" int gmm_estep_nodes_launch(
   case DD:                                                                  \
     return x_bf16 ? (int)launch<DD, __nv_bfloat16>(                         \
                         variant, x, mask, log_prior, Wn, b, c, shift, r,    \
-                        stats, N, T, K, block_t, rep, smem_bytes, vec, s)   \
+                        stats, work, N, T, K, block_t, rep, smem_bytes,     \
+                        vec, s)                                             \
                   : (int)launch<DD, float>(variant, x, mask, log_prior, Wn, \
-                                           b, c, shift, r, stats, N, T, K,  \
-                                           block_t, rep, smem_bytes, vec,   \
-                                           s);
+                                           b, c, shift, r, stats, work, N,  \
+                                           T, K, block_t, rep, smem_bytes,  \
+                                           vec, s);
   switch (D) {
     GMM_CASE(1)
     GMM_CASE(2)
@@ -1601,4 +2040,21 @@ extern "C" long long gmm_estep_wide_workspace_bytes(int N, int T, int K,
                                                     int D, int x_bf16) {
   return (long long)wide_work(N, T, K, D, wide_plan(K, D, x_bf16 ? 2 : 4))
       .total;
+}
+
+// The shared path's plan at (K, D, x_bf16, block_t) as 6 ints: component
+// blocks of 8, blocks a warp holds (the instance), 1 when the node takes an
+// lse pass, statistics passes, phi row stride, dynamic shared memory in
+// bytes; the wrapper checks its own plan (shared_plan) against it.
+extern "C" void gmm_estep_shared_plan(int K, int D, int x_bf16, int block_t,
+                                      int* out) {
+  const SmPlan P = sm_plan(K, D, x_bf16 ? 2 : 4, block_t);
+  const int v[6] = {P.ncb, P.cbm, P.chunked, P.npass, P.XS, P.smem};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+}
+
+// Bytes of the shared path's device workspace for one call.
+extern "C" long long gmm_estep_shared_workspace_bytes(int N, int T, int K,
+                                                      int D) {
+  return (long long)sm_work_bytes(N, T, sm_plan(K, D, 4, 128));
 }

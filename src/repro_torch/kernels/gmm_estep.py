@@ -28,9 +28,22 @@ Three kernel paths, chosen by shape alone (`kernel_variant`):
   D = 2, K <= 8 at D = 1, K <= 2 at D = 3, K = 1 at D = 4, 5): one block
   of REG_THREADS per node, statistics in registers, log rho once per point
   and component, vector loads;
-* "shared" for the other shapes with D <= MAX_D whose shared memory fits
-  at the default block_t: one block per node, per-warp statistics slots
-  in shared memory (`block_t` points per tile; `smem_bytes`);
+* "shared" for the other shapes with D <= MAX_D and K <= SHARED_KMAX[D]
+  whose shared memory fits at the default block_t: one block of
+  SHARED_THREADS per node, `block_t` points staged a tile.  Operations
+  bound it, and it runs them on the FP64 tensor cores: each point becomes
+  its features phi = the upper triangle of x' x'^T, x' = (x, 1) ((D+1)(D+2)
+  /2 of them, in a warp's f64 tile in shared memory), each component's
+  terms (with the shift and log_prior) fold once a node into a vector u_k
+  on the same triangle, so log rho = phi . u_k is one m16n8k8 product
+  chain a warp's 16 points by 8 components, formed once; the softmax stays
+  in registers; sum_t r_tk phi(x_t) (R, sum_x and sum_xx at once) is an
+  m16n8k16 product held in each warp's registers across the node's tiles,
+  the warps' sums added in warp order and centred in f64 at emit.  When a
+  node's component blocks of 8 exceed what a warp holds (`shared_plan`'s
+  `chunked`: e.g. K > 32 at D <= 4, K > 16 above), an lse pass first
+  writes each point's largest log rho and softmax denominator to a
+  workspace (`shared_workspace_bytes`) and passes of blocks follow;
 * "wide" for the rest (the paper's D = 34 and D = 52 tables): any K and
   D.  log rho and the statistics run on the FP64 tensor cores (m16n8k8
   and m16n8k16 DMMA): a prep launch folds each component's terms into one
@@ -48,8 +61,8 @@ Contracts, shared by the kernels and the plain version:
 * x streams as f32 or bf16 (one kernel instance each); an f64 x is cast
   to f32, as the TPU kernel does (the engine casts once per session, see
   `core.backends.FusedBackend.stream_data`).  mask has x's dtype.
-  Products and statistics are f32 (the wide path: f64 on the tensor
-  cores, emitted as f32).
+  Products and statistics are f32 on the register path and f64 on the
+  tensor cores on the other two, emitted as f32.
 * `return_r=False` never allocates or writes r.
 * Statistics are BIT-invariant to trailing mask-zero padding of the point
   axis, and two launches on the same inputs are bit-identical (no
@@ -67,15 +80,21 @@ import torch
 
 from repro_torch.core.expfam import ordered_sum
 
-#: points each thread takes per tile on the shared path (kPts in
-#: csrc/gmm_estep.cu)
-POINTS_PER_THREAD = 4
 #: the register and shared paths are instantiated for D = 1..MAX_D (the
 #: wide path takes any D)
 MAX_D = 8
 #: the shared path's tile when the caller does not choose one; the
 #: dispatch rule sizes the shared path's shared memory at it
 DEFAULT_BLOCK_T = 512
+#: shared path: threads per block (one block per node), points a warp takes
+#: at a time, row stride (floats) of a warp's r transpose (kSmThreads,
+#: kSmStep, kSmRt in the source)
+SHARED_THREADS = 256
+SHARED_STEP = 16
+SHARED_RT = 20
+#: block_t is a multiple of this (every warp takes whole steps) and at
+#: most 4 x SHARED_THREADS (each thread stages four mask values a tile)
+SHARED_TILE_STEP = SHARED_THREADS // 32 * SHARED_STEP
 #: wide path: threads per block, points per tile (halved while a tile does
 #: not fit), statistics items a warp holds, k-steps (of 8 coordinates) of
 #: A fragments a warp holds, components whose log rho rows a block holds
@@ -113,19 +132,92 @@ def reg_kmax(D: int) -> int:
     return REG_STATS_BUDGET // stats_per_component(D)
 
 
+def shared_cbmax(D: int) -> int:
+    """Component blocks of 8 whose statistics a shared-path warp holds in
+    registers (sm_cbmax in the source); the kernel's instances take 1 or
+    this many."""
+    return 4 if D <= 4 else 2
+
+
+def _first_layout_kmax(D: int) -> int:
+    """The largest K whose terms and per-warp statistics slots (four warps
+    at block_t = 512, 4 (2 + 2 D + D^2 + 4 (1 + D + D(D+1)/2)) bytes a
+    component) filled a block in the shared path's first layout: the K
+    range the shared path has taken since, kept so that the dispatch does
+    not move with the kernel's layout."""
+    return MAX_SMEM_BYTES // (4 * (2 + 2 * D + D * D
+                                   + 4 * stats_per_component(D)))
+
+
+#: the shared path's largest K at D = 1..MAX_D (before its shared-memory
+#: check): 3418, 1709, 1019, 675, 480, 358, 278, 221
+SHARED_KMAX = {D: _first_layout_kmax(D) for D in range(1, 9)}
+
+
+def shared_plan(K: int, D: int, esize: int = 4,
+                block_t: int = DEFAULT_BLOCK_T) -> dict:
+    """The shared path's plan at (K, D), x elements of `esize` bytes and
+    `block_t` points a tile, as `sm_plan` in the source.  F = (D+1)(D+2)/2
+    features; NS k-steps of 8 (log rho), NF row blocks of 16 (the
+    statistics), XS = 16 NF + 4 doubles a row of a warp's phi tile (row p
+    at p XS + p // 4: conflict-free for its stores and both products'
+    loads).  ncb component blocks of 8; cbm of them a warp (the kernel
+    instance: 1, or `shared_cbmax(D)` when ncb > 1); chunked = 1 when
+    ncb > cbm (an lse pass, then npass statistics passes), else one fused
+    pass.  smem: the u
+    fragments (ncb NS 512 bytes), then the warps' phi tiles, r transposes
+    (with each point's mask / denominator) and, when cbm > 1, log rho of
+    their blocks, two raw x tiles and two mask tiles, or the warps'
+    statistics at the end of a pass, whichever is larger."""
+    F = (D + 1) * (D + 2) // 2
+    NS, NF = -(-F // 8), -(-F // 16)
+    XS = 16 * NF + 4
+    ncb = -(-K // 8)
+    cbm = 1 if ncb <= 1 else shared_cbmax(D)
+    warps = SHARED_THREADS // 32
+    raw = (block_t * D * esize + 15) // 16 * 16 + 16
+    u = ncb * NS * 512
+    area = (warps * (SHARED_STEP * XS + 4) * 8
+            + warps * (cbm * 8 * SHARED_RT + SHARED_STEP) * 4
+            + (warps * cbm * 128 * 8 if cbm > 1 else 0)
+            + 2 * raw + 2 * block_t * 4)
+    red = warps * cbm * NF * 128 * 8
+    return {"F": F, "NS": NS, "NF": NF, "XS": XS, "ncb": ncb, "cbm": cbm,
+            "chunked": int(ncb > cbm), "npass": -(-ncb // cbm), "raw": raw,
+            "smem": u + max(area, red)}
+
+
+def smem_bytes(K: int, D: int, block_t: int, esize: int = 4) -> int:
+    """Dynamic shared memory of one shared-path block (`shared_plan`).
+    (The register path's shared memory is static, < 1 KB.)"""
+    return shared_plan(K, D, esize, block_t)["smem"]
+
+
+def shared_workspace_bytes(N: int, T: int, K: int, D: int) -> int:
+    """The shared path's device scratch for one call: when a node's
+    components take several passes (`shared_plan`'s chunked), each point's
+    largest log rho (f64) and softmax denominator (f32), each part
+    256-byte aligned; else 0."""
+    if not shared_plan(K, D)["chunked"]:
+        return 0
+    al = lambda b: -(-b // 256) * 256  # noqa: E731
+    return al(N * T * 8) + al(N * T * 4)
+
+
 def kernel_variant(K: int, D: int) -> str:
     """Which CUDA kernel a (K, D) shape launches: "registers" when its
     K (1 + D + D(D+1)/2) statistics fit REG_STATS_BUDGET floats, else
-    "shared" when D <= MAX_D and the shared path's memory at
-    DEFAULT_BLOCK_T fits a block, else "wide".  A function of the shape
-    alone, never of T or N.
+    "shared" when D <= MAX_D, K <= SHARED_KMAX[D] and the shared path's
+    memory at DEFAULT_BLOCK_T (f32 x) fits a block, else "wide".  A
+    function of the shape alone, never of T or N.
 
     >>> kernel_variant(3, 2), kernel_variant(5, 2), kernel_variant(2, 34)
     ('registers', 'shared', 'wide')
     """
     if K <= reg_kmax(D):
         return "registers"
-    if D <= MAX_D and smem_bytes(K, D, DEFAULT_BLOCK_T) <= MAX_SMEM_BYTES:
+    if (D <= MAX_D and K <= SHARED_KMAX[D]
+            and smem_bytes(K, D, DEFAULT_BLOCK_T) <= MAX_SMEM_BYTES):
         return "shared"
     return "wide"
 
@@ -210,6 +302,12 @@ def vector_loads(x: torch.Tensor, mask: torch.Tensor) -> bool:
             and mask.data_ptr() % 16 == 0)
 
 
+#: (K, D, block_t) shapes at which `_lib` holds the wrapper's shared plan to
+#: the source's: one block, several blocks a warp, the lse pass and
+#: statistics passes, every D, the largest tile
+SHARED_PLAN_CHECKS = ((5, 2, 512), (8, 2, 512), (32, 3, 512), (4, 8, 512),
+                      (221, 8, 512), (17, 6, 128), (1019, 3, 1024),
+                      (9, 1, 256), (40, 4, 384), (30, 5, 512), (12, 7, 640))
 #: (K, D) shapes at which `_lib` holds the wrapper's wide plan to the
 #: source's: single-block nodes, split nodes, a split component, a tile
 #: halved, x read from global memory
@@ -261,16 +359,26 @@ def _bind(lib):
                 raise RuntimeError(f"csrc/gmm_estep.cu's wide workspace at "
                                    f"K={K}, D={D} differs from the "
                                    f"wrapper's")
+    splan = lib.gmm_estep_shared_plan
+    splan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    splan.restype = None
+    swork = lib.gmm_estep_shared_workspace_bytes
+    swork.argtypes, swork.restype = [ctypes.c_int] * 4, ctypes.c_longlong
+    keys = ("ncb", "cbm", "chunked", "npass", "XS", "smem")
+    for K, D, block_t in SHARED_PLAN_CHECKS:
+        for esize in (4, 2):
+            out = (ctypes.c_int * 6)()
+            splan(K, D, int(esize == 2), block_t, ctypes.addressof(out))
+            want = shared_plan(K, D, esize, block_t)
+            if list(out) != [want[k] for k in keys]:
+                raise RuntimeError(f"csrc/gmm_estep.cu's shared plan at K={K},"
+                                   f" D={D}, esize={esize}, block_t={block_t}"
+                                   f" is {list(out)}; the wrapper's is "
+                                   f"{[want[k] for k in keys]}")
+        if swork(3, 77, K, D) != shared_workspace_bytes(3, 77, K, D):
+            raise RuntimeError(f"csrc/gmm_estep.cu's shared workspace at "
+                               f"K={K}, D={D} differs from the wrapper's")
     return fn
-
-
-def smem_bytes(K: int, D: int, block_t: int) -> int:
-    """Dynamic shared memory of one shared-path block: the node's terms
-    and shift plus one statistics slot of K * (1 + D + D(D+1)/2) floats
-    per warp.  (The register path's shared memory is static, < 1 KB.)"""
-    n_warps = block_t // POINTS_PER_THREAD // 32
-    return 4 * (2 * K + 2 * K * D + K * D * D
-                + n_warps * K * stats_per_component(D))
 
 
 def _check(x, mask, log_prior, Wn, b, c, shift, block_t, replication):
@@ -317,16 +425,16 @@ def _check(x, mask, log_prior, Wn, b, c, shift, block_t, replication):
             raise ValueError(f"{name} must be contiguous")
     if D < 1:
         raise ValueError(f"the kernels take D >= 1: D={D}")
-    step = POINTS_PER_THREAD * 32
-    if block_t % step or not step <= block_t <= 256 * POINTS_PER_THREAD:
+    step = SHARED_TILE_STEP
+    if block_t % step or not step <= block_t <= 4 * SHARED_THREADS:
         raise ValueError(f"block_t must be a multiple of {step} in "
-                         f"[{step}, {256 * POINTS_PER_THREAD}]: {block_t}")
+                         f"[{step}, {4 * SHARED_THREADS}]: {block_t}")
     variant = kernel_variant(K, D)
-    if variant == "shared" and smem_bytes(K, D, block_t) > MAX_SMEM_BYTES:
+    need = smem_bytes(K, D, block_t, x.element_size())
+    if variant == "shared" and need > MAX_SMEM_BYTES:
         raise ValueError(
-            f"K={K}, D={D}, block_t={block_t} needs "
-            f"{smem_bytes(K, D, block_t)} B of shared memory; a Hopper "
-            f"block has {MAX_SMEM_BYTES}")
+            f"K={K}, D={D}, block_t={block_t} needs {need} B of shared "
+            f"memory; a Hopper block has {MAX_SMEM_BYTES}")
     return x, mask
 
 
@@ -344,10 +452,14 @@ def _launch(x, mask, log_prior, Wn, b, c, shift, replication, block_t,
                         device=x.device)
     variant = kernel_variant(K, D)
     work = None
-    if variant == "wide" and N > 0:
-        work = torch.empty(wide_workspace_bytes(N, T, K, D,
-                                                x.element_size()),
-                           dtype=torch.uint8, device=x.device)
+    if N > 0 and variant == "wide":
+        nbytes = wide_workspace_bytes(N, T, K, D, x.element_size())
+    elif N > 0 and variant == "shared":
+        nbytes = shared_workspace_bytes(N, T, K, D)
+    else:
+        nbytes = 0
+    if nbytes:
+        work = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
     if N > 0:
         err = _lib()(x.data_ptr(), mask.data_ptr(), log_prior.data_ptr(),
                      Wn.data_ptr(), b.data_ptr(), c.data_ptr(),
@@ -355,7 +467,8 @@ def _launch(x, mask, log_prior, Wn, b, c, shift, replication, block_t,
                      r.data_ptr() if return_r else None, stats.data_ptr(),
                      N, T, K, D, block_t, float(replication),
                      int(x.dtype == torch.bfloat16),
-                     smem_bytes(K, D, block_t),
+                     (smem_bytes(K, D, block_t, x.element_size())
+                      if variant == "shared" else 0),
                      _VARIANT_CODE[variant], int(vector_loads(x, mask)),
                      torch.cuda.current_stream(x.device).cuda_stream,
                      None if work is None else work.data_ptr())
@@ -383,7 +496,8 @@ def gmm_estep_nodes(x, mask, log_prior, Wn, b, c, replication=1.0, *,
     centred on `shift`, when given).
 
     CUDA tensors launch one kernel (`kernel_variant` says which; `block_t`
-    is the shared path's tile); CPU tensors run the plain version.
+    is the shared path's tile, points staged at a time); CPU tensors run
+    the plain version.
     """
     x, mask = _check(x, mask, log_prior, Wn, b, c, shift, block_t,
                      replication)

@@ -514,6 +514,13 @@ def test_wide_dispatch_and_limits():
                  (12, 64), (10, 68), (222, 8), (1200, 8)):
         assert tge.kernel_variant(K, D) == "wide", (K, D)
     assert tge.kernel_variant(221, 8) == "shared"
+    # past its K range the shared path's u fragments outgrow a block's
+    # shared memory only at D = 1 (K > 2336, a range it took before)
+    assert [max(K for K in range(1, tge.SHARED_KMAX[D] + 1)
+                if tge.kernel_variant(K, D) == "shared")
+            for D in range(1, 9)] == [2336, 1709, 1019, 675, 480, 358, 278,
+                                      221]
+    assert tge.kernel_variant(2337, 1) == tge.kernel_variant(3418, 1) == "wide"
     for K, D in ((10, 52), (10, 64), (12, 64), (10, 68), (226, 8), (13, 64),
                  (10, 69), (227, 8), (2, 110), (1, 1), (5000, 3), (1, 4000)):
         assert tge.supported(K, D), (K, D)

@@ -116,7 +116,8 @@ def test_schedule_sweep_against_interpret_kernel_and_oracle(T, K, D, block):
     single-node view.  Their (K, D) are the sweep's where the register
     path takes it (100, 3, 2); elsewhere the register path's own at that
     D or width (the sweep's (4, 5), (2, 8), (6, 3) run the shared-memory
-    kernel, the first design's schedule)."""
+    kernel, whose schedule tests/test_torch_gmm_shared_schedule.py
+    renders)."""
     assert ge.kernel_variant(K, D) == "registers"
     a = _args(1, T, K, D)
     got = tuple(g[0] for g in _regs_schedule(*map(torch.from_numpy, a)))
@@ -193,12 +194,13 @@ def test_kernel_variant_by_shape():
 
 
 def test_register_path_constants_mirror_the_source():
-    """REG_STATS_BUDGET, REG_THREADS, REG_GROUP and POINTS_PER_THREAD are
-    the CUDA source's kRegBudget, kThreads, kGroup and kPts."""
+    """REG_STATS_BUDGET, REG_THREADS and REG_GROUP are the CUDA source's
+    kRegBudget, kThreads and kGroup, and SHARED_THREADS (whose warps'
+    16-point steps make the block_t rule) its kSmThreads."""
     src = (Path(ge.__file__).resolve().parent.parent / "csrc"
            / "gmm_estep.cu").read_text()
-    want = {"kRegBudget": ge.REG_STATS_BUDGET, "kThreads": ge.REG_THREADS, "kGroup": ge.REG_GROUP,
-            "kPts": ge.POINTS_PER_THREAD}
+    want = {"kRegBudget": ge.REG_STATS_BUDGET, "kThreads": ge.REG_THREADS,
+            "kGroup": ge.REG_GROUP, "kSmThreads": ge.SHARED_THREADS}
     for name, value in want.items():
         m = re.search(rf"constexpr int {name} = (\d+);", src)
         assert m is not None and int(m.group(1)) == value, name

@@ -88,15 +88,18 @@ def test_kernel_matches_plain(cuda, N, T, K, D, dtype, return_r, centred):
     _check(got, want)
 
 
+# the register path's main shape; the shared path's K=8/D=2, K=32/D=3,
+# K=4/D=8 and K=40/D=3 (an lse pass, then passes of component blocks)
+@pytest.mark.parametrize("K,D", [(3, 2), (8, 2), (32, 3), (4, 8), (40, 3)])
 @pytest.mark.parametrize("centred", [False, True])
-def test_bit_invariance_and_determinism(cuda, centred):
-    x, mask, *terms = _args(16, 1000, 3, 2, cuda, seed=1)
-    shift = torch.full((16, 3, 2), 1.5, device=cuda) if centred else None
+def test_bit_invariance_and_determinism(cuda, centred, K, D):
+    x, mask, *terms = _args(16, 1000, K, D, cuda, seed=1)
+    shift = torch.full((16, K, D), 1.5, device=cuda) if centred else None
     kw = dict(shift=shift, return_r=False)
     base = ops.gmm_estep_nodes(x, mask, *terms, 7.0, **kw)
     again = ops.gmm_estep_nodes(x, mask, *terms, 7.0, **kw)
     for pad in (1, 24, 3000):
-        xp = torch.cat([x, x.new_zeros(16, pad, 2)], 1)
+        xp = torch.cat([x, x.new_zeros(16, pad, D)], 1)
         mp = torch.cat([mask, mask.new_zeros(16, pad)], 1)
         got = ops.gmm_estep_nodes(xp, mp, *terms, 7.0, **kw)
         for g, w in zip(got[1:], base[1:]):
@@ -105,11 +108,14 @@ def test_bit_invariance_and_determinism(cuda, centred):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("K,D", [(3, 2), (8, 2), (32, 3), (4, 8)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_vector_and_scalar_loads_agree_bitwise(cuda, dtype):
-    """x and mask starting off a 16-byte boundary take the scalar loads:
-    the same values, so the same bits as the vector loads."""
-    x, mask, *terms = _args(8, 1024, 3, 2, cuda, seed=5, dtype=dtype)
+def test_vector_and_scalar_loads_agree_bitwise(cuda, dtype, K, D):
+    """x and mask starting off a 16-byte boundary take the scalar loads
+    (the register path) or stage the head and tail of each tile's copy
+    through registers (the shared path): the same values, so the same
+    bits as the aligned loads."""
+    x, mask, *terms = _args(8, 1024, K, D, cuda, seed=5, dtype=dtype)
     xs = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)[1:]
     ms = torch.empty(mask.numel() + 1, dtype=dtype, device=cuda)[1:]
     xs, ms = xs.view(x.shape), ms.view(mask.shape)
