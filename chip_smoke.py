@@ -76,6 +76,31 @@ never JAX or the JAX package, and prints one JSON line per phase:
    x 4096, D=6, Q=2) through dSVB and dVB-ADMM: ms and device kernels per
    iteration, the samplers' host seconds, backend="fused" warning and
    equal to the reference backend (the one fallback);
+6i. sparse_main_path — the paper's experiment at N=100,000 sensors x 4096
+   points (K=3, D=2, f32 data, f64 iterates; the host data made by a
+   child process while the earlier phases run) over
+   `random_geometric_edges(100000)` (its build seconds, under 30 s):
+   sparse dSVB, nsg-dVB and adaptive dVB-ADMM through algorithms.run_*,
+   RingDiffusion over the ring's edge list with link_drop=0.2,
+   PairwiseGossip (p=0.3) and HierarchicalFusion, 20 fused iterations
+   each: ms per iteration, one gmm_estep launch an iteration, the final
+   KL, device kernels per iteration, peak memory beside the data's bytes
+   and the 80 GB a dense f64 matrix would need, and every operator's
+   shapes over one iteration with no tensor of two dimensions >= N;
+6j. sparse_vs_dense_card — at 10,000 x 4096: one combine sparse against
+   dense (Diffusion, with link drops, the ring, ADMM's neighbour sum) at
+   1e-12 relative; 20 sparse dSVB and adaptive ADMM iterations fused
+   against reference at rtol/atol 1e-4; the combines launched twice
+   bit-equal; a sparse session on the CPU and the card (1000 nodes)
+   within 1e-12 after one iteration, the same coins;
+6k. session_checkpoint — save at t=5, restore, continue 5: bit-equal to
+   the uninterrupted card run for sparse diffusion with link drops,
+   gossip, the hierarchy, adaptive ADMM with drops and a streaming SVRG
+   session; a card checkpoint continued on the CPU within 1e-9; the
+   checkpoints under build/chip_smoke_ckpt/ and `latest_step`;
+6l. topology_scale — repro_torch.experiments.topology_scale --full (N =
+   50, 1000, 10000 at 20 points) on the card, each row beside
+   BENCH_engine.json's (JAX on a CPU: the KL strings are the comparison);
 7. lm_kernel_vs_plain — flash_attention and ssd_scan against their plain
    versions (and flash against scaled_dot_product_attention) at the
    tests/test_kernels.py shapes, a ragged S = 1000, the causality case and
@@ -112,6 +137,7 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.checkpoint import ckpt  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.configs.gmm_sensor import GMMSensorConfig  # noqa: E402
 from repro_torch.core import algorithms, expfam, gmm, network  # noqa: E402
@@ -123,6 +149,7 @@ from repro_torch.core.model import GMMModel  # noqa: E402
 from repro_torch.data import stream as stream_lib  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.experiments import paper_figures, streaming  # noqa: E402
+from repro_torch.experiments import topology_scale  # noqa: E402
 from repro_torch.kernels import build, gmm_estep, ops  # noqa: E402
 from repro_torch.kernels import flash_attention, ssd_scan  # noqa: E402
 from repro_torch.models import hmm, mamba2, ppca  # noqa: E402
@@ -1500,6 +1527,458 @@ def phase_model_zoo(dev):
 
 
 # ---------------------------------------------------------------------------
+# 6i-6l. sparse topologies at 100,000 sensors; sessions and checkpoints
+# ---------------------------------------------------------------------------
+# The sparse main path: the paper's experiment at N = 100,000 sensors x
+# 4096 points, the first power of ten where the dense f64 mixing matrix
+# (80 GB) does not fit the card; the edge lists are O(E + N)
+SPARSE_N, SPARSE_ITERS = 100_000, 20
+SPARSE_CASES = ("dsvb", "nsg_dvb", "dvb_admm_adaptive", "ring_link_drop",
+                "gossip", "hierarchical")
+GOSSIP_P, GOSSIP_SEED = 0.3, 5
+SPARSE_GRAPH_MAX_S = 30.0
+# sparse against dense where the dense oracle still fits (800 MB)
+SPARSE_VS_DENSE_N, SPARSE_VS_DENSE_ITERS = 10_000, 20
+SPARSE_CPU_N, SPARSE_CPU_T = 1000, 20
+# the checkpoint round trips: save at t = a, restore, continue b
+CKPT_N, CKPT_T, CKPT_A, CKPT_B, CKPT_BATCH = 1000, 256, 5, 5, 64
+CKPT_DIR = os.path.join(HERE, "build", "chip_smoke_ckpt")
+# (nodes, points a node) of the instances made in the data process
+HOST_DATA = ((SPARSE_N, N_PER_NODE), (SPARSE_VS_DENSE_N, N_PER_NODE))
+
+
+def _emit_data(specs) -> None:
+    """The data process (`chip_smoke.py --emit-data NxT ...`): each
+    `paper_synthetic(N, T, seed=SEED)` instance in turn, written raw to
+    stdout as x (f32), mask (f32), labels (int8)."""
+    out = sys.stdout.buffer
+    for spec in specs:
+        n, t = (int(v) for v in spec.split("x"))
+        data = synthetic.paper_synthetic(n_nodes=n, n_per_node=t, seed=SEED,
+                                         dtype=np.float32)
+        for a in (data.x, data.mask, data.labels.to(torch.int8)):
+            view = memoryview(a.numpy()).cast("B")
+            pos = 0
+            while pos < len(view):      # one write(2) moves at most 2 GiB
+                pos += out.write(view[pos:pos + (1 << 28)])
+        out.flush()
+
+
+class HostData:
+    """The host data of the sparse phases (`paper_synthetic` at 100,000 x
+    4096 takes ~1 min of numpy on one core) made by a child process
+    while the earlier phases run, read back over a pipe when needed."""
+
+    def __init__(self, specs):
+        self.specs = list(specs)
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--emit-data",
+             *(f"{n}x{t}" for n, t in self.specs)],
+            stdout=subprocess.PIPE, cwd=HERE)
+
+    def _fill(self, t: torch.Tensor):
+        view = memoryview(t.numpy()).cast("B")
+        got = 0
+        while got < len(view):
+            n = self.proc.stdout.readinto(view[got:])
+            if not n:
+                raise RuntimeError(f"the data process ended early (rc "
+                                   f"{self.proc.poll()})")
+            got += n
+
+    def read(self, n: int, t: int):
+        """The next instance: it must be (n, t) in the order given."""
+        if self.specs.pop(0) != (n, t):
+            raise RuntimeError(f"data process order: ({n}, {t}) asked")
+        t0 = time.perf_counter()
+        x = torch.empty((n, t, 2), dtype=torch.float32)
+        mask = torch.empty((n, t), dtype=torch.float32)
+        labels = torch.empty((n, t), dtype=torch.int8)
+        for a in (x, mask, labels):
+            self._fill(a)
+        return synthetic.SensorData(x, mask, labels), \
+            time.perf_counter() - t0
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+        self.proc.stdout.close()
+
+
+def _ref_posterior(x, mask, labels, prior, K, chunk=2048):
+    """The Eq. 46 reference (the true-label posterior, as `_instance`),
+    accumulated a chunk of nodes at a time."""
+    parts = []
+    for lo in range(0, x.shape[0], chunk):
+        r = torch.nn.functional.one_hot(labels[lo:lo + chunk].long(), K)
+        r = r.double() * mask[lo:lo + chunk].double()[..., None]
+        parts.append(gmm.sufficient_stats(x[lo:lo + chunk].double(), r, 1.0))
+    st = [torch.cat(p) for p in zip(*parts)]
+    return gmm.posterior_from_stats(
+        gmm.SuffStats(*(expfam.ordered_sum(a) for a in st)), prior)
+
+
+def _sparse_instance(data, dev):
+    """(cfg, x, mask, prior, ref stack, init_q) on `dev` from host data:
+    f32 data, f64 prior, iterates and metric (as `_instance`)."""
+    cfg = GMMSensorConfig()
+    prior = expfam.noninformative_prior(
+        cfg.K, cfg.D, alpha0=cfg.alpha0, beta0=cfg.beta0,
+        w0_scale=cfg.w0_scale, dtype=torch.float64, device=dev)
+    x, mask = data.x.to(dev), data.mask.to(dev)
+    ref = refperm.permuted_refs(_ref_posterior(
+        x, mask, data.labels.to(dev), prior, cfg.K))
+    u = np.random.default_rng(SEED).uniform(size=(cfg.K, cfg.D))
+    lo, hi = x.reshape(-1, cfg.D).amin(0), x.reshape(-1, cfg.D).amax(0)
+    init_q = prior._replace(m=(lo + (hi - lo) * torch.tensor(
+        u, dtype=torch.float32, device=dev)).double())
+    return cfg, x, mask, prior, ref, init_q
+
+
+def _sparse_topology(name, cfg, g, n):
+    """(topology, schedule) of a sparse case."""
+    sched = vb_engine.Schedule(tau=cfg.tau, d0=cfg.d0)
+    if name == "dsvb":
+        return vb_engine.Diffusion(
+            network.sparse_nearest_neighbor_weights(g)), sched
+    if name == "nsg_dvb":
+        return vb_engine.Diffusion(
+            network.sparse_nearest_neighbor_weights(g)), vb_engine.ONE_SHOT
+    if name == "dsvb_link_drop":
+        return vb_engine.Diffusion(
+            network.sparse_nearest_neighbor_weights(g), link_drop=0.2,
+            link_seed=SEED), sched
+    if name == "dvb_admm_adaptive":
+        return vb_engine.ADMMConsensus(g, rho=cfg.rho, xi=cfg.xi,
+                                       adaptive_rho=True), \
+            vb_engine.Schedule()
+    if name == "admm_adaptive_per_block_link_drop":
+        return vb_engine.ADMMConsensus(
+            g, rho=cfg.rho, xi=cfg.xi, adaptive_rho=True, per_block=True,
+            link_drop=0.2, link_seed=SEED), vb_engine.Schedule()
+    if name == "ring_link_drop":
+        return vb_engine.RingDiffusion(graph=network.SparseGraph.ring(n),
+                                       link_drop=0.2, link_seed=SEED), sched
+    if name == "gossip":
+        return vb_engine.PairwiseGossip(g, p_activate=GOSSIP_P,
+                                        seed=GOSSIP_SEED), sched
+    if name == "hierarchical":
+        gw, rg = network.two_level_partition(n, n // 16, n // 128)
+        return vb_engine.HierarchicalFusion(gw, rg), sched
+    raise KeyError(name)
+
+
+def _sparse_run(name, inst, g, backend, n_iters, dev):
+    """A sparse case through the entry point a user calls: the
+    algorithms.run_* wrapper for the paper's estimators, run_vb for the
+    scenario topologies."""
+    cfg, x, mask, prior, ref, init_q = inst
+    kw = dict(n_iters=n_iters, K=cfg.K, D=cfg.D, ref_phi=ref, init_q=init_q,
+              backend=backend, device=dev)
+    if name in ("dsvb", "nsg_dvb"):
+        sw = network.sparse_nearest_neighbor_weights(g)
+        if name == "dsvb":
+            return algorithms.run_dsvb(x, mask, sw, prior, tau=cfg.tau,
+                                       d0=cfg.d0, **kw)
+        return algorithms.run_nsg_dvb(x, mask, sw, prior, **kw)
+    if name == "dvb_admm_adaptive":
+        return algorithms.run_dvb_admm(x, mask, g, prior, rho=cfg.rho,
+                                       xi=cfg.xi, adaptive_rho=True, **kw)
+    topo, sched = _sparse_topology(name, cfg, g, x.shape[0])
+    mdl = GMMModel(prior, cfg.K, cfg.D, backend=backend, device=dev)
+    phi0 = expfam.pack_natural(init_q).expand(x.shape[0], mdl.flat_dim)
+    return vb_engine.run_vb(mdl, (x, mask), topo, n_iters=n_iters,
+                            schedule=sched, init_phi=phi0, ref_phi=ref,
+                            device=dev)
+
+
+def _sparse_state(name, inst, g, backend, dev, minibatch=None):
+    cfg, x, mask, prior, ref, init_q = inst
+    topo, sched = _sparse_topology(name, cfg, g, x.shape[0])
+    mdl = GMMModel(prior, cfg.K, cfg.D, backend=backend, device=dev)
+    phi0 = expfam.pack_natural(init_q).expand(x.shape[0], mdl.flat_dim)
+    return vb_engine.vb_init(mdl, (x, mask), topo, schedule=sched,
+                             init_phi=phi0, ref_phi=ref, minibatch=minibatch,
+                             device=dev)
+
+
+def phase_sparse_main_path(host, dev) -> dict:
+    """Six sparse runs at 100,000 sensors x 4096 points, fused backend,
+    SPARSE_ITERS iterations each."""
+    t0 = time.perf_counter()
+    g, _pos = network.random_geometric_edges(SPARSE_N, seed=SEED)
+    graph_s = time.perf_counter() - t0
+    data, wait_s = host.read(SPARSE_N, N_PER_NODE)
+    t0 = time.perf_counter()
+    inst = _sparse_instance(data, dev)
+    del data
+    torch.cuda.synchronize()
+    data_bytes = inst[1].numel() * 4 + inst[2].numel() * 4
+    emit("sparse_main_path_setup", nodes=SPARSE_N,
+         points_per_node=N_PER_NODE, links=g.n_undirected,
+         directed_edges=2 * g.n_undirected,
+         mean_degree=2 * g.n_undirected / SPARSE_N,
+         graph_build_seconds=graph_s, data_read_seconds=wait_s,
+         instance_seconds=time.perf_counter() - t0, data_bytes=data_bytes,
+         dense_f64_matrix_bytes=8 * SPARSE_N * SPARSE_N)
+    if graph_s >= SPARSE_GRAPH_MAX_S:
+        raise AssertionError(f"random_geometric_edges({SPARSE_N}) took "
+                             f"{graph_s:.1f} s")
+    gd = g.to(dev)
+    for name in SPARSE_CASES:                       # warm-up, outside
+        _sparse_run(name, inst, gd, "fused", 2, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    zero_launches()                                 # this path's window
+    for name in SPARSE_CASES:
+        before = ops.gmm_estep_nodes.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run = _sparse_run(name, inst, gd, "fused", SPARSE_ITERS, dev)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / SPARSE_ITERS
+        launched = ops.gmm_estep_nodes.launches - before
+        out[name] = {"ms_per_iter": ms, "launches": launched,
+                     "kl_first": float(run.kl_mean[0]),
+                     "kl_last": float(run.kl_mean[-1]),
+                     "finite": bool(torch.isfinite(run.phi).all()
+                                    and torch.isfinite(run.kl_mean).all())}
+        if name == "dvb_admm_adaptive":
+            out[name]["diag_last"] = _last_diag(run)
+        del run
+        if launched != SPARSE_ITERS or not out[name]["finite"]:
+            raise AssertionError(f"sparse {name}: {out[name]}")
+    launches = read_launches()                      # read just after
+    peak = torch.cuda.max_memory_allocated()
+    # device kernels an iteration (two profiled iterations a case) and
+    # every operator's shapes over one iteration (no (N, N) tensor)
+    for name in SPARSE_CASES:
+        state = _sparse_state(name, inst, gd, "fused", dev)
+        prof = profile_window(lambda: vb_engine.vb_run(state, 2))
+        ops_seen = topology_scale.op_shapes(lambda: vb_engine.vb_step(state))
+        square = topology_scale.square_ops(ops_seen, SPARSE_N)
+        out[name].update(
+            kernels_per_iter=prof["kernels_launched"] / 2,
+            device_busy_ms_per_iter=prof["device_busy_ms"] / 2,
+            profiled_wall_ms_per_iter=prof["wall_ms"] / 2,
+            device_idle_share=prof["device_idle_share"],
+            top_kernels=prof["top"][:4], operators_recorded=len(ops_seen),
+            square_tensor_ops=len(square))
+        emit("sparse_main_path", case=name, nodes=SPARSE_N,
+             points_per_node=N_PER_NODE, n_iters=SPARSE_ITERS,
+             backend="fused", **out[name])
+        if square or not ops_seen:
+            raise AssertionError(f"sparse {name}: (N, N)-sized operators "
+                                 f"{square[:3]}")
+    emit("sparse_main_path_memory", max_memory_allocated=peak,
+         data_bytes=data_bytes, peak_over_data=peak / data_bytes,
+         dense_f64_matrix_bytes=8 * SPARSE_N * SPARSE_N,
+         launches=launches)
+    return {"launches": launches["gmm_estep_nodes"]}
+
+
+def _rel(a, b) -> float:
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def phase_sparse_vs_dense_card(host, dev) -> None:
+    """At 10,000 x 4096, where the dense oracle still fits: one combine
+    sparse against dense (<= 1e-12 relative), fused against reference
+    over 20 sparse iterations (1e-4), the combine twice bit-equal, and a
+    sparse session on the CPU against the card (<= 1e-12 relative after
+    one iteration, the same coins)."""
+    n = SPARSE_VS_DENSE_N
+    g, _ = network.random_geometric_edges(n, seed=SEED)
+    gd = g.to(dev)
+    A = torch.from_numpy(g.to_dense()).to(dev)
+    W = network.nearest_neighbor_weights(A)
+    sw = network.sparse_nearest_neighbor_weights(g)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    v = torch.rand((n, expfam.flat_dim(3, 2)), generator=gen,
+                   dtype=torch.float64, device=dev) + 1.0
+    keep = network.sparse_link_keep(network.link_generator(SEED, 3, dev),
+                                    g.n_undirected, 0.2, torch.float64)
+    dense_keep = torch.zeros_like(A)
+    dense_keep[gd.senders, gd.receivers] = keep[gd.edge_id]
+    rel = {
+        "diffusion": _rel(vb_engine.Diffusion(sw).to(dev).combine(v),
+                          vb_engine.Diffusion(W).combine(v)),
+        "diffusion_link_drop": _rel(
+            vb_engine.Diffusion(sw, link_mask_fn=lambda t: keep
+                                ).to(dev).combine(v, t=3),
+            vb_engine.Diffusion(W, link_mask_fn=lambda t: dense_keep
+                                ).combine(v, t=3)),
+        "ring_link_drop": _rel(
+            vb_engine.RingDiffusion(graph=network.SparseGraph.ring(n),
+                                    link_drop=0.2).to(dev).combine(v, t=3),
+            vb_engine.RingDiffusion(link_drop=0.2).combine(v, t=3)),
+    }
+    deg_s, ns_s, _ = vb_engine.ADMMConsensus(gd)._graph_ops(v, 3)
+    deg_d, ns_d, _ = vb_engine.ADMMConsensus(A)._graph_ops(v, 3)
+    rel["admm_neighbour_sum"] = _rel(ns_s(v), ns_d(v))
+    rel["admm_degree"] = _rel(deg_s, deg_d)
+    del A, W, dense_keep
+    # the combines launched twice on the same inputs: bit-equal
+    repeat = {}
+    for name in ("dsvb", "ring_link_drop", "gossip", "hierarchical"):
+        topo, _ = _sparse_topology(name, GMMSensorConfig(), gd, n)
+        topo = topo.to(dev)
+        repeat[name] = torch.equal(topo.combine(v, t=3),
+                                   topo.combine(v, t=3))
+    a, b = (ns_s(v) for _ in range(2))
+    repeat["admm_neighbour_sum"] = torch.equal(a, b)
+    # 20 sparse iterations at 10,000 x 4096: fused against reference
+    data, wait_s = host.read(n, N_PER_NODE)
+    inst = _sparse_instance(data, dev)
+    del data
+    agree = {}
+    for name in ("dsvb", "dvb_admm_adaptive"):
+        runs = {be: _sparse_run(name, inst, gd, be, SPARSE_VS_DENSE_ITERS,
+                                dev) for be in ("fused", "reference")}
+        f, r = runs["fused"].kl_mean, runs["reference"].kl_mean
+        agree[name] = {"max_rel_kl_diff": float(((f - r).abs()
+                                                 / r.abs()).max()),
+                       "kl_last_fused": float(f[-1]),
+                       "kl_last_reference": float(r[-1])}
+        torch.testing.assert_close(f, r, rtol=1e-4, atol=1e-4)
+    del inst
+    # the same sparse session on the CPU and on the card (reference
+    # backend, f64 data): the coins bit-equal, phi after one iteration
+    cpu = torch.device("cpu")
+    gs, _ = network.random_geometric_edges(SPARSE_CPU_N, seed=SEED)
+    small = synthetic.paper_synthetic(n_nodes=SPARSE_CPU_N,
+                                      n_per_node=SPARSE_CPU_T, seed=SEED)
+    coins_equal = all(torch.equal(
+        network.sparse_link_keep(network.link_generator(s, t, cpu),
+                                 gs.n_undirected, p),
+        network.sparse_link_keep(network.link_generator(s, t, dev),
+                                 gs.n_undirected, p).cpu())
+        for s, p in ((SEED, 0.2), (GOSSIP_SEED, 1.0 - GOSSIP_P))
+        for t in range(4))
+    cpu_vs_card = {}
+    for name in ("dsvb", "ring_link_drop", "gossip", "hierarchical",
+                 "dvb_admm_adaptive"):
+        phis = []
+        for d in (cpu, dev):
+            prior = expfam.noninformative_prior(3, 2, beta0=0.1,
+                                                w0_scale=10.0, device=d)
+            sm = (GMMSensorConfig(), small.x, small.mask, prior, None, prior)
+            st = _sparse_state(name, sm, gs, "reference", d)
+            phis.append(vb_engine.vb_step(st).phi.cpu())
+        cpu_vs_card[name] = _rel(phis[1], phis[0])
+    emit("sparse_vs_dense_card", nodes=n, points_per_node=N_PER_NODE,
+         links=g.n_undirected, combine_rel_diff=rel, repeat_bit_equal=repeat,
+         n_iters=SPARSE_VS_DENSE_ITERS, fused_vs_reference=agree,
+         data_read_seconds=wait_s, cpu_nodes=SPARSE_CPU_N,
+         cpu_points_per_node=SPARSE_CPU_T, coins_bit_equal=coins_equal,
+         cpu_vs_card_rel_diff=cpu_vs_card)
+    if max(rel.values()) > 1e-12 or not all(repeat.values()) \
+            or not coins_equal or max(cpu_vs_card.values()) > 1e-12:
+        raise AssertionError("sparse vs dense / repeat / CPU vs card failed")
+
+
+# (case, `_sparse_topology` name, minibatch) of the round trips
+CKPT_CASES = (
+    ("sparse_diffusion_link_drop", "dsvb_link_drop", None),
+    ("gossip", "gossip", None),
+    ("hierarchical", "hierarchical", None),
+    ("sparse_admm_adaptive_per_block_link_drop",
+     "admm_adaptive_per_block_link_drop", None),
+    ("stream_svrg", "dsvb",
+     stream_lib.MinibatchSpec(CKPT_BATCH, SEED, "svrg")))
+
+
+def _states_bit_equal(a, b) -> bool:
+    fa, fb = ckpt._flatten(a), ckpt._flatten(b)
+    return fa.keys() == fb.keys() and all(
+        torch.equal(fa[k], fb[k]) if isinstance(fa[k], torch.Tensor)
+        else fa[k] == fb[k] for k in fa)
+
+
+def phase_session_checkpoint(dev) -> None:
+    """Save at t = CKPT_A, restore, continue CKPT_B: bit-equal to the
+    uninterrupted run on the card (fused backend) for five sessions; a
+    card checkpoint (reference backend) restored on the CPU and continued
+    there within 1e-9 of the card's uninterrupted run, the same coins;
+    `latest_step` finds the newest file."""
+    import shutil
+    cpu = torch.device("cpu")
+    data = synthetic.paper_synthetic(n_nodes=CKPT_N, n_per_node=CKPT_T,
+                                     seed=SEED)
+    g, _ = network.random_geometric_edges(CKPT_N, seed=SEED)
+    insts = {d: _sparse_instance(data, d) for d in (dev, cpu)}
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    out = {}
+    for case, topo_name, mb in CKPT_CASES:
+        folder = os.path.join(CKPT_DIR, case)
+        res = {}
+        make = lambda be, d: _sparse_state(topo_name, insts[d], g, be, d, mb)
+        whole, _ = vb_engine.vb_run(make("fused", dev), CKPT_A + CKPT_B)
+        part, _ = vb_engine.vb_run(make("fused", dev), CKPT_A)
+        path = ckpt.save(folder, part, step=CKPT_A)
+        resumed = ckpt.restore(folder, make("fused", dev), step=CKPT_A)
+        end, _ = vb_engine.vb_run(resumed, CKPT_B)
+        ckpt.save(folder, end, step=CKPT_A + CKPT_B)
+        res["card_bit_equal"] = (_states_bit_equal(resumed, part)
+                                 and _states_bit_equal(end, whole))
+        res["latest_step"] = ckpt.latest_step(folder)
+        res["file_bytes"] = os.path.getsize(path)
+        # the reference backend's card checkpoint continued on the CPU
+        whole_r, _ = vb_engine.vb_run(make("reference", dev),
+                                      CKPT_A + CKPT_B)
+        part_r, _ = vb_engine.vb_run(make("reference", dev), CKPT_A)
+        path_r = ckpt.save(os.path.join(folder, "reference.npz"), part_r)
+        on_cpu = ckpt.restore(path_r, make("reference", cpu))
+        end_cpu, _ = vb_engine.vb_run(on_cpu, CKPT_B)
+        res["cpu_rel_diff"] = _rel(end_cpu.phi, whole_r.phi.cpu())
+        out[case] = res
+        if not res["card_bit_equal"] or res["latest_step"] != CKPT_A + CKPT_B \
+                or not res["cpu_rel_diff"] <= 1e-9:
+            raise AssertionError(f"checkpoint {case}: {res}")
+    coins_equal = all(torch.equal(
+        network.sparse_link_keep(network.link_generator(SEED, t, cpu),
+                                 g.n_undirected, 0.2),
+        network.sparse_link_keep(network.link_generator(SEED, t, dev),
+                                 g.n_undirected, 0.2).cpu())
+        for t in range(CKPT_A, CKPT_A + CKPT_B))
+    emit("session_checkpoint", nodes=CKPT_N, points_per_node=CKPT_T,
+         saved_at=CKPT_A, continued=CKPT_B, cases=out,
+         coins_bit_equal=coins_equal)
+    if not coins_equal:
+        raise AssertionError("CPU and card link coins differ")
+
+
+def phase_topology_scale(dev) -> None:
+    """experiments/topology_scale.py --full on the card, each row beside
+    BENCH_engine.json's (JAX on a CPU, 100/40/16 iterations: not a speed
+    comparison; the KL strings are; the gossip coins differ by design)."""
+    with open(os.path.join(HERE, "BENCH_engine.json")) as f:
+        bench = json.load(f)["results"]
+    t0 = time.perf_counter()
+    rows, payload = topology_scale.run(full=True, device=dev)
+    for name, us, derived in rows:
+        key = name.removeprefix("topology_scale_")
+        row = bench.get(name)
+        kl = payload[key]["kl_vs_iters"]
+        at = None
+        if row is not None:
+            n_b = int(re.search(r"n_iters=(\d+)", row["derived"]).group(1))
+            if n_b <= len(kl):
+                at = f"kl0={kl[0]:.1f} kl_final={kl[n_b - 1]:.2f}"
+        emit("topology_scale", name=name, us_per_iter=us, derived=derived,
+             square_tensor_ops=payload[key]["square_ops"],
+             bench_derived=None if row is None else row["derived"],
+             bench_us_per_call=None if row is None else row["us_per_call"],
+             at_bench_iters=at,
+             kl_strings_match_bench=(None if at is None else
+                                     at in row["derived"]))
+    emit("topology_scale_done", rows=len(rows),
+         seconds=time.perf_counter() - t0)
+
+
+# ---------------------------------------------------------------------------
 # 7. the LM kernels against their plain versions
 # ---------------------------------------------------------------------------
 # the LM serving path: 4 requests, 2048-token prompts, 32 greedy tokens
@@ -1928,7 +2407,17 @@ def _time_ssd(dev) -> dict:
 
 
 def main():
+    if sys.argv[1:2] == ["--emit-data"]:          # the data process
+        return _emit_data(sys.argv[2:])
     dev_info = phase_device()
+    host = HostData(HOST_DATA)
+    try:
+        _main(dev_info, host)
+    finally:
+        host.close()
+
+
+def _main(dev_info, host):
     ptxas = phase_build()
     dev = torch.device("cuda")
     t0 = time.perf_counter()
@@ -1948,6 +2437,12 @@ def main():
     phase_stream_main_path(inst, dev)
     del inst, x, mask
     torch.cuda.empty_cache()
+    sparse = phase_sparse_main_path(host, dev)
+    torch.cuda.empty_cache()
+    phase_sparse_vs_dense_card(host, dev)
+    torch.cuda.empty_cache()
+    phase_session_checkpoint(dev)
+    phase_topology_scale(dev)
     wide = phase_gmm_wide_kernel_vs_plain(dev)
     sec5 = phase_paper_sec5(dev)
     phase_stream_cpu_vs_card(dev)
@@ -1969,7 +2464,10 @@ def main():
         "name": "gmm_estep_nodes", "route": "cuda",
         "source": "src/repro_torch/csrc/gmm_estep.cu",
         "replaces": "src/repro/kernels/gmm_estep.py:118",
-        "launches": mp["launches"], "max_abs_err": mp["max_abs_err"],
+        # the main path's launches and the sparse main path's (the
+        # register path runs both)
+        "launches": mp["launches"] + sparse["launches"],
+        "max_abs_err": mp["max_abs_err"],
         "max_err": mp["max_abs_err"], "ms": mp["ms"],
         "plain_ms": mp["plain_ms"], "bound_ms": mp["bound_ms"],
         "bound_by": mp["bound_by"], "library_ms": None}, {

@@ -1,20 +1,31 @@
-"""Carry state across from the JAX reference (read side of its checkpoints).
+"""Checkpoints in the reference's file format: save, restore, resume.
 
-Two kinds of state carry over.  For the VB engine: the prior posterior
-(GMM, HMM, Normal-Gamma), the initial iterate and the session state (phi,
-the absolute t, the ADMM duals, the last `ConsensusDiagnostics` and a
-streaming session's current epoch: its permutations and SVRG anchors).
-For the LM side stack: the model's weights (`lm_params_from_arrays`,
-`load_reference_lm_checkpoint`).  The reference's
-`repro.checkpoint.ckpt.save` writes a compressed .npz whose `__meta__`
-entry is a JSON manifest mapping each pytree key path (`.phi`, `.t`,
-`.carry`, `.stream.<field>`, `.diag.<field>`; `['blocks']['attn']['wq']`
-for an LM's params) to an array name and dtype, with bf16 stored as a
-uint16 view.  This module reads it with numpy alone.
+`save(path, tree, step=None)` / `restore(path, like, step=None)` /
+`latest_step(dir)` are the port of `repro.checkpoint.ckpt`, with its file
+format: a compressed .npz whose `__meta__` entry is a JSON manifest
+mapping each key path to an array name and dtype, bf16 stored as a uint16
+view, step files `ckpt_{step:08d}.npz`, and an atomic write (a temporary
+file renamed over the target, so a crashed save never corrupts the last
+checkpoint).  The key paths are `jax.tree_util.keystr`'s: `.phi`, `.t`,
+`.carry` (an array) or `.carry[i]` (a tuple, e.g. adaptive ADMM's),
+`.stream.<field>`, `.diag.<field>` for a `VBState`; `['blocks'][0]...` for
+an LM's params.  So either package reads the other's files.
+
+What carries over.  For the VB engine: the prior posterior (GMM, HMM,
+Normal-Gamma), the initial iterate and the session state (phi, the
+absolute t, the topology carry, the last `ConsensusDiagnostics` and a
+streaming session's current epoch: its permutations and SVRG anchors;
+`.stream.keys` holds the port's (N,) int64 node keys, and a reference
+file's (N, 2) keys are left for the session's own).  The session itself
+(model, topology, data) is not saved: `restore` loads into the state of
+a `vb_init` of the same configuration.  For the LM side stack: the
+model's weights (`lm_params_from_arrays`, `load_reference_lm_checkpoint`).
+Everything is read and written with numpy alone.
 """
 from __future__ import annotations
 
 import json
+import os
 import re
 
 import numpy as np
@@ -85,26 +96,41 @@ def _load(arr, like: torch.Tensor, key: str) -> torch.Tensor:
 
 
 def _stream_from_arrays(get, like):
-    """`like`'s stream state with the reference's current epoch: its
-    permutations, the epoch and the SVRG anchors.  The reference's keys
-    are not carried: the port draws its own permutations from the next
-    epoch on (or the session's `perm_fn`)."""
+    """`like`'s stream state with the checkpoint's current epoch: its
+    permutations, the epoch and the SVRG anchors.  The port's own (N,)
+    node keys are loaded (they equal the session's: both come from the
+    seed); the reference's (N, 2) keys are not: the port draws its own
+    permutations from the next epoch on (or the session's `perm_fn`)."""
     epoch = np.asarray(get(".stream.epoch"))
     if epoch.shape != ():
         raise ValueError(f".stream.epoch: shape {epoch.shape} != ()")
     perm = _load(get(".stream.perm"), like.perm, ".stream.perm")
+    keys = get(".stream.keys")
+    keys = (_load(keys, like.keys, ".stream.keys")
+            if tuple(np.shape(keys)) == tuple(like.keys.shape) else like.keys)
     anchors = {}
     for f in ("anchor_phi", "anchor_full"):
         if getattr(like, f) is not None:
             anchors[f] = _load(get(f".stream.{f}"), getattr(like, f),
                                f".stream.{f}")
-    return like._replace(perm=perm, epoch=int(epoch), **anchors)
+    return like._replace(keys=keys, perm=perm, epoch=int(epoch), **anchors)
+
+
+def _carry_from_arrays(get, like):
+    """The topology carry by the reference's key paths: `.carry` for an
+    array (plain ADMM's duals), `.carry[i]` for each leaf of a tuple
+    (adaptive ADMM's (duals, rho, stable count, ramp, gate))."""
+    if isinstance(like, torch.Tensor):
+        return _load(get(".carry"), like, ".carry")
+    return type(like)(_load(get(f".carry[{i}]"), leaf, f".carry[{i}]")
+                      for i, leaf in enumerate(like))
 
 
 def state_from_arrays(arrays: dict, like: VBState) -> VBState:
     """`like` (a `vb_init` state of the same configuration) with its
-    arrays replaced by the reference checkpoint's; shapes are checked.
-    A streaming session resumes the reference's epoch mid-way
+    arrays replaced by the checkpoint's (a reference file or the port's
+    own); shapes are checked, each leaf takes `like`'s dtype and device.
+    A streaming session resumes the saved epoch mid-way
     (`_stream_from_arrays`)."""
     def get(key):
         if key not in arrays:
@@ -116,7 +142,7 @@ def state_from_arrays(arrays: dict, like: VBState) -> VBState:
         raise ValueError(f".t: shape {t.shape} != ()")
     carry = like.carry
     if carry is not None:
-        carry = _load(get(".carry"), carry, ".carry")
+        carry = _carry_from_arrays(get, carry)
     diag = like.diag
     if diag is not None:
         diag = type(diag)(**{
@@ -133,6 +159,126 @@ def load_reference_checkpoint(path: str, like: VBState) -> VBState:
     """Resume a session the JAX package checkpointed: read its .npz and
     load it into `like` (see `state_from_arrays`)."""
     return state_from_arrays(read_npz(path), like)
+
+
+# ---------------------------------------------------------------------------
+# save / restore / latest_step (the reference's file format)
+# ---------------------------------------------------------------------------
+def _leaf_array(leaf) -> np.ndarray:
+    """A host array of a leaf.  Python scalars take the reference's
+    dtypes for a `VBState`'s `.t` and `.stream.epoch` (int32), bool and
+    float64 otherwise."""
+    if isinstance(leaf, torch.Tensor):
+        leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:
+            return leaf.view(torch.int16).numpy().view(np.uint16)
+        return leaf.numpy()
+    if isinstance(leaf, (bool, np.bool_)):
+        return np.asarray(leaf, np.bool_)
+    if isinstance(leaf, int):
+        return np.asarray(leaf, np.int32)
+    if isinstance(leaf, float):
+        return np.asarray(leaf, np.float64)
+    return np.asarray(leaf)
+
+
+def _flatten(tree, key: str = "", out: dict | None = None) -> dict:
+    """{keystr path: leaf} of a tree of VBStates, NamedTuples, tuples,
+    lists and dicts (None is an empty subtree, as in JAX)."""
+    out = {} if out is None else out
+    if tree is None:
+        pass
+    elif isinstance(tree, VBState):
+        for name in ("phi", "t", "carry", "stream", "diag"):
+            _flatten(getattr(tree, name), f"{key}.{name}", out)
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        for name in tree._fields:
+            _flatten(getattr(tree, name), f"{key}.{name}", out)
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            _flatten(v, f"{key}[{i}]", out)
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            _flatten(tree[k], f"{key}[{k!r}]", out)
+    else:
+        out[key] = tree
+    return out
+
+
+def _step_path(path: str, step: int | None) -> str:
+    return path if step is None else os.path.join(path,
+                                                  f"ckpt_{step:08d}.npz")
+
+
+def save(path: str, tree, step: int | None = None) -> str:
+    """Write `tree` (a `VBState`, or a tree of tensors/arrays: dicts,
+    lists, tuples, NamedTuples) to `path`, or to `path/ckpt_{step:08d}.npz`
+    when `step` is given; returns the file's path.  Atomic: written to a
+    temporary file, then renamed."""
+    path = _step_path(path, step)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    arrays, meta = {}, {}
+    for i, (key, leaf) in enumerate(sorted(_flatten(tree).items())):
+        name = f"a{i}"
+        is_bf16 = isinstance(leaf, torch.Tensor) \
+            and leaf.dtype == torch.bfloat16
+        arrays[name] = _leaf_array(leaf)
+        meta[key] = {"name": name,
+                     "dtype": _BF16 if is_bf16 else str(arrays[name].dtype)}
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez_compressed(f, __meta__=np.frombuffer(
+            json.dumps(meta).encode(), np.uint8), **arrays)
+    os.replace(tmp, path)
+    return path
+
+
+def _unflatten(like, flat: dict, key: str = ""):
+    """`like`'s structure with each leaf replaced by flat[its key path]
+    (shape checked): a tensor leaf becomes a tensor on its device in the
+    file's dtype, any other leaf a numpy array."""
+    if like is None:
+        return None
+    if isinstance(like, tuple) and hasattr(like, "_fields"):
+        return type(like)(*(_unflatten(getattr(like, f), flat,
+                                       f"{key}.{f}") for f in like._fields))
+    if isinstance(like, (tuple, list)):
+        return type(like)(_unflatten(v, flat, f"{key}[{i}]")
+                          for i, v in enumerate(like))
+    if isinstance(like, dict):
+        return {k: _unflatten(v, flat, f"{key}[{k!r}]")
+                for k, v in like.items()}
+    if key not in flat:
+        raise KeyError(f"checkpoint missing {key}")
+    arr = flat[key]
+    if tuple(np.shape(arr)) != tuple(np.shape(like)):
+        raise ValueError(f"{key}: shape {tuple(np.shape(arr))} != "
+                         f"{tuple(np.shape(like))}")
+    if isinstance(like, torch.Tensor):
+        return _tensor(arr).to(like.device)
+    return np.asarray(arr)
+
+
+def restore(path: str, like, step: int | None = None):
+    """Load a checkpoint into the structure of `like`.  A `VBState`
+    (a `vb_init` state of the same configuration) resumes through
+    `state_from_arrays`: each leaf in `like`'s dtype and device, so a
+    card's checkpoint continues on the CPU and back.  Any other tree
+    takes the file's dtypes (shapes must match)."""
+    arrays = read_npz(_step_path(path, step))
+    if isinstance(like, VBState):
+        return state_from_arrays(arrays, like)
+    return _unflatten(like, arrays)
+
+
+def latest_step(ckpt_dir: str) -> int | None:
+    """The largest step of the `ckpt_{step:08d}.npz` files in `ckpt_dir`
+    (None when there is none)."""
+    if not os.path.isdir(ckpt_dir):
+        return None
+    steps = [int(m.group(1)) for f in os.listdir(ckpt_dir)
+             if (m := re.match(r"ckpt_(\d+)\.npz$", f))]
+    return max(steps) if steps else None
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,10 @@ reference's random restart `_perturbed_init` draws from `jax.random`,
 which torch cannot reproduce: `perturbed_init` takes the (K, D) uniform
 draws explicitly (the reference's, for parity), or draws them from a
 `torch.Generator`.  `device=None` runs on the CUDA device.
+
+The graph arguments take either form: `weights` a dense (N, N) matrix
+or a `network.SparseWeights`, `adj` a dense adjacency or a
+`network.SparseGraph` (the engine's sparse combines, O(E + N)).
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Unified conjugate-exponential VB engine: Model x Topology (main slice).
+"""Unified conjugate-exponential VB engine: Model x Topology.
 
 Port of `repro.core.engine` for the single-array executor.  Every estimator
 of the paper is the same per-iteration kernel — each node runs a VBE step
@@ -8,19 +8,34 @@ that turns the stack {phi*_i} into the next iterate:
 * Eq. 20   fusion-centre average                `FusionCenter.combine`
 * Eq. 22/29 Robbins-Monro step size eta_t       `eta_schedule` / `Schedule`
 * Eq. 27a  natural-gradient step                `_CombineTopology.step`
-* Eq. 27b  diffusion combine                    `Diffusion.combine`
+* Eq. 27b  diffusion combine                    `Diffusion.combine` /
+                                                `RingDiffusion.combine`
 * Eq. 38a  ADMM primal update                   `ADMMConsensus.step`
 * Eq. 38b  projection onto Omega                `ADMMConsensus.step`
 * Eq. 39   ADMM dual ascent                     `ADMMConsensus.step`
 * Eq. 40   kappa_t dual-step ramp               `kappa_schedule`
 * Eq. 46   KL performance metric                `kl_to_reference`
 
+Every graph topology runs dense (an (N, N) matrix: the small-N parity
+oracle) or sparse (`network.SparseGraph` edge lists through
+`_sparse_combine`: O(E + N), 100,000 sensors on one card), and two
+scenario topologies build on the sparse layer: `PairwiseGossip`
+(randomized link activation, deterministic in (seed, absolute t)) and
+`HierarchicalFusion` (sensor -> gateway -> region).  The sparse
+neighbour reduce is `_segment_sum`: a segmented sum over the
+receiver-sorted edges (`torch.segment_reduce` with the per-node
+lengths), deterministic, with no float atomics and no host sync.
+
 Sessions: `vb_init` returns a `VBState` (phi, absolute iteration t, the
 topology carry — the ADMM duals —, the minibatch stream and the last
 diagnostics); `vb_run` advances it with a Python step loop (the
 reference's `lax.scan`).  Every per-iteration quantity is a function of
 the absolute t, so `vb_run(s, a + b)` equals `vb_run(vb_run(s, a)[0], b)`
-bit for bit.  `run_vb` is the one-shot wrapper.
+bit for bit, and a state saved with `checkpoint.ckpt.save` resumes
+exactly.  `run_vb` is the one-shot wrapper.  `session_step_fn` is the
+one-iteration kernel over raw state with the data as an argument, and
+`hyper_names` / `session_hyper` the per-session constants (tau, d0,
+rho, xi) it can take as a `hyper` dict instead of the built-in ones.
 
 Streaming (`minibatch=data.stream.MinibatchSpec(...)`): each iteration
 gathers a per-node minibatch with a scaled mask (data/stream.py) from the
@@ -94,18 +109,26 @@ class Schedule(NamedTuple):
     d0: float = 1.0
     eta_fixed: Optional[float] = None
 
-    def eta(self, t: int) -> float:
+    def eta(self, t: int, hyper=None):
+        """eta_t.  `hyper` (see `hyper_names`) may override `tau` / `d0`
+        with per-session values; None keeps the built-in constants."""
         if self.eta_fixed is not None:
             return float(self.eta_fixed)
-        return eta_schedule(t + 1.0, self.tau, self.d0)
+        tau = self.tau if not hyper or "tau" not in hyper else hyper["tau"]
+        d0 = self.d0 if not hyper or "d0" not in hyper else hyper["d0"]
+        return eta_schedule(t + 1.0, tau, d0)
 
 
 ONE_SHOT = Schedule(eta_fixed=1.0)
 
 
 def _as_tensor(a) -> torch.Tensor:
-    return a if isinstance(a, torch.Tensor) else torch.as_tensor(
-        np.asarray(a))
+    if isinstance(a, torch.Tensor):
+        return a
+    a = np.asarray(a)
+    # a read-only array (e.g. a view of another package's buffer) cannot
+    # back a tensor: copy it
+    return torch.as_tensor(a if a.flags.writeable else a.copy())
 
 
 # ---------------------------------------------------------------------------
@@ -199,6 +222,57 @@ class _LinkSchedule:
             network_lib.link_generator(self.link_seed, t, device), n,
             self.link_drop, dtype)
 
+    def keep_edges(self, t, n_undirected: int, dtype,
+                   device) -> torch.Tensor:
+        """Edge-list form: the (E_undirected,) keep mask, one coin per
+        undirected link (`network.sparse_link_keep`), so a failed link is
+        failed both ways.  A `link_mask_fn` returns that mask in the
+        graph's link order."""
+        t = self._require_t(t)
+        if self.link_mask_fn is not None:
+            return self._given(t, dtype, device)
+        return network_lib.sparse_link_keep(
+            network_lib.link_generator(self.link_seed, t, device),
+            n_undirected, self.link_drop, dtype)
+
+
+def _segment_sum(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Sums of consecutive segments of x's rows, of the given lengths: the
+    sparse reduce (a `SparseGraph`'s receiver-sorted edges with the
+    lengths `deg`; a hierarchy's sorted members).  Each segment is added
+    in row order by one thread (no float atomics, unlike `index_add_` on
+    CUDA), so two launches on the same inputs agree bit for bit, and
+    `unsafe=True` skips the length check that would wait for the
+    device."""
+    return torch.segment_reduce(x, "sum", lengths=lengths, axis=0,
+                                unsafe=True)
+
+
+def _sparse_combine(graph, w_edge, w_self, varphi: torch.Tensor,
+                    keep_und: Optional[torch.Tensor] = None):
+    """Eq. 27b in edge-list form: phi_i <- w_self_i varphi_i
+    + sum_{e: recv(e)=i} w_e varphi_send(e), one segmented sum over the
+    directed edges: O(E P) work, O(N P + E P) memory, no (N, N) matrix.
+
+    `keep_und` gates the undirected links of a time-varying network: the
+    surviving weights renormalise per receiver (for Eq. 47 weights that
+    is Eq. 47 on the surviving graph, the dense `_effective_weights`),
+    and a node with no live link and zero self-weight keeps its iterate.
+    """
+    w_e = w_edge.to(varphi.dtype)
+    w_s = w_self.to(varphi.dtype)
+    msg = varphi.index_select(0, graph.senders)          # (E, P)
+    if keep_und is None:
+        return w_s[:, None] * varphi + _segment_sum(w_e[:, None] * msg,
+                                                    graph.deg)
+    w_e = w_e * keep_und.index_select(0, graph.edge_id).to(varphi.dtype)
+    num = w_s[:, None] * varphi + _segment_sum(w_e[:, None] * msg,
+                                               graph.deg)
+    den = w_s + _segment_sum(w_e, graph.deg)
+    isolated = den <= 0.0
+    safe = torch.where(isolated, torch.ones_like(den), den)
+    return torch.where(isolated[:, None], varphi, num / safe[:, None])
+
 
 # ---------------------------------------------------------------------------
 # Topologies / combiners
@@ -212,10 +286,11 @@ class _CombineTopology:
     emits_diagnostics = False
 
     def to(self, device) -> "_CombineTopology":
-        """Copy with every tensor attribute on `device`."""
+        """Copy with every tensor and `SparseGraph` attribute on `device`
+        (the weights, the edge lists, the hierarchy's index maps)."""
         new = copy.copy(self)
         for name, val in vars(self).items():
-            if isinstance(val, torch.Tensor):
+            if isinstance(val, (torch.Tensor, network_lib.SparseGraph)):
                 setattr(new, name, val.to(device))
         return new
 
@@ -228,11 +303,12 @@ class _CombineTopology:
     def combine(self, varphi: torch.Tensor, *, t=None) -> torch.Tensor:
         raise NotImplementedError
 
-    def step(self, model, phi, carry, phi_star, t: int, schedule: Schedule):
+    def step(self, model, phi, carry, phi_star, t: int, schedule: Schedule,
+             hyper=None):
         if schedule.eta_fixed == 1.0:
             varphi = phi_star                       # one-shot: jump to phi*
-        else:
-            varphi = phi + schedule.eta(t) * (phi_star - phi)   # Eq. 27a
+        else:                                       # Eq. 27a
+            varphi = phi + schedule.eta(t, hyper) * (phi_star - phi)
         return self.combine(varphi, t=t), carry, None
 
 
@@ -257,12 +333,17 @@ class Isolated(_CombineTopology):
 
 class Diffusion(_CombineTopology):
     """Diffusion combine phi_i <- sum_j w_ij varphi_j (Eq. 27b) with a
-    dense row-stochastic (N, N) weight matrix (e.g. Eq. 47).
+    row-stochastic weight matrix (e.g. Eq. 47): EITHER the dense (N, N)
+    matrix (the small-N oracle) OR a `network.SparseWeights` edge-list
+    bundle (`sparse_nearest_neighbor_weights` /
+    `sparse_metropolis_weights`), which runs the same combine as a
+    segmented sum over the edges (`_sparse_combine`).
 
     `link_drop` / `link_mask_fn` make the network time-varying: each
     iteration the surviving entries are renormalised per row (for Eq. 47
     weights that is Eq. 47 on the surviving graph), so the combine stays
-    row-stochastic over whatever links are up.
+    row-stochastic over whatever links are up.  In sparse form a
+    `link_mask_fn` returns the (E_undirected,) per-link keep mask.
 
     >>> W = torch.tensor([[0.5, 0.5], [0.5, 0.5]])
     >>> Diffusion(W).combine(torch.tensor([[0.0], [4.0]])).tolist()
@@ -274,9 +355,15 @@ class Diffusion(_CombineTopology):
 
     def __init__(self, weights, *, link_drop: float = 0.0,
                  link_seed: int = 0, link_mask_fn=None):
-        if hasattr(weights, "graph"):
-            raise _not_ported("sparse SparseWeights combines", 11)
-        self.weights = _as_tensor(weights)
+        self.sparse = isinstance(weights, network_lib.SparseWeights)
+        if self.sparse:
+            # the host f64 weights, and their tensors (moved by `to`)
+            self.graph = weights.graph
+            self.w_edge = torch.from_numpy(np.asarray(weights.w_edge,
+                                                      np.float64))
+            self.w_self = torch.from_numpy(np.asarray(weights.w_self,
+                                                      np.float64))
+        self.weights = weights if self.sparse else _as_tensor(weights)
         self.links = _LinkSchedule(link_drop, link_seed, link_mask_fn)
 
     def _effective_weights(self, W, t):
@@ -292,6 +379,12 @@ class Diffusion(_CombineTopology):
         return W_eff / torch.where(rows > 0, rows, torch.ones_like(rows))
 
     def combine(self, varphi, *, t=None):
+        if self.sparse:
+            keep = (self.links.keep_edges(t, self.graph.n_undirected,
+                                          varphi.dtype, varphi.device)
+                    if self.links.time_varying else None)
+            return _sparse_combine(self.graph, self.w_edge, self.w_self,
+                                   varphi, keep)
         W = self.weights.to(varphi.dtype)
         if self.links.time_varying:
             W = self._effective_weights(W, t)
@@ -309,17 +402,33 @@ class RingDiffusion(_CombineTopology):
 
     Under `link_drop` / `link_mask_fn` (an (N,) mask, entry i gating the
     link (i, i+1 mod N)) the weights renormalise over the surviving links;
-    a node with both links down and w_self = 0 keeps its iterate.  The
-    edge-list form (`graph=`) waits for the sparse topologies.
+    a node with both links down and w_self = 0 keeps its iterate.
+
+    `graph=network.SparseGraph.ring(N)` runs the same combine through the
+    edge-list segmented sum.  `SparseGraph.ring` orders link k as
+    (k, k+1 mod N), the coin order of `ring_link_keep`, so the sparse path
+    replays the same link failures as the roll-based one.
     """
 
     def __init__(self, w_self: float = 1.0 / 3.0, *, link_drop: float = 0.0,
                  link_seed: int = 0, link_mask_fn=None, graph=None):
-        if graph is not None:
-            raise _not_ported("RingDiffusion over a SparseGraph (graph=)",
-                              11)
         self.w_self = w_self
         self.links = _LinkSchedule(link_drop, link_seed, link_mask_fn)
+        self.graph = graph
+        if graph is not None:
+            ring = network_lib.SparseGraph.ring(graph.n_nodes)
+            for name in ("senders", "receivers", "edge_id"):
+                if not torch.equal(getattr(graph, name).cpu(),
+                                   getattr(ring, name)):
+                    raise ValueError(
+                        "RingDiffusion(graph=) must be SparseGraph.ring(N) "
+                        "(link k = (k, k+1 mod N), the ring_link_keep "
+                        "coin order)")
+            w_n = (1.0 - w_self) / 2.0
+            self.w_edge = torch.full((2 * graph.n_undirected,), w_n,
+                                     dtype=torch.float64)
+            self.w_self_nodes = torch.full((graph.n_nodes,), w_self,
+                                           dtype=torch.float64)
 
     def _gated(self, varphi, left, right, e_left, e_right):
         """The combine over the surviving ring links only, renormalised
@@ -333,6 +442,14 @@ class RingDiffusion(_CombineTopology):
         return torch.where(isolated[:, None], varphi, num / safe[:, None])
 
     def combine(self, varphi, *, t=None):
+        if self.graph is not None:
+            # the edge-list path: a ring's (E_und,) link masks are the
+            # (N,) ring_link_keep masks (same order)
+            keep = (self.links.keep_edges(t, self.graph.n_undirected,
+                                          varphi.dtype, varphi.device)
+                    if self.links.time_varying else None)
+            return _sparse_combine(self.graph, self.w_edge,
+                                   self.w_self_nodes, varphi, keep)
         left = torch.roll(varphi, 1, dims=0)             # phi_{i-1}
         right = torch.roll(varphi, -1, dims=0)           # phi_{i+1}
         if not self.links.time_varying:
@@ -341,6 +458,142 @@ class RingDiffusion(_CombineTopology):
         n = varphi.shape[0]
         e = self.links.keep_ring(t, n, varphi.dtype, varphi.device)
         return self._gated(varphi, left, right, torch.roll(e, 1, dims=0), e)
+
+
+class PairwiseGossip(_CombineTopology):
+    """Randomized gossip (Boyd-Ghosh-Prabhakar-Shah style) on a
+    `SparseGraph`: each iteration every undirected link activates with
+    probability `p_activate`, deterministic in (`seed`, absolute t) (coin
+    k of `network.link_generator(seed, t)`, the same bits on the CPU and
+    on the card), and each node averages with Eq. 47 weights over its
+    ACTIVE neighbourhood:
+
+        phi_i <- (varphi_i + sum_{active links (i,j)} varphi_j)
+                 / (1 + |N_i^active(t)|)
+
+    A node with no active link keeps its iterate.  `p_activate=1.0` is
+    dense `Diffusion` with `nearest_neighbor_weights` on the same graph.
+
+    `active_mask_fn(t)`, a parity hook like `link_mask_fn`: given, it
+    returns iteration t's (E_undirected,) activation mask in the graph's
+    link order instead of the port's coins (the reference's
+    `jax.random` activations, which torch cannot reproduce, in the parity
+    tests).
+
+    >>> g = network_lib.SparseGraph.ring(3)
+    >>> PairwiseGossip(g, p_activate=1.0).combine(
+    ...     torch.tensor([[3.0], [6.0], [9.0]]), t=0).tolist()
+    [[6.0], [6.0], [6.0]]
+    """
+
+    def __init__(self, graph, *, p_activate: float = 0.5, seed: int = 0,
+                 active_mask_fn=None):
+        if not 0.0 < p_activate <= 1.0:
+            raise ValueError(f"p_activate must be in (0, 1]: {p_activate}")
+        if not isinstance(graph, network_lib.SparseGraph):
+            raise ValueError("PairwiseGossip needs a network.SparseGraph "
+                             "(use SparseGraph.from_dense for small "
+                             "adjacency matrices)")
+        self.graph = graph
+        self.p_activate = float(p_activate)
+        self.seed = int(seed)
+        self.active_mask_fn = active_mask_fn
+
+    def active(self, t: int, dtype, device) -> torch.Tensor:
+        """Iteration t's (E_undirected,) activation mask."""
+        if self.active_mask_fn is not None:
+            return _as_tensor(self.active_mask_fn(t)).to(device=device,
+                                                         dtype=dtype)
+        # active with probability p_activate: kept at drop 1 - p
+        return network_lib.sparse_link_keep(
+            network_lib.link_generator(self.seed, t, device),
+            self.graph.n_undirected, 1.0 - self.p_activate, dtype)
+
+    def combine(self, varphi, *, t=None):
+        if t is None:
+            raise ValueError(
+                "PairwiseGossip draws its activation from the iteration "
+                "index: call combine(..., t=<iteration>) (run_vb supplies "
+                "it)")
+        g = self.graph
+        act = self.active(int(t), varphi.dtype, varphi.device)
+        act_dir = act.index_select(0, g.edge_id)
+        num = varphi + _segment_sum(
+            act_dir[:, None] * varphi.index_select(0, g.senders), g.deg)
+        den = 1.0 + _segment_sum(act_dir, g.deg)      # 1 + |N_i^active|
+        return num / den[:, None]
+
+
+class HierarchicalFusion(_CombineTopology):
+    """Two-level sensor -> gateway -> region fusion: each gateway averages
+    its sensors' iterates, each region its gateways' means, and every
+    sensor blends its own iterate with its gateway's and region's means:
+
+        gw_g  = mean_{i: gateway(i)=g} varphi_i
+        rg_r  = mean_{g: region(g)=r} gw_g
+        phi_i <- w_self varphi_i + w_gateway gw_{gateway(i)}
+                 + (1 - w_self - w_gateway) rg_{region(gateway(i))}
+
+    Row-stochastic, O(N + G + R) memory, two segmented sums: the maps may
+    come unsorted, so a stable sort of each (and the lengths) is made
+    once, at construction.  One region with w_self = w_gateway = 0 is
+    `FusionCenter`.  `network.two_level_partition` builds balanced maps.
+
+    >>> gw, rg = network_lib.two_level_partition(4, 2, 1)
+    >>> h = HierarchicalFusion(gw, rg, w_self=0.0, w_gateway=0.0)
+    >>> h.combine(torch.tensor([[0.0], [2.0], [4.0], [6.0]])).tolist()
+    [[3.0], [3.0], [3.0], [3.0]]
+    """
+
+    def __init__(self, gateway_of, region_of, *, w_self: float = 1.0 / 3.0,
+                 w_gateway: float = 1.0 / 3.0):
+        gw = np.asarray(_as_tensor(gateway_of).cpu(), np.int64)
+        rg = np.asarray(_as_tensor(region_of).cpu(), np.int64)
+        if gw.ndim != 1 or rg.ndim != 1:
+            raise ValueError("gateway_of/region_of must be 1-D index maps")
+        n_gateways = int(rg.shape[0])
+        if gw.min(initial=0) < 0 or (gw.size and gw.max() >= n_gateways):
+            raise ValueError("gateway_of must index into region_of")
+        n_regions = int(rg.max()) + 1 if rg.size else 0
+        if rg.min(initial=0) < 0:
+            raise ValueError("region ids must be >= 0")
+        gw_count = np.bincount(gw, minlength=n_gateways)
+        rg_count = np.bincount(rg, minlength=n_regions)
+        if (gw_count == 0).any() or (rg_count == 0).any():
+            raise ValueError("every gateway needs >= 1 sensor and every "
+                             "region >= 1 gateway")
+        w_region = 1.0 - w_self - w_gateway
+        if w_self < 0 or w_gateway < 0 or w_region < -1e-12:
+            raise ValueError(
+                f"weights must be a convex combination: w_self={w_self}, "
+                f"w_gateway={w_gateway}, w_region={w_region}")
+        self.gateway_of = torch.from_numpy(gw)
+        self.region_of = torch.from_numpy(rg)
+        self.n_gateways = n_gateways
+        self.n_regions = n_regions
+        # the segmented sums' inputs: the members sorted by segment (in
+        # map order within one) and the lengths
+        self.gw_order = torch.from_numpy(np.argsort(gw, kind="stable"))
+        self.rg_order = torch.from_numpy(np.argsort(rg, kind="stable"))
+        self.gw_count = torch.from_numpy(gw_count)
+        self.rg_count = torch.from_numpy(rg_count)
+        self.region_of_node = torch.from_numpy(rg[gw])
+        self.w_self = float(w_self)
+        self.w_gateway = float(w_gateway)
+        self.w_region = float(max(w_region, 0.0))
+
+    @staticmethod
+    def _segment_mean(x, order, count):
+        return (_segment_sum(x.index_select(0, order), count)
+                / count.to(x.dtype)[:, None])
+
+    def combine(self, varphi, *, t=None):
+        gw_mean = self._segment_mean(varphi, self.gw_order, self.gw_count)
+        rg_mean = self._segment_mean(gw_mean, self.rg_order, self.rg_count)
+        return (self.w_self * varphi
+                + self.w_gateway * gw_mean.index_select(0, self.gateway_of)
+                + self.w_region * rg_mean.index_select(
+                    0, self.region_of_node))
 
 
 class ConsensusDiagnostics(NamedTuple):
@@ -403,6 +656,11 @@ class ADMMConsensus(_CombineTopology):
     couple only the nodes whose link is up at iteration t.  Algorithm 2
     has no natural-gradient step, so `schedule` does not apply.
 
+    `adj` is the dense (N, N) adjacency or a `network.SparseGraph`; both
+    forms share `step` and `_adaptive_step` through `_graph_ops`'
+    (degrees, neighbour sum, live fraction), the sparse one a segmented
+    sum over the (gated) directed edges.
+
     >>> adj = torch.tensor([[0.0, 1.0], [1.0, 0.0]])
     >>> adapt = ADMMConsensus(adj, adaptive_rho=True)
     >>> adapt.dual_warmup, adapt.dual_reset     # "auto" resolution
@@ -423,9 +681,8 @@ class ADMMConsensus(_CombineTopology):
                  dual_reset: float | None | str = "auto",
                  clip_tol: float = 1e-9, link_drop: float = 0.0,
                  link_seed: int = 0, link_mask_fn=None):
-        if not isinstance(adj, (torch.Tensor, np.ndarray)):
-            raise _not_ported("sparse SparseGraph consensus", 11)
-        self.adj = _as_tensor(adj)
+        self.sparse = isinstance(adj, network_lib.SparseGraph)
+        self.adj = adj if self.sparse else _as_tensor(adj)
         self.links = _LinkSchedule(link_drop, link_seed, link_mask_fn)
         self.rho = rho
         self.xi = xi
@@ -508,8 +765,31 @@ class ADMMConsensus(_CombineTopology):
         return torch.sqrt(sq.sum() / (n * z.shape[1]))
 
     def _graph_ops(self, phi, t):
-        """(deg, adjacency, link_frac) of iteration t's graph: the dense
-        adjacency masked by the surviving links."""
+        """(deg, neigh_sum, link_frac) of iteration t's graph: |N_i(t)|,
+        z -> sum_{j in N_i(t)} z_j and the live fraction of the links.
+        Dense: the adjacency masked by the surviving links, a product.
+        Sparse: the directed edges gated by one coin per undirected link,
+        a segmented sum, O(E + N) memory."""
+        if self.sparse:
+            g = self.adj
+            if self.links.time_varying:
+                keep_und = self.links.keep_edges(t, g.n_undirected,
+                                                 phi.dtype, phi.device)
+                keep_dir = keep_und.index_select(0, g.edge_id)
+                link_frac = keep_und.mean()
+                deg = _segment_sum(keep_dir, g.deg)
+            else:
+                keep_dir = None
+                link_frac = phi.new_ones(())
+                deg = g.deg.to(phi.dtype)
+
+            def neigh_sum(z):
+                msg = z.index_select(0, g.senders)
+                if keep_dir is not None:
+                    msg = msg * keep_dir[:, None]
+                return _segment_sum(msg, g.deg)
+
+            return deg, neigh_sum, link_frac
         adj = self.adj.to(phi.dtype)
         if self.links.time_varying:
             keep = self.links.keep_matrix(t, adj.shape[0], phi.dtype,
@@ -518,25 +798,30 @@ class ADMMConsensus(_CombineTopology):
             link_frac = live.sum() / adj.sum()
         else:
             live = adj
-            link_frac = None
-        return live.sum(1), live, link_frac                  # |N_i(t)|
+            link_frac = phi.new_ones(())
+        return live.sum(1), (lambda z: live @ z), link_frac
 
-    def step(self, model, phi, carry, phi_star, t: int, schedule: Schedule):
-        deg, adj, link_frac = self._graph_ops(phi, t)
+    def step(self, model, phi, carry, phi_star, t: int, schedule: Schedule,
+             hyper=None):
+        # `hyper` entries (see `hyper_names`) override the penalty and the
+        # ramp rate; under adaptive_rho the penalty lives in the carry, so
+        # only xi is read from it there
+        rho = self.rho if not hyper or "rho" not in hyper else hyper["rho"]
+        xi = self.xi if not hyper or "xi" not in hyper else hyper["xi"]
+        deg, neigh_sum, link_frac = self._graph_ops(phi, t)
         if not self._plain:
-            return self._adaptive_step(model, phi, carry, phi_star, deg, adj,
-                                       phi.new_ones(()) if link_frac is None
-                                       else link_frac)
-        lam, rho = carry, self.rho
+            return self._adaptive_step(model, phi, carry, phi_star, deg,
+                                       neigh_sum, link_frac, xi)
+        lam = carry
         # (38a) primal
         phi_hat = (phi_star - 2.0 * lam
-                   + rho * (deg[:, None] * phi + adj @ phi))
+                   + rho * (deg[:, None] * phi + neigh_sum(phi)))
         phi_hat = phi_hat / (1.0 + 2.0 * rho * deg)[:, None]
         phi_new = model.project_to_domain(phi_hat) if self.project \
             else phi_hat                              # (38b)
         # (39) dual ascent with the kappa_t ramp (40)
-        kappa = kappa_schedule(t + 1.0, self.xi)
-        resid = deg[:, None] * phi_new - adj @ phi_new
+        kappa = kappa_schedule(t + 1.0, xi)
+        resid = deg[:, None] * phi_new - neigh_sum(phi_new)
         lam_new = lam + kappa * rho / 2.0 * resid
         if self.lam_max is not None:
             bound = self.lam_max * phi_star.abs()
@@ -546,16 +831,17 @@ class ADMMConsensus(_CombineTopology):
         diag = ConsensusDiagnostics(
             primal_resid=self._block_norms(resid),
             dual_resid=self._block_norms(rho * (phi_new - phi)),
-            rho=phi.new_tensor(rho), kappa=phi.new_tensor(kappa),
+            rho=torch.as_tensor(rho, dtype=phi.dtype, device=phi.device),
+            kappa=torch.as_tensor(kappa, dtype=phi.dtype,
+                                  device=phi.device),
             clip_count=clip_count,
             reset_count=torch.zeros((), dtype=torch.int32,
                                     device=phi.device),
-            dual_on=phi.new_ones(()),
-            link_frac=phi.new_ones(()) if link_frac is None else link_frac)
+            dual_on=phi.new_ones(()), link_frac=link_frac)
         return phi_new, lam_new, diag
 
-    def _adaptive_step(self, model, phi, carry, phi_star, deg, adj,
-                       link_frac):
+    def _adaptive_step(self, model, phi, carry, phi_star, deg, neigh_sum,
+                       link_frac, xi):
         lam, rho_vec, stable, t_act, active = carry
         dt = phi.dtype
         if self.per_block:
@@ -567,7 +853,7 @@ class ADMMConsensus(_CombineTopology):
 
         # (38a) primal, with the (possibly per-block) penalty
         phi_hat = (phi_star - 2.0 * lam
-                   + rho_coord * (deg[:, None] * phi + adj @ phi))
+                   + rho_coord * (deg[:, None] * phi + neigh_sum(phi)))
         phi_hat = phi_hat / (1.0 + 2.0 * rho_coord * deg[:, None])
         phi_new = model.project_to_domain(phi_hat) if self.project \
             else phi_hat                              # (38b)
@@ -575,7 +861,7 @@ class ADMMConsensus(_CombineTopology):
                        > self.clip_tol)               # (N,) clip fired
         any_clip = clip_active.any()
 
-        resid = deg[:, None] * phi_new - adj @ phi_new
+        resid = deg[:, None] * phi_new - neigh_sum(phi_new)
         r_norm = self._block_norms(resid, onehot)
         s_norm = self._block_norms(rho_coord * (phi_new - phi), onehot)
         r_tot = torch.sqrt((r_norm ** 2).sum())
@@ -590,8 +876,7 @@ class ADMMConsensus(_CombineTopology):
         t_act = torch.where(active, t_act + 1.0, zero)
         if self.dual_reset is not None:
             t_act = torch.where(any_clip, zero, t_act)  # ramp reset on clip
-        kappa = torch.where(t_act > 0.0, kappa_schedule(t_act, self.xi),
-                            zero)
+        kappa = torch.where(t_act > 0.0, kappa_schedule(t_act, xi), zero)
 
         # (39) dual ascent
         lam_new = lam + kappa * rho_coord / 2.0 * resid
@@ -675,6 +960,45 @@ class VBSession:
     minibatch: Optional[stream_lib.MinibatchSpec] = None
     base_mask: Optional[torch.Tensor] = None
 
+    def with_data(self, data) -> "VBSession":
+        """The same session over NEW per-node buffers (data arriving
+        mid-flight).  Every leaf must keep its shape and dtype; the
+        buffers move to the session's device, and the hot path's copy
+        (`stream_data`) and the streaming mask are rebuilt from them."""
+        dev = _leaves(self.data)[0].device
+        data = _on_device(data, dev)
+        old, new = _leaves(self.data), _leaves(data)
+        if len(old) != len(new) or any(
+                o.shape != n.shape or o.dtype != n.dtype
+                for o, n in zip(old, new)):
+            raise ValueError(
+                "with_data: new buffers must match the session's data "
+                "shapes/dtypes exactly (append into padding slots or "
+                "replace same-shape buffers)")
+        return dataclasses.replace(
+            self, data=data, stream_data=_stream_data(self.model, data),
+            base_mask=(None if self.minibatch is None
+                       else self.model.data_mask(data)))
+
+
+def _leaves(data) -> tuple:
+    return (data,) if isinstance(data, torch.Tensor) else tuple(data)
+
+
+def _on_device(data, dev):
+    """The run's data on `dev`: one per-node array (e.g. LinRegModel's
+    precomputed (N, P) phi* stack) or a tuple of them."""
+    if isinstance(data, (torch.Tensor, np.ndarray)):
+        return _as_tensor(data).to(dev)
+    return tuple(_as_tensor(a).to(dev) for a in data)
+
+
+def _stream_data(model, data):
+    """The hot path's copy of the data (`model.stream_data`, e.g. cast
+    once to the fused kernel's dtype), or the data itself."""
+    stream = getattr(model, "stream_data", None)
+    return data if stream is None else stream(data)
+
 
 @dataclasses.dataclass(frozen=True)
 class VBState:
@@ -703,6 +1027,13 @@ class VBState:
 
     def replace(self, **kw) -> "VBState":
         return dataclasses.replace(self, **kw)
+
+    def with_data(self, data) -> "VBState":
+        """The state bound to updated per-node buffers (see
+        `VBSession.with_data`)."""
+        if self.session is None:
+            raise ValueError("state has no session attached")
+        return self.replace(session=self.session.with_data(data))
 
 
 def vb_init(model, data, topology, *, schedule: Schedule = Schedule(),
@@ -738,16 +1069,10 @@ def vb_init(model, data, topology, *, schedule: Schedule = Schedule(),
         raise ValueError(
             f"{type(topology).__name__} has no natural-gradient step "
             "(Eq. 27a); it ignores `schedule` — pass the default")
-    if isinstance(data, (torch.Tensor, np.ndarray)):
-        # one per-node array, e.g. LinRegModel's precomputed (N, P) phi*
-        data = _as_tensor(data).to(dev)
-        n_nodes = data.shape[0]
-    else:
-        data = tuple(_as_tensor(a).to(dev) for a in data)
-        n_nodes = data[0].shape[0]
+    data = _on_device(data, dev)
+    n_nodes = _leaves(data)[0].shape[0]
     # the hot path's copy of the data, cast once here, not per iteration
-    stream = getattr(model, "stream_data", None)
-    stream_data = data if stream is None else stream(data)
+    stream_data = _stream_data(model, data)
     topology = topology.to(dev)
     if replication is None:
         replication = float(n_nodes)
@@ -795,8 +1120,9 @@ def vb_init(model, data, topology, *, schedule: Schedule = Schedule(),
         session=session, stream=stream0)
 
 
-def _iteration(ses: VBSession, phi, carry, st, t: int):
+def _iteration(ses: VBSession, phi, carry, st, t: int, hyper=None):
     """ONE VB iteration at the absolute t: (phi', carry', stream', diag).
+    `hyper` is the optional per-session constants dict (`hyper_names`).
 
     Streaming: gather this iteration's minibatch from the streamed data;
     its scaled mask keeps the statistics unbiased.  SVRG (anchors in the
@@ -828,8 +1154,62 @@ def _iteration(ses: VBSession, phi, carry, st, t: int):
     else:
         phi_star = model.local_optimum(data_t, phi, rep)
     phi, carry, diag = ses.topology.step(model, phi, carry, phi_star, t,
-                                         ses.schedule)
+                                         ses.schedule, hyper=hyper)
     return phi, carry, st_new, diag
+
+
+def session_step_fn(session: VBSession):
+    """The one-iteration kernel over raw state, with the data buffers as
+    an ARGUMENT: fn(data, phi, carry, stream, t, hyper=None) -> (phi',
+    carry', stream', diag).  Data other than the session's own goes
+    through `VBSession.with_data` (same shapes and dtypes).  `hyper` is a
+    per-session constants dict (`session_hyper`); None keeps the
+    session's built-in values."""
+    def fn(data, phi, carry, st, t, hyper=None):
+        ses = session if data is session.data else session.with_data(data)
+        return _iteration(ses, phi, carry, st, int(t), hyper=hyper)
+
+    return fn
+
+
+def hyper_names(topology, schedule: Schedule) -> tuple:
+    """Names of the constants a (topology, schedule) pair reads each
+    iteration as plain scalars, which a `hyper` dict may override:
+
+    * a Robbins-Monro schedule (`eta_fixed=None` on a combine topology)
+      reads `tau` / `d0`; a fixed eta is not lifted (eta_fixed == 1.0
+      selects the one-shot jump as a branch);
+    * `ADMMConsensus` reads `rho` and `xi`, except under `adaptive_rho`,
+      where rho lives in the carry and only `xi` is read.
+
+    >>> hyper_names(Diffusion(torch.eye(2)), Schedule())
+    ('tau', 'd0')
+    """
+    names = []
+    if getattr(topology, "uses_schedule", True) \
+            and schedule.eta_fixed is None:
+        names += ["tau", "d0"]
+    if isinstance(topology, ADMMConsensus):
+        names += ["xi"] if topology.adaptive_rho else ["rho", "xi"]
+    return tuple(names)
+
+
+def lifted_attr_names(topology) -> tuple:
+    """Topology attributes whose per-session values reach the step
+    another way (the `hyper` dict, or adaptive ADMM's carry): a superset
+    of the topology's own `hyper_names` entries."""
+    return ("rho", "xi") if isinstance(topology, ADMMConsensus) else ()
+
+
+def session_hyper(topology, schedule: Schedule, dtype) -> dict:
+    """The `hyper` dict of a session: each `hyper_names` entry as a 0-dim
+    CPU tensor of `dtype` (a CPU scalar combines with tensors on any
+    device)."""
+    out = {}
+    for n in hyper_names(topology, schedule):
+        src = schedule if n in ("tau", "d0") else topology
+        out[n] = torch.tensor(getattr(src, n), dtype=dtype)
+    return out
 
 
 def vb_run(state: VBState, n_iters: int) -> tuple[VBState, VBRun]:
@@ -885,7 +1265,8 @@ def run_vb(model, data, topology, *, n_iters: int,
     data : per-node data tuple (x (N, T, D), mask (N, T)), or one (N, ...)
         array (LinRegModel's phi* stack); moved to device
     topology : FusionCenter | Isolated | Diffusion | RingDiffusion |
-        ADMMConsensus
+        PairwiseGossip | HierarchicalFusion | ADMMConsensus (the graph
+        topologies dense or over a `network.SparseGraph`)
     n_iters : number of VB iterations
     schedule : eta_t of the natural-gradient step (27a); `ONE_SHOT` for
         the jump-to-optimum estimators

@@ -214,6 +214,27 @@ def unpack_natural(phi: torch.Tensor, K: int, D: int) -> GMMPosterior:
                         W=nw.W, nu=nw.nu)
 
 
+#: the largest batch handed to one CUDA `torch.linalg.eigh` call: the
+#: batched cuSOLVER path (cusolverDnXsyevBatched, torch 2.11 with CUDA
+#: 12.8 on an H100) rejects batches of 32,767 matrices and more with
+#: CUSOLVER_STATUS_INVALID_VALUE in its workspace query (30,000 pass);
+#: the Normal-Wishart projection at 100,000 sensors x K=3 is 300,000
+EIGH_MAX_BATCH = 1 << 14
+
+
+def _eigh(a: torch.Tensor):
+    """`torch.linalg.eigh` over the leading batch, in chunks of at most
+    EIGH_MAX_BATCH matrices on a card (each matrix is solved on its own,
+    so the chunks change no result); one call on the CPU."""
+    batch = a.shape[:-2]
+    flat = a.reshape(-1, *a.shape[-2:])
+    if a.device.type != "cuda" or flat.shape[0] <= EIGH_MAX_BATCH:
+        return torch.linalg.eigh(a)
+    parts = [torch.linalg.eigh(c) for c in flat.split(EIGH_MAX_BATCH)]
+    return (torch.cat([p[0] for p in parts]).reshape(*batch, -1),
+            torch.cat([p[1] for p in parts]).reshape(a.shape))
+
+
 def nw_project(seg: torch.Tensor, K: int, D: int, *,
                min_beta: float = 1e-6, min_eig: float = 1e-8
                ) -> torch.Tensor:
@@ -229,7 +250,7 @@ def nw_project(seg: torch.Tensor, K: int, D: int, *,
     mmT = _outer(m)
     W_inv = -2.0 * n2 - beta[..., None, None] * mmT
     W_inv = 0.5 * (W_inv + W_inv.transpose(-1, -2))
-    eigval, eigvec = torch.linalg.eigh(W_inv)
+    eigval, eigvec = _eigh(W_inv)
     # relative floor: eigh's reconstruction error scales with ||W^-1||
     floor = torch.clamp(1e-10 * eigval.abs().amax(-1, keepdim=True),
                         min=min_eig)

@@ -1,6 +1,7 @@
 """The port stands alone: no jax, no repro; the card unless told otherwise;
 the one fallback is the reference's (a backend that cannot run a model
-warns and runs the reference backend); unported options raise."""
+warns and runs the reference backend); unported options raise, and the
+ones ported since run."""
 import warnings
 import os
 import pkgutil
@@ -13,6 +14,7 @@ import torch
 
 import repro_torch
 from repro_torch.core import algorithms, backends, blocks, engine, expfam
+from repro_torch.core import network
 from repro_torch.core import model as model_lib
 from repro_torch.configs.base import get_smoke_config
 from repro_torch.models import model as lm_lib
@@ -34,7 +36,9 @@ def test_import_pulls_in_neither_jax_nor_repro():
               "repro_torch.experiments.paper_figures",
               "repro_torch.experiments.streaming",
               "repro_torch.data.stream", "repro_torch.models.hmm",
-              "repro_torch.models.ppca"):
+              "repro_torch.models.ppca", "repro_torch.core.network",
+              "repro_torch.checkpoint.ckpt",
+              "repro_torch.experiments.topology_scale"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"
@@ -177,28 +181,26 @@ def test_fused_backend_runs_past_the_first_wide_limit(K, D):
                                rtol=1e-4, atol=1e-4)
 
 
-class _SparseWeights:
-    """Stands for the reference's edge-list weights (not ported yet)."""
-
-    graph = None
-
-
 def test_unported_options_raise():
     prior, x, mask = _tiny()
     mdl = model_lib.GMMModel(prior, device="cpu")
     adj = torch.ones(4, 4) - torch.eye(4)
-    cases = [
-        (lambda: engine.vb_init(mdl, (x, mask), engine.Isolated(),
-                                executor=object(), device="cpu"), "item 14"),
-        (lambda: engine.RingDiffusion(graph=object()), "item 11"),
-        (lambda: engine.Diffusion(_SparseWeights()), "item 11"),
-        (lambda: engine.ADMMConsensus(object()), "item 11"),
-        (lambda: engine.ADMMConsensus(object(), adaptive_rho=True),
-         "item 11"),
-    ]
-    for fn, item in cases:
-        with pytest.raises(NotImplementedError, match=item):
-            fn()
+    with pytest.raises(NotImplementedError, match="item 14"):
+        engine.vb_init(mdl, (x, mask), engine.Isolated(), executor=object(),
+                       device="cpu")
+    # item 11 (sparse topologies) is ported: its options run
+    g = network.SparseGraph.from_dense(adj)
+    gw, rg = network.two_level_partition(4, 2, 1)
+    for topo in (engine.RingDiffusion(graph=network.SparseGraph.ring(4)),
+                 engine.Diffusion(network.sparse_nearest_neighbor_weights(g)),
+                 engine.PairwiseGossip(g, p_activate=0.5),
+                 engine.HierarchicalFusion(gw, rg),
+                 engine.ADMMConsensus(g),
+                 engine.ADMMConsensus(g, adaptive_rho=True)):
+        run = engine.run_vb(mdl, (x, mask), topo, n_iters=2, device="cpu")
+        assert bool(torch.isfinite(run.phi).all()), type(topo).__name__
+    with pytest.raises(ValueError, match="SparseGraph.ring"):
+        engine.RingDiffusion(graph=g)
     with pytest.raises(ValueError, match="natural-gradient"):
         engine.vb_init(mdl, (x, mask), engine.ADMMConsensus(adj),
                        schedule=engine.ONE_SHOT, device="cpu")

@@ -14,12 +14,17 @@ version's, as chip_smoke.py holds it).  The streaming cases: the link
 coins and epoch permutations are equal bit for bit on the CPU and the
 card; gmm_estep on masks scaled as `stream.advance` makes them (T/B = 8,
 40.96, 5) at the same bars; full-batch streaming specs bit-equal to the
-full-batch fused run.
+full-batch fused run.  The sparse topologies: the segmented-sum combines
+launched twice bit-equal, split/resume and save -> restore -> continue
+bit-equal on the card, the same session on the CPU and the card within
+1e-12 relative after one iteration (the reference backend, f64), the
+link and gossip coins equal bit for bit.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.checkpoint import ckpt
 from repro_torch.core import algorithms, engine, expfam, gmm, network
 from repro_torch.core import model as model_lib
 from repro_torch.core import refperm
@@ -391,3 +396,96 @@ def test_full_batch_streaming_bit_exact_on_card(cuda):
                             minibatch=stream.MinibatchSpec(T, 1, cv))
         assert torch.equal(got.phi, full.phi)
         assert torch.equal(got.kl_nodes, full.kl_nodes)
+
+
+# ---------------------------------------------------------------------------
+# sparse topologies: deterministic segmented sums, resume, CPU vs card
+# ---------------------------------------------------------------------------
+def _sparse_topologies(g, n):
+    sw = network.sparse_nearest_neighbor_weights(g)
+    gw, rg = network.two_level_partition(n, max(1, n // 16),
+                                         max(1, n // 128))
+    return {
+        "diffusion_drop": lambda: engine.Diffusion(sw, link_drop=0.2,
+                                                   link_seed=1),
+        "ring_drop": lambda: engine.RingDiffusion(
+            graph=network.SparseGraph.ring(n), link_drop=0.2),
+        "gossip": lambda: engine.PairwiseGossip(g, p_activate=0.3, seed=5),
+        "hierarchical": lambda: engine.HierarchicalFusion(gw, rg),
+        "admm_adaptive_drop": lambda: engine.ADMMConsensus(
+            g, adaptive_rho=True, per_block=True, link_drop=0.2),
+    }
+
+
+def test_sparse_combine_repeat_determinism(cuda):
+    n = 10_000
+    g, _ = network.random_geometric_edges(n, seed=0)
+    v = torch.rand(n, 27, dtype=torch.float64,
+                   generator=torch.Generator().manual_seed(0)).to(cuda)
+    for name, make in _sparse_topologies(g, n).items():
+        topo = make().to(cuda)
+        if isinstance(topo, engine.ADMMConsensus):
+            outs = [topo._graph_ops(v, 3) for _ in range(2)]
+            a, b = ([o[0], o[1](v)] for o in outs)
+        else:
+            a, b = ([topo.combine(v, t=3)] for _ in range(2))
+        for x, y in zip(a, b):
+            assert torch.equal(x, y), name
+
+
+def _sparse_instance(n, T, dev):
+    data = synthetic.paper_synthetic(n_nodes=n, n_per_node=T, seed=0)
+    prior = expfam.noninformative_prior(3, 2, beta0=0.1, w0_scale=10.0,
+                                        device=dev)
+    g, _ = network.random_geometric_edges(n, seed=0)
+    return data, prior, g
+
+
+@pytest.mark.parametrize("backend", ["fused", "reference"])
+def test_sparse_split_resume_and_checkpoint_on_card(cuda, tmp_path,
+                                                    backend):
+    n = 1000
+    data, prior, g = _sparse_instance(n, 64, cuda)
+    mdl = model_lib.GMMModel(prior, backend=backend, device=cuda)
+    for name, make in _sparse_topologies(g, n).items():
+        kw = ({} if name.startswith("admm")
+              else dict(schedule=engine.Schedule()))
+
+        def fresh():
+            return engine.vb_init(mdl, (data.x, data.mask), make(),
+                                  device=cuda, **kw)
+
+        whole, _ = engine.vb_run(fresh(), 12)
+        part, _ = engine.vb_run(fresh(), 5)
+        path = ckpt.save(str(tmp_path / f"{name}.npz"), part)
+        split, _ = engine.vb_run(part, 7)
+        resumed, _ = engine.vb_run(ckpt.restore(path, fresh()), 7)
+        for got in (split, resumed):
+            assert torch.equal(got.phi, whole.phi), name
+            if whole.carry is not None:
+                for x, y in zip(got.carry, whole.carry):
+                    assert torch.equal(x, y), name
+
+
+def test_sparse_session_cpu_vs_card(cuda):
+    """One iteration of the same sparse session on the CPU and the card
+    (reference backend, f64): the same link and gossip coins, phi within
+    1e-12 relative."""
+    n = 1000
+    data, prior, g = _sparse_instance(n, 20, "cpu")
+    for name, make in _sparse_topologies(g, n).items():
+        kw = ({} if name.startswith("admm")
+              else dict(schedule=engine.Schedule()))
+        phis = {}
+        for dev in ("cpu", cuda):
+            mdl = model_lib.GMMModel(prior.to(dev), device=dev)
+            st = engine.vb_init(mdl, (data.x, data.mask), make(), device=dev,
+                                **kw)
+            phis[str(dev)] = engine.vb_step(st).phi.cpu()
+        a, b = phis["cpu"], phis["cuda"]
+        assert float((a - b).abs().max() / a.abs().max()) <= 1e-12, name
+    for t in (0, 9):
+        coins = [network.sparse_link_keep(network.link_generator(5, t, d),
+                                          g.n_undirected, 0.7).cpu()
+                 for d in ("cpu", cuda)]
+        assert torch.equal(*coins)
