@@ -216,9 +216,10 @@ def unpack_natural(phi: torch.Tensor, K: int, D: int) -> GMMPosterior:
 
 #: the largest batch handed to one CUDA `torch.linalg.eigh` call: the
 #: batched cuSOLVER path (cusolverDnXsyevBatched, torch 2.11 with CUDA
-#: 12.8 on an H100) rejects batches of 32,767 matrices and more with
-#: CUSOLVER_STATUS_INVALID_VALUE in its workspace query (30,000 pass);
-#: the Normal-Wishart projection at 100,000 sensors x K=3 is 300,000
+#: 12.8 on an H100) rejects batches of 32,766 matrices and more with
+#: CUSOLVER_STATUS_INVALID_VALUE in its workspace query (30,000 pass;
+#: tools/eigh_batch_probe.py); the Normal-Wishart projection at 100,000
+#: sensors x K=3 is 300,000
 EIGH_MAX_BATCH = 1 << 14
 
 
