@@ -106,6 +106,22 @@ never JAX or the JAX package, and prints one JSON line per phase:
 6l. topology_scale — repro_torch.experiments.topology_scale --full (N =
    50, 1000, 10000 at 20 points) on the card, each row beside
    BENCH_engine.json's (JAX on a CPU: the KL strings are the comparison);
+6m. vb_serve_fleet — multi-tenant serving through `VBService` at the
+   main path's size (1000 sensors x 4096 points a tenant, K=3, D=2, f32
+   data, f64 iterates, fused, `max_fleet=8`, 25-iteration slices, pow2
+   buckets): A 12 Diffusion tenants (two taus, capacities 2600/3300/4096
+   on rung 4096, budgets 50/100/200, 4 arriving at slice 2 behind a
+   full fleet), B 4 adaptive dVB-ADMM tenants with different rho, C 4
+   RingDiffusion tenants with link_drop 0.2, D 4 streaming SVRG tenants
+   (B = 512); data made once per seed (12 seeds; B-D reuse seeds 0-3).
+   Per group: sessions/s, ms per fleet iteration, gmm_estep launches per
+   fleet iteration (exactly 1 for A-C), the fleet shapes stepped
+   (`compiles`, 1), every tenant against a solo vb_run of its budget on
+   the card (C bit-equal, A/B/D within 1e-9 relative) and the same run
+   in 10-iteration slices (bit-equal); device kernels per fleet
+   iteration at 1, 4 and 8 occupied slots (profiled); gmm_estep_nodes
+   at the fleet's 8000 x 4096 against its plain version by chunks (TOL)
+   and its device time against its bound; peak memory;
 7. lm_kernel_vs_plain — flash_attention and ssd_scan against their plain
    versions (and flash against scaled_dot_product_attention) at the
    tests/test_kernels.py shapes, a ragged S = 1000, the causality case and
@@ -162,6 +178,7 @@ from repro_torch.kernels import flash_attention, ssd_scan  # noqa: E402
 from repro_torch.models import hmm, mamba2, ppca  # noqa: E402
 from repro_torch.models import model as lm_model  # noqa: E402
 from repro_torch.serving import admission, engine  # noqa: E402
+from repro_torch.serving import vb_service  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, f32 outside the
 # tensor cores, bf16 on the tensor cores (dense), f64 on the tensor cores
@@ -1167,6 +1184,220 @@ def phase_engine_remainder(inst, dev) -> dict:
         torch.testing.assert_close(run.kl_mean, ref_run.kl_mean, rtol=1e-4,
                                    atol=1e-4)
     return {"launches": launches["gmm_estep_nodes"]}
+
+
+# ---------------------------------------------------------------------------
+# 6m. multi-tenant VB serving: VBService fleets at the main path's size
+# ---------------------------------------------------------------------------
+# every tenant is the paper's instance at 1000 sensors x 4096 points (K=3,
+# D=2, f32 data, f64 iterates, fused backend), the seed its own; groups
+# B-D reuse seeds 0-3's tensors (made once)
+FLEET_TENANTS, FLEET_MAX = 12, 8
+FLEET_SLICE, FLEET_SLICE_ALT = 25, 10
+FLEET_CAPS = (2600, 3300, 4096)           # true per-node capacities (A)
+FLEET_BUDGETS = (50, 100, 200)            # cycled (A)
+FLEET_TAUS = (0.2, 0.1)                   # Robbins-Monro tau, lifted (A)
+FLEET_RHOS = (0.3, 0.5, 0.8, 1.0)         # adaptive ADMM's initial rho (B)
+FLEET_PROFILE_SLOTS = (1, 4, 8)
+FLEET_REL = 1e-9
+
+
+def _fleet_requests(inst, data, dev):
+    """{group: [(VBRequest, arrive_at)]} of the four groups: A diffusion
+    (Eq. 47), 12 tenants, taus cycled, capacities 2600/3300/4096 all on
+    rung 4096, budgets 50/100/200, 8 arriving at slice 0 and 4 at slice
+    2; B adaptive dVB-ADMM, 4 tenants with different rho, 200 iterations;
+    C RingDiffusion with link_drop 0.2, 4 tenants, 100 iterations; D
+    streaming dSVB (B = 512, SVRG), 4 tenants at exact capacity 4096, 200
+    iterations.  One topology object a group."""
+    cfg, x, mask, adj, W, prior, ref, init_q = inst
+    mdl = GMMModel(prior, cfg.K, cfg.D, backend="fused", device=dev)
+    phi0 = expfam.pack_natural(init_q).expand(N_NODES, mdl.flat_dim)
+    diffusion = vb_engine.Diffusion(W)
+    ring = vb_engine.RingDiffusion(link_drop=0.2, link_seed=SEED)
+    sched = vb_engine.Schedule(tau=cfg.tau, d0=cfg.d0)
+
+    def req(i, topo, n, **kw):
+        return vb_service.VBRequest(model=mdl, data=data[i], topology=topo,
+                                    n_iters=n, init_phi=phi0, **kw)
+
+    groups = {"A": [], "B": [], "C": [], "D": []}
+    for i in range(FLEET_TENANTS):
+        cap = FLEET_CAPS[i % 3]
+        xi, mi = data[i]
+        groups["A"].append((vb_service.VBRequest(
+            model=mdl, data=(xi[:, :cap].contiguous(),
+                             mi[:, :cap].contiguous()), topology=diffusion,
+            n_iters=FLEET_BUDGETS[i % 3], init_phi=phi0,
+            schedule=vb_engine.Schedule(tau=FLEET_TAUS[i % 2], d0=cfg.d0)),
+            0 if i < FLEET_MAX else 2))
+    for i, rho in enumerate(FLEET_RHOS):
+        groups["B"].append((req(i, vb_engine.ADMMConsensus(
+            adj, rho=rho, xi=cfg.xi, adaptive_rho=True), 200), 0))
+        groups["C"].append((req(i, ring, 100, schedule=sched), 0))
+        groups["D"].append((req(i, diffusion, 200, schedule=sched,
+                                minibatch=stream_lib.MinibatchSpec(
+                                    STREAM_BATCH, SEED, "svrg")), 0))
+    return groups
+
+
+def _fleet_serve(reqs, slice_iters, dev):
+    """Submit a group's requests to a fresh VBService and drain it:
+    (service, rids, {rid: SessionStatus}, submit s, drain s)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    svc = vb_service.VBService(slice_iters=slice_iters, max_fleet=FLEET_MAX,
+                               bucket="pow2", device=dev)
+    rids = [svc.submit(r, arrive_at=a) for r, a in reqs]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = svc.run()
+    torch.cuda.synchronize()
+    return svc, rids, out, t1 - t0, time.perf_counter() - t1
+
+
+def _fleet_profile(reqs, n_slots, dev) -> dict:
+    """Device kernels, busy ms and wall ms per fleet iteration of group
+    A's fleet (8 slots) with `n_slots` of them occupied: one warm slice,
+    then one profiled slice (`profile_window`)."""
+    svc = vb_service.VBService(slice_iters=FLEET_SLICE, max_fleet=FLEET_MAX,
+                               device=dev)
+    for r, _ in reqs[:n_slots]:
+        svc.submit(r._replace(n_iters=3 * FLEET_SLICE))
+    svc.step_slice()
+    torch.cuda.synchronize()
+    prof = profile_window(svc.step_slice, named=("gmm_estep",))
+    return {"occupied": n_slots, "slots": FLEET_MAX,
+            "kernels_per_iter": prof["kernels_launched"] / FLEET_SLICE,
+            "device_busy_ms_per_iter": prof["device_busy_ms"] / FLEET_SLICE,
+            "profiled_wall_ms_per_iter": prof["wall_ms"] / FLEET_SLICE,
+            "device_idle_share": prof["device_idle_share"],
+            "top_kernels": prof["top"][:4]}
+
+
+def phase_vb_serve_fleet(inst, dev) -> dict:
+    """The serving slice at full width (module docstring, 6m)."""
+    t_phase = time.perf_counter()
+    cfg = inst[0]
+    t0 = time.perf_counter()
+    data = []
+    for s in range(FLEET_TENANTS):
+        d = synthetic.paper_synthetic(n_nodes=N_NODES,
+                                      n_per_node=N_PER_NODE, seed=s,
+                                      dtype=np.float32)
+        data.append((d.x.to(dev), d.mask.to(dev)))
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    groups = _fleet_requests(inst, data, dev)
+    # warm-up outside the window: a one-tenant fleet of each group, 2 its
+    _ = [_fleet_serve([(r._replace(n_iters=2), 0)], FLEET_SLICE, dev)
+         for r, _ in (g[0] for g in groups.values())]
+    torch.cuda.reset_peak_memory_stats()
+    runs, out = {}, {}
+    zero_launches()                                 # the serving window
+    for name, reqs in groups.items():
+        before = ops.gmm_estep_nodes.launches
+        svc, rids, res, sub_s, run_s = _fleet_serve(reqs, FLEET_SLICE, dev)
+        launched = ops.gmm_estep_nodes.launches - before
+        st = svc.stats()
+        iters = st.slices * FLEET_SLICE
+        runs[name] = (svc, rids, res)
+        out[name] = {
+            "tenants": len(reqs), "slices": st.slices,
+            "fleet_iterations": iters, "submit_s": sub_s, "drain_s": run_s,
+            "sessions_per_s": len(reqs) / (sub_s + run_s),
+            "ms_per_fleet_iter": run_s * 1e3 / iters,
+            "gmm_estep_launches": launched,
+            "gmm_estep_launches_per_fleet_iter": launched / iters,
+            "compiles": st.compiles, "admitted": st.admitted,
+            "evicted": st.evicted, "occupancy": st.occupancy,
+            "buckets": [b._asdict() for b in st.buckets],
+            "t": [res[r].t for r in rids],
+            "finite": all(bool(torch.isfinite(res[r].phi).all())
+                          for r in rids)}
+        if not out[name]["finite"] or st.compiles != 1 \
+                or st.admitted != len(reqs) or st.queue_depth:
+            raise AssertionError(f"fleet {name}: {out[name]}")
+        if name != "D" and launched != iters:
+            raise AssertionError(f"fleet {name}: {launched} gmm_estep "
+                                 f"launches for {iters} fleet iterations")
+    launches = read_launches()                      # read just after
+    peak = torch.cuda.max_memory_allocated()
+
+    # each tenant against a solo vb_run of its budget on the card, and
+    # the same admissions driven in slices of FLEET_SLICE_ALT (every
+    # group is measured and printed; a miss fails the phase at its end)
+    misses = []
+    for name, reqs in groups.items():
+        svc, rids, res = runs[name]
+        worst, bit_equal = 0.0, True
+        for (r, _), rid in zip(reqs, rids):
+            solo = vb_engine.run_vb(
+                r.model, r.data, r.topology, n_iters=r.n_iters,
+                schedule=r.schedule, init_phi=r.init_phi,
+                minibatch=r.minibatch, diagnostics=False, device=dev)
+            got = res[rid].phi
+            bit_equal &= bool(torch.equal(solo.phi, got))
+            worst = max(worst, float((solo.phi - got).abs().max()
+                                     / solo.phi.abs().max()))
+        _, rids2, res2, _, _ = _fleet_serve(reqs, FLEET_SLICE_ALT, dev)
+        invariant = all(torch.equal(res[a].phi, res2[b].phi)
+                        and res[a].t == res2[b].t
+                        for a, b in zip(rids, rids2))
+        out[name].update(vs_solo_max_rel=worst, vs_solo_bit_equal=bit_equal,
+                         bar="bit-equal" if name == "C" else FLEET_REL,
+                         slice_invariant=invariant)
+        emit("vb_serve_fleet_group", group=name, nodes=N_NODES,
+             points_per_node=N_PER_NODE, slice_iters=FLEET_SLICE,
+             max_fleet=FLEET_MAX, **out[name])
+        if not invariant:
+            misses.append(f"fleet {name}: not bit-invariant to the slice "
+                          "length")
+        if (name == "C" and not bit_equal) or worst > FLEET_REL:
+            misses.append(f"fleet {name} vs solo: {worst}")
+
+    # device kernels per fleet iteration at 1, 4 and 8 occupied slots
+    profiles = [_fleet_profile(groups["A"], n, dev)
+                for n in FLEET_PROFILE_SLOTS]
+
+    # the kernel at the fleet's shape: group A's buffers (8000 x 4096,
+    # f32 x, padded nodes included) on the terms of its final iterate,
+    # unreplicated as in phase 4, against its plain version by chunks
+    g = next(iter(runs["A"][0]._groups.values()))
+    xs, ms_ = (a.reshape((-1,) + a.shape[2:]) for a in g.stream_data[:2])
+    q = expfam.unpack_natural(g.phi.reshape(xs.shape[0], -1), cfg.K, cfg.D)
+    shift = q.m.float().contiguous()
+    terms = [t.contiguous() for t in gmm.estep_terms(q, torch.float32,
+                                                     shift=shift)]
+    err, share = _compare(
+        ops.gmm_estep_nodes(xs, ms_, *terms, shift=shift, return_r=False),
+        _plain_by_chunks(xs, ms_, terms, shift))
+    k_ms = graph_time_ms(lambda: ops.gmm_estep_nodes(
+        xs, ms_, *terms, float(N_NODES), shift=shift, return_r=False), 10)
+    bound, by, n_bytes, _ = _gmm_bound(xs, ms_, terms, shift, cfg.K, cfg.D)
+    kpi = [p["kernels_per_iter"] for p in profiles]
+    emit("vb_serve_fleet", groups=sorted(groups), profiles=profiles,
+         kernels_per_iter_8_over_1=kpi[-1] / kpi[0],
+         gmm_estep_launches_per_fleet_iter={
+             n: o["gmm_estep_launches_per_fleet_iter"]
+             for n, o in out.items()},
+         compiles={n: o["compiles"] for n, o in out.items()},
+         sessions_per_s={n: o["sessions_per_s"] for n, o in out.items()},
+         ms_per_fleet_iter={n: o["ms_per_fleet_iter"]
+                            for n, o in out.items()},
+         fleet_kernel={"nodes": int(xs.shape[0]),
+                       "points_per_node": int(xs.shape[1]), "ms": k_ms,
+                       "bound_ms": bound, "bound_by": by, "bytes": n_bytes,
+                       "fraction_of_bound": bound / k_ms,
+                       "max_abs_err": err, "bar_share": share},
+         launches=launches, max_memory_allocated=peak,
+         data_seconds=data_s, seconds=time.perf_counter() - t_phase)
+    if kpi[-1] > 1.5 * kpi[0]:
+        misses.append(f"device kernels per fleet iteration: {kpi}")
+    if misses:
+        raise AssertionError("; ".join(misses))
+    return {"launches": launches["gmm_estep_nodes"], "max_abs_err": err,
+            "ms": k_ms, "bound_ms": bound}
 
 
 # ---------------------------------------------------------------------------
@@ -2502,6 +2733,7 @@ def main():
     phase_profile(inst, dev)
     phase_engine_remainder(inst, dev)
     phase_stream_main_path(inst, dev)
+    fleet = phase_vb_serve_fleet(inst, dev)
     del inst, x, mask
     torch.cuda.empty_cache()
     sparse = phase_sparse_main_path(dev)
@@ -2531,11 +2763,15 @@ def main():
         "name": "gmm_estep_nodes", "route": "cuda",
         "source": "src/repro_torch/csrc/gmm_estep.cu",
         "replaces": "src/repro/kernels/gmm_estep.py:118",
-        # the main path's launches and the sparse main path's (the
-        # register path runs both), the worse error of the two shapes
-        "launches": mp["launches"] + sparse["launches"],
-        "max_abs_err": max(mp["max_abs_err"], sparse["max_abs_err"]),
-        "max_err": max(mp["max_abs_err"], sparse["max_abs_err"]),
+        # the main path's launches, the sparse main path's and the
+        # serving fleets' (the register path runs all three), the worst
+        # error of the three shapes
+        "launches": mp["launches"] + sparse["launches"]
+        + fleet["launches"],
+        "max_abs_err": max(mp["max_abs_err"], sparse["max_abs_err"],
+                           fleet["max_abs_err"]),
+        "max_err": max(mp["max_abs_err"], sparse["max_abs_err"],
+                       fleet["max_abs_err"]),
         "ms": mp["ms"],
         "plain_ms": mp["plain_ms"], "bound_ms": mp["bound_ms"],
         "bound_by": mp["bound_by"], "library_ms": None}, {

@@ -305,3 +305,49 @@ class BlockModel:
             out.append(torch.gather(a, 1, ix.expand(idx.shape
                                                     + a.shape[2:])))
         return (*out, mb_mask)
+
+    # -- serving: fixed-capacity buffers (host-side, at slice boundaries) --
+    def append_node_data(self, data: Any, node: int, points: Any) -> Any:
+        """New `(x, mask)` buffers with `points` (leading axis = new
+        samples, trailing axes = x's per-sample shape) written into node
+        `node`'s first free mask-zero slots: the same shapes and dtypes,
+        so a fleet slot takes them in place.  Raises ValueError when the
+        node has fewer free slots than points."""
+        x, mask = data
+        points = torch.as_tensor(np.asarray(points), dtype=x.dtype,
+                                 device=x.device)
+        if points.dim() == x.dim() - 2:
+            points = points[None]
+        slots = self._free_slots(mask, node, points.shape[0])
+        x, mask = x.clone(), mask.clone()
+        x[node, slots] = points
+        mask[node, slots] = 1
+        return (x, mask)
+
+    def _free_slots(self, mask: torch.Tensor, node: int,
+                    n_new: int) -> torch.Tensor:
+        """The first `n_new` mask-zero slots of node `node` (a host read
+        of the node's mask row)."""
+        free = torch.nonzero(mask[node] <= 0).flatten()
+        if free.shape[0] < n_new:
+            raise ValueError(
+                f"node {node}: buffer full ({int(free.shape[0])} free "
+                f"slot(s), {n_new} new point(s))")
+        return free[:n_new]
+
+    def pad_to_capacity(self, data: Any, capacity: int) -> Any:
+        """Every buffer padded along the sample axis (1) to `capacity`
+        with zeros: mask-zero slots that change no statistic.  Raises
+        ValueError below the current capacity."""
+        T = self.data_mask(data).shape[1]
+        if capacity < T:
+            raise ValueError(
+                f"capacity {capacity} < current buffer size {T}")
+        if capacity == T:
+            return data
+        return tuple(_pad_axis1(torch.as_tensor(a), capacity - T)
+                     for a in data)
+
+
+def _pad_axis1(a: torch.Tensor, pad: int) -> torch.Tensor:
+    return torch.cat([a, a.new_zeros((a.shape[0], pad) + a.shape[2:])], 1)

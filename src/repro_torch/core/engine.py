@@ -36,6 +36,9 @@ exactly.  `run_vb` is the one-shot wrapper.  `session_step_fn` is the
 one-iteration kernel over raw state with the data as an argument, and
 `hyper_names` / `session_hyper` the per-session constants (tau, d0,
 rho, xi) it can take as a `hyper` dict instead of the built-in ones.
+`fleet_step_fn` is the same iteration over a serving fleet: S sessions
+along a leading slot axis, each at its own device-side t, one local step
+for the whole fleet (serving/driver.py).
 
 Streaming (`minibatch=data.stream.MinibatchSpec(...)`): each iteration
 gathers a per-node minibatch with a scaled mask (data/stream.py) from the
@@ -109,17 +112,37 @@ class Schedule(NamedTuple):
     d0: float = 1.0
     eta_fixed: Optional[float] = None
 
-    def eta(self, t: int, hyper=None):
+    def eta(self, t, hyper=None):
         """eta_t.  `hyper` (see `hyper_names`) may override `tau` / `d0`
-        with per-session values; None keeps the built-in constants."""
+        with per-session values; None keeps the built-in constants.  A
+        serving fleet's t is an (S,) int64 tensor (and its hyper (S,)
+        tensors): eta_t is then (S,) in float64, the same IEEE operations
+        as the Python float of an int t."""
         if self.eta_fixed is not None:
             return float(self.eta_fixed)
         tau = self.tau if not hyper or "tau" not in hyper else hyper["tau"]
         d0 = self.d0 if not hyper or "d0" not in hyper else hyper["d0"]
-        return eta_schedule(t + 1.0, tau, d0)
+        return eta_schedule(_float_t(t) + 1.0, tau, d0)
 
 
 ONE_SHOT = Schedule(eta_fixed=1.0)
+
+
+def _float_t(t):
+    """An iteration index as a float: a Python float of an int, float64
+    of a fleet's (S,) int64 tensor (never the default f32 that `t + 1.0`
+    would give an int tensor)."""
+    return t.to(torch.float64) if isinstance(t, torch.Tensor) else float(t)
+
+
+def _per_slot(v, like: torch.Tensor):
+    """A per-session factor against a (..., N, P) operand: a Python
+    number or a 0-dim tensor as it is; a fleet's (S,) tensor in `like`'s
+    dtype, viewed (S, 1, 1) (the same rounding as the scalar a solo
+    session multiplies by)."""
+    if isinstance(v, torch.Tensor) and v.dim() >= 1:
+        return v.to(like.dtype).reshape(v.shape + (1, 1))
+    return v
 
 
 def _as_tensor(a) -> torch.Tensor:
@@ -164,6 +187,17 @@ def residual_balanced_rho(rho, r_norm, s_norm, *, mu: float = 10.0,
 # ---------------------------------------------------------------------------
 # Time-varying links (failing sensor links, Sec. II's unreliable networks)
 # ---------------------------------------------------------------------------
+def _given_masks(fn, t, dtype, device) -> torch.Tensor:
+    """A parity hook's mask of iteration t on `device`.  For a serving
+    fleet's (S,) t the hook is called once per slot with that slot's t,
+    read on the host: the one device sync a fleet iteration makes, and
+    only when a hook is given (the port's own coins need none)."""
+    if isinstance(t, torch.Tensor):
+        return torch.stack([_given_masks(fn, ti, dtype, device)
+                            for ti in t.tolist()])
+    return _as_tensor(fn(t)).to(device=device, dtype=dtype)
+
+
 class _LinkSchedule:
     """Per-iteration link-failure schedule shared by the topologies.
 
@@ -180,7 +214,8 @@ class _LinkSchedule:
       run's device).
 
     With neither set the topology is static and takes the time-invariant
-    code path unchanged.
+    code path unchanged.  A serving fleet passes t as an (S,) tensor, one
+    iteration per slot: the masks take a leading (S,) axis.
     """
 
     def __init__(self, link_drop: float = 0.0, link_seed: int = 0,
@@ -200,11 +235,10 @@ class _LinkSchedule:
             raise ValueError(
                 "time-varying links need the iteration index: call "
                 "combine(..., t=<iteration>) (run_vb supplies it)")
-        return int(t)
+        return t if isinstance(t, torch.Tensor) else int(t)
 
     def _given(self, t, dtype, device):
-        return _as_tensor(self.link_mask_fn(t)).to(device=device,
-                                                   dtype=dtype)
+        return _given_masks(self.link_mask_fn, t, dtype, device)
 
     def keep_matrix(self, t, n: int, dtype, device) -> torch.Tensor:
         t = self._require_t(t)
@@ -236,15 +270,36 @@ class _LinkSchedule:
             n_undirected, self.link_drop, dtype)
 
 
-def _segment_sum(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-    """Sums of consecutive segments of x's rows, of the given lengths: the
-    sparse reduce (a `SparseGraph`'s receiver-sorted edges with the
-    lengths `deg`; a hierarchy's sorted members).  Each segment is added
-    in row order by one thread (no float atomics, unlike `index_add_` on
-    CUDA), so two launches on the same inputs agree bit for bit, and
-    `unsafe=True` skips the length check that would wait for the
-    device."""
-    return torch.segment_reduce(x, "sum", lengths=lengths, axis=0,
+def _dense_apply(M: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """M @ z for a (..., N, N) matrix and a (..., N, P) stack.  A serving
+    fleet's (S, N, P) stack is multiplied slot by slot, each product the
+    one a solo session makes: cuBLAS picks its algorithm by shape, and on
+    the H100 no batched form (`bmm`, the folded `matmul`, `einsum`, one
+    wide GEMM) rounds like the solo (N, N) @ (N, P) product for S > 1,
+    a last-ulp difference the GMM iteration grows to ~2e-9 relative over
+    200 iterations at 1000 sensors x 4096 points (PERF.md's serving
+    entry).  S launches of an O(N^2 P) product beside a fleet iteration's
+    ~180 kernels."""
+    if z.dim() == 2:
+        return M @ z
+    return torch.stack([(M if M.dim() == 2 else M[s]) @ z[s]
+                        for s in range(z.shape[0])])
+
+
+def _segment_sum(x: torch.Tensor, lengths: torch.Tensor,
+                 axis: int = 0) -> torch.Tensor:
+    """Sums of consecutive segments of x along `axis`, of the given
+    lengths: the sparse reduce (a `SparseGraph`'s receiver-sorted edges
+    with the lengths `deg`; a hierarchy's sorted members).  Each segment
+    is added in order by one thread (no float atomics, unlike
+    `index_add_` on CUDA), so two launches on the same inputs agree bit
+    for bit, a fleet's slots (leading axes) are reduced each on its own
+    exactly as a solo session, and `unsafe=True` skips the length check
+    that would wait for the device."""
+    axis = axis % x.dim()
+    if axis:
+        lengths = lengths.expand(x.shape[:axis] + lengths.shape)
+    return torch.segment_reduce(x, "sum", lengths=lengths, axis=axis,
                                 unsafe=True)
 
 
@@ -253,25 +308,28 @@ def _sparse_combine(graph, w_edge, w_self, varphi: torch.Tensor,
     """Eq. 27b in edge-list form: phi_i <- w_self_i varphi_i
     + sum_{e: recv(e)=i} w_e varphi_send(e), one segmented sum over the
     directed edges: O(E P) work, O(N P + E P) memory, no (N, N) matrix.
+    varphi is (..., N, P): a serving fleet's slots lead, each combined
+    over its own nodes.
 
-    `keep_und` gates the undirected links of a time-varying network: the
-    surviving weights renormalise per receiver (for Eq. 47 weights that
-    is Eq. 47 on the surviving graph, the dense `_effective_weights`),
-    and a node with no live link and zero self-weight keeps its iterate.
+    `keep_und` ((..., E_undirected)) gates the undirected links of a
+    time-varying network: the surviving weights renormalise per receiver
+    (for Eq. 47 weights that is Eq. 47 on the surviving graph, the dense
+    `_effective_weights`), and a node with no live link and zero
+    self-weight keeps its iterate.
     """
     w_e = w_edge.to(varphi.dtype)
     w_s = w_self.to(varphi.dtype)
-    msg = varphi.index_select(0, graph.senders)          # (E, P)
+    msg = varphi.index_select(-2, graph.senders)         # (..., E, P)
     if keep_und is None:
-        return w_s[:, None] * varphi + _segment_sum(w_e[:, None] * msg,
-                                                    graph.deg)
-    w_e = w_e * keep_und.index_select(0, graph.edge_id).to(varphi.dtype)
-    num = w_s[:, None] * varphi + _segment_sum(w_e[:, None] * msg,
-                                               graph.deg)
-    den = w_s + _segment_sum(w_e, graph.deg)
+        return w_s[:, None] * varphi + _segment_sum(
+            w_e[:, None] * msg, graph.deg, -2)
+    w_e = w_e * keep_und.index_select(-1, graph.edge_id).to(varphi.dtype)
+    num = w_s[:, None] * varphi + _segment_sum(w_e[..., None] * msg,
+                                               graph.deg, -2)
+    den = w_s + _segment_sum(w_e, graph.deg, -1)
     isolated = den <= 0.0
     safe = torch.where(isolated, torch.ones_like(den), den)
-    return torch.where(isolated[:, None], varphi, num / safe[:, None])
+    return torch.where(isolated[..., None], varphi, num / safe[..., None])
 
 
 # ---------------------------------------------------------------------------
@@ -280,7 +338,11 @@ def _sparse_combine(graph, w_edge, w_self, varphi: torch.Tensor,
 class _CombineTopology:
     """Topologies of the form: (27a) varphi_i = phi_i + eta (phi*_i - phi_i),
     then a linear combine of {varphi_i}.  `step` returns
-    (phi_next, carry_next, diag); diag is None for combine topologies."""
+    (phi_next, carry_next, diag); diag is None for combine topologies.
+
+    Every combine reduces over the node axis -2 of a (..., N, P) stack: a
+    solo session's (N, P), or a serving fleet's (S, N, P) with t an (S,)
+    tensor, where each slot is combined over its own nodes only."""
 
     uses_schedule = True
     emits_diagnostics = False
@@ -308,7 +370,8 @@ class _CombineTopology:
         if schedule.eta_fixed == 1.0:
             varphi = phi_star                       # one-shot: jump to phi*
         else:                                       # Eq. 27a
-            varphi = phi + schedule.eta(t, hyper) * (phi_star - phi)
+            varphi = phi + _per_slot(schedule.eta(t, hyper), phi) * (
+                phi_star - phi)
         return self.combine(varphi, t=t), carry, None
 
 
@@ -321,7 +384,7 @@ class FusionCenter(_CombineTopology):
     """
 
     def combine(self, varphi, *, t=None):
-        return varphi.mean(0).expand_as(varphi)
+        return varphi.mean(-2, keepdim=True).expand_as(varphi)
 
 
 class Isolated(_CombineTopology):
@@ -374,8 +437,8 @@ class Diffusion(_CombineTopology):
         keep = self.links.keep_matrix(t, n, W.dtype, W.device)
         keep = torch.maximum(keep, torch.eye(n, dtype=W.dtype,
                                              device=W.device))
-        W_eff = W * keep
-        rows = W_eff.sum(1, keepdim=True)
+        W_eff = W * keep                              # (..., N, N)
+        rows = W_eff.sum(-1, keepdim=True)
         return W_eff / torch.where(rows > 0, rows, torch.ones_like(rows))
 
     def combine(self, varphi, *, t=None):
@@ -388,7 +451,7 @@ class Diffusion(_CombineTopology):
         W = self.weights.to(varphi.dtype)
         if self.links.time_varying:
             W = self._effective_weights(W, t)
-        return W @ varphi
+        return _dense_apply(W, varphi)
 
 
 class RingDiffusion(_CombineTopology):
@@ -435,11 +498,13 @@ class RingDiffusion(_CombineTopology):
         (row-stochastic every iteration)."""
         w_n = (1.0 - self.w_self) / 2.0
         num = (self.w_self * varphi
-               + w_n * (e_left[:, None] * left + e_right[:, None] * right))
+               + w_n * (e_left[..., None] * left
+                        + e_right[..., None] * right))
         den = self.w_self + w_n * (e_left + e_right)
         isolated = den <= 0.0
         safe = torch.where(isolated, torch.ones_like(den), den)
-        return torch.where(isolated[:, None], varphi, num / safe[:, None])
+        return torch.where(isolated[..., None], varphi,
+                           num / safe[..., None])
 
     def combine(self, varphi, *, t=None):
         if self.graph is not None:
@@ -450,14 +515,15 @@ class RingDiffusion(_CombineTopology):
                     if self.links.time_varying else None)
             return _sparse_combine(self.graph, self.w_edge,
                                    self.w_self_nodes, varphi, keep)
-        left = torch.roll(varphi, 1, dims=0)             # phi_{i-1}
-        right = torch.roll(varphi, -1, dims=0)           # phi_{i+1}
+        left = torch.roll(varphi, 1, dims=-2)            # phi_{i-1}
+        right = torch.roll(varphi, -1, dims=-2)          # phi_{i+1}
         if not self.links.time_varying:
             w_n = (1.0 - self.w_self) / 2.0
             return self.w_self * varphi + w_n * (left + right)
-        n = varphi.shape[0]
+        n = varphi.shape[-2]
         e = self.links.keep_ring(t, n, varphi.dtype, varphi.device)
-        return self._gated(varphi, left, right, torch.roll(e, 1, dims=0), e)
+        return self._gated(varphi, left, right, torch.roll(e, 1, dims=-1),
+                           e)
 
 
 class PairwiseGossip(_CombineTopology):
@@ -499,11 +565,11 @@ class PairwiseGossip(_CombineTopology):
         self.seed = int(seed)
         self.active_mask_fn = active_mask_fn
 
-    def active(self, t: int, dtype, device) -> torch.Tensor:
-        """Iteration t's (E_undirected,) activation mask."""
+    def active(self, t, dtype, device) -> torch.Tensor:
+        """Iteration t's (E_undirected,) activation mask ((S, E_und) for
+        a fleet's (S,) t)."""
         if self.active_mask_fn is not None:
-            return _as_tensor(self.active_mask_fn(t)).to(device=device,
-                                                         dtype=dtype)
+            return _given_masks(self.active_mask_fn, t, dtype, device)
         # active with probability p_activate: kept at drop 1 - p
         return network_lib.sparse_link_keep(
             network_lib.link_generator(self.seed, t, device),
@@ -516,12 +582,15 @@ class PairwiseGossip(_CombineTopology):
                 "index: call combine(..., t=<iteration>) (run_vb supplies "
                 "it)")
         g = self.graph
-        act = self.active(int(t), varphi.dtype, varphi.device)
-        act_dir = act.index_select(0, g.edge_id)
+        if not isinstance(t, torch.Tensor):
+            t = int(t)
+        act = self.active(t, varphi.dtype, varphi.device)
+        act_dir = act.index_select(-1, g.edge_id)
         num = varphi + _segment_sum(
-            act_dir[:, None] * varphi.index_select(0, g.senders), g.deg)
-        den = 1.0 + _segment_sum(act_dir, g.deg)      # 1 + |N_i^active|
-        return num / den[:, None]
+            act_dir[..., None] * varphi.index_select(-2, g.senders), g.deg,
+            -2)
+        den = 1.0 + _segment_sum(act_dir, g.deg, -1)  # 1 + |N_i^active|
+        return num / den[..., None]
 
 
 class HierarchicalFusion(_CombineTopology):
@@ -584,16 +653,16 @@ class HierarchicalFusion(_CombineTopology):
 
     @staticmethod
     def _segment_mean(x, order, count):
-        return (_segment_sum(x.index_select(0, order), count)
+        return (_segment_sum(x.index_select(-2, order), count, -2)
                 / count.to(x.dtype)[:, None])
 
     def combine(self, varphi, *, t=None):
         gw_mean = self._segment_mean(varphi, self.gw_order, self.gw_count)
         rg_mean = self._segment_mean(gw_mean, self.rg_order, self.rg_count)
         return (self.w_self * varphi
-                + self.w_gateway * gw_mean.index_select(0, self.gateway_of)
+                + self.w_gateway * gw_mean.index_select(-2, self.gateway_of)
                 + self.w_region * rg_mean.index_select(
-                    0, self.region_of_node))
+                    -2, self.region_of_node))
 
 
 class ConsensusDiagnostics(NamedTuple):
@@ -756,13 +825,14 @@ class ADMMConsensus(_CombineTopology):
 
     @staticmethod
     def _block_norms(z: torch.Tensor, onehot=None) -> torch.Tensor:
-        """RMS norm of the (N, P) stack z: per block ((n_blocks,)) given
-        the one-hot block map, else a scalar."""
-        sq = (z * z).sum(0)
-        n = z.shape[0]
+        """RMS norm of the (..., N, P) stack z: per block ((...,
+        n_blocks)) given the one-hot block map, else one per leading
+        index (a scalar for a solo session)."""
+        sq = (z * z).sum(-2)
+        n = z.shape[-2]
         if onehot is not None:
             return torch.sqrt((sq @ onehot) / (onehot.sum(0) * n))
-        return torch.sqrt(sq.sum() / (n * z.shape[1]))
+        return torch.sqrt(sq.sum(-1) / (n * z.shape[-1]))
 
     def _graph_ops(self, phi, t):
         """(deg, neigh_sum, link_frac) of iteration t's graph: |N_i(t)|,
@@ -775,31 +845,31 @@ class ADMMConsensus(_CombineTopology):
             if self.links.time_varying:
                 keep_und = self.links.keep_edges(t, g.n_undirected,
                                                  phi.dtype, phi.device)
-                keep_dir = keep_und.index_select(0, g.edge_id)
-                link_frac = keep_und.mean()
-                deg = _segment_sum(keep_dir, g.deg)
+                keep_dir = keep_und.index_select(-1, g.edge_id)
+                link_frac = keep_und.mean(-1)
+                deg = _segment_sum(keep_dir, g.deg, -1)
             else:
                 keep_dir = None
                 link_frac = phi.new_ones(())
                 deg = g.deg.to(phi.dtype)
 
             def neigh_sum(z):
-                msg = z.index_select(0, g.senders)
+                msg = z.index_select(-2, g.senders)
                 if keep_dir is not None:
-                    msg = msg * keep_dir[:, None]
-                return _segment_sum(msg, g.deg)
+                    msg = msg * keep_dir[..., None]
+                return _segment_sum(msg, g.deg, -2)
 
             return deg, neigh_sum, link_frac
         adj = self.adj.to(phi.dtype)
         if self.links.time_varying:
             keep = self.links.keep_matrix(t, adj.shape[0], phi.dtype,
                                           phi.device)
-            live = adj * keep
-            link_frac = live.sum() / adj.sum()
+            live = adj * keep                         # (..., N, N)
+            link_frac = live.sum((-2, -1)) / adj.sum()
         else:
             live = adj
             link_frac = phi.new_ones(())
-        return live.sum(1), (lambda z: live @ z), link_frac
+        return live.sum(-1), (lambda z: _dense_apply(live, z)), link_frac
 
     def step(self, model, phi, carry, phi_star, t: int, schedule: Schedule,
              hyper=None):
@@ -813,24 +883,27 @@ class ADMMConsensus(_CombineTopology):
             return self._adaptive_step(model, phi, carry, phi_star, deg,
                                        neigh_sum, link_frac, xi)
         lam = carry
+        deg_c = deg[..., None]                        # (..., N, 1)
+        rho_n = _per_slot(rho, phi)
         # (38a) primal
         phi_hat = (phi_star - 2.0 * lam
-                   + rho * (deg[:, None] * phi + neigh_sum(phi)))
-        phi_hat = phi_hat / (1.0 + 2.0 * rho * deg)[:, None]
+                   + rho_n * (deg_c * phi + neigh_sum(phi)))
+        phi_hat = phi_hat / (1.0 + 2.0 * rho_n * deg_c)
         phi_new = model.project_to_domain(phi_hat) if self.project \
             else phi_hat                              # (38b)
         # (39) dual ascent with the kappa_t ramp (40)
-        kappa = kappa_schedule(t + 1.0, xi)
-        resid = deg[:, None] * phi_new - neigh_sum(phi_new)
-        lam_new = lam + kappa * rho / 2.0 * resid
+        kappa = kappa_schedule(_float_t(t) + 1.0, xi)
+        resid = deg_c * phi_new - neigh_sum(phi_new)
+        # the factor kappa rho / 2 first, as a solo session's scalars
+        lam_new = lam + _per_slot(kappa * rho / 2.0, phi) * resid
         if self.lam_max is not None:
             bound = self.lam_max * phi_star.abs()
             lam_new = torch.clamp(lam_new, -bound, bound)
-        clip_count = ((phi_new - phi_hat).abs().amax(1) > self.clip_tol
-                      ).sum().to(torch.int32)
+        clip_count = ((phi_new - phi_hat).abs().amax(-1) > self.clip_tol
+                      ).sum(-1).to(torch.int32)
         diag = ConsensusDiagnostics(
             primal_resid=self._block_norms(resid),
-            dual_resid=self._block_norms(rho * (phi_new - phi)),
+            dual_resid=self._block_norms(rho_n * (phi_new - phi)),
             rho=torch.as_tensor(rho, dtype=phi.dtype, device=phi.device),
             kappa=torch.as_tensor(kappa, dtype=phi.dtype,
                                   device=phi.device),
@@ -842,30 +915,37 @@ class ADMMConsensus(_CombineTopology):
 
     def _adaptive_step(self, model, phi, carry, phi_star, deg, neigh_sum,
                        link_frac, xi):
+        # a serving fleet's carry holds one (S,) entry per slot (rho
+        # (S, n_blocks) per block), reshaped against (S, N, P) below
         lam, rho_vec, stable, t_act, active = carry
         dt = phi.dtype
+        deg_c = deg[..., None]                        # (..., N, 1)
         if self.per_block:
             labels, onehot = self._block_onehot(model, dt, phi.device)
-            rho_coord = rho_vec[labels]               # (P,)
+            rho_coord = rho_vec[..., labels][..., None, :]   # (..., 1, P)
         else:
             onehot = None
-            rho_coord = rho_vec                       # ()
+            rho_coord = _per_slot(rho_vec, phi)       # () or (S, 1, 1)
 
         # (38a) primal, with the (possibly per-block) penalty
         phi_hat = (phi_star - 2.0 * lam
-                   + rho_coord * (deg[:, None] * phi + neigh_sum(phi)))
-        phi_hat = phi_hat / (1.0 + 2.0 * rho_coord * deg[:, None])
+                   + rho_coord * (deg_c * phi + neigh_sum(phi)))
+        phi_hat = phi_hat / (1.0 + 2.0 * rho_coord * deg_c)
         phi_new = model.project_to_domain(phi_hat) if self.project \
             else phi_hat                              # (38b)
-        clip_active = ((phi_new - phi_hat).abs().amax(1)
-                       > self.clip_tol)               # (N,) clip fired
-        any_clip = clip_active.any()
+        clip_active = ((phi_new - phi_hat).abs().amax(-1)
+                       > self.clip_tol)               # (..., N) clip fired
+        any_clip = clip_active.any(-1)
 
-        resid = deg[:, None] * phi_new - neigh_sum(phi_new)
+        resid = deg_c * phi_new - neigh_sum(phi_new)
         r_norm = self._block_norms(resid, onehot)
         s_norm = self._block_norms(rho_coord * (phi_new - phi), onehot)
-        r_tot = torch.sqrt((r_norm ** 2).sum())
-        s_tot = torch.sqrt((s_norm ** 2).sum())
+        if self.per_block:
+            r_tot = torch.sqrt((r_norm ** 2).sum(-1))
+            s_tot = torch.sqrt((s_norm ** 2).sum(-1))
+        else:                                         # a one-term sum
+            r_tot = torch.sqrt(r_norm ** 2)
+            s_tot = torch.sqrt(s_norm ** 2)
 
         # dual warmup gate: open once s << r for warmup_window iterations
         if self.dual_warmup:
@@ -879,13 +959,13 @@ class ADMMConsensus(_CombineTopology):
         kappa = torch.where(t_act > 0.0, kappa_schedule(t_act, xi), zero)
 
         # (39) dual ascent
-        lam_new = lam + kappa * rho_coord / 2.0 * resid
+        lam_new = lam + _per_slot(kappa, phi) * rho_coord / 2.0 * resid
         if self.lam_max is not None:
             bound = self.lam_max * phi_star.abs()
             lam_new = torch.clamp(lam_new, -bound, bound)
-        clip_count = clip_active.sum().to(torch.int32)
+        clip_count = clip_active.sum(-1).to(torch.int32)
         if self.dual_reset is not None:
-            lam_new = torch.where(clip_active[:, None],
+            lam_new = torch.where(clip_active[..., None],
                                   self.dual_reset * lam_new, lam_new)
             reset_count = clip_count
         else:
@@ -899,7 +979,8 @@ class ADMMConsensus(_CombineTopology):
                 rho_max=self.rho_max)
             do = (active & (torch.fmod(t_act, float(self.adapt_every)) == 0.0)
                   & (t_act > 0.0))
-            rho_vec = torch.where(do, balanced, rho_vec)
+            rho_vec = torch.where(do[..., None] if self.per_block else do,
+                                  balanced, rho_vec)
 
         diag = ConsensusDiagnostics(
             primal_resid=r_norm, dual_resid=s_norm, rho=rho_vec,
@@ -1168,6 +1249,81 @@ def session_step_fn(session: VBSession):
     def fn(data, phi, carry, st, t, hyper=None):
         ses = session if data is session.data else session.with_data(data)
         return _iteration(ses, phi, carry, st, int(t), hyper=hyper)
+
+    return fn
+
+
+def fleet_step_fn(session: VBSession):
+    """The one-iteration kernel over a serving FLEET: S sessions of this
+    session's configuration (model, topology structure, schedule branch,
+    replication, minibatch) batched along a leading slot axis.
+
+        fn(data, stream_data, phi, carry, stream, t, hyper,
+           may_redraw=True) -> (phi', carry', stream', diag)
+
+    data / stream_data : the fleet's buffers, every leaf (S, N, ...);
+        `stream_data` is the hot path's copy (`model.stream_data`, the
+        data leaves themselves where no cast is needed).
+    phi : (S, N, P); carry / stream : the topology carry and the
+        `stream.StreamState` with a leading (S,) axis on every leaf
+        (epoch an (S,) int64 tensor).
+    t : (S,) int64 tensor, each slot's absolute iteration, on the device.
+    hyper : {name: (S,) tensor}, the lifted constants (`session_hyper`).
+    may_redraw : False when the caller knows no slot can enter a new
+        stream epoch at this iteration (`stream.advance_fleet`).
+
+    The local step runs ONCE over the fleet's data viewed as (S N, T,
+    ...) and the iterates as (S N, P) (views, no copy): for the GMM on
+    the fused backend one `gmm_estep_nodes` launch, whatever S is.  The
+    topology then combines over dim 1 of (S, N, P), inside each slot;
+    eta_t, kappa_t, the link coins, the gossip activations and the
+    stream's epoch and window all come from the per-slot t.  Slot by
+    slot the result is `session_step_fn`'s at that slot's t.  SVRG's
+    full-batch anchor is recomputed for the whole fleet when
+    `may_redraw` and kept where a slot's epoch did not change (one extra
+    local step at such an iteration, as a solo session makes one at its
+    own epoch change)."""
+    model, mb, rep = session.model, session.minibatch, session.replication
+    topology, schedule = session.topology, session.schedule
+
+    def fn(data, stream_data, phi, carry, st, t, hyper, may_redraw=True):
+        S, N, P = phi.shape
+
+        def flat(a):
+            return a.reshape((S * N,) + a.shape[2:])
+
+        def flat_tree(d):
+            return flat(d) if isinstance(d, torch.Tensor) \
+                else tuple(flat(a) for a in d)
+
+        def optimum(d, phi_nodes):
+            return model.local_optimum(
+                d, phi_nodes.reshape(S * N, P), rep).reshape(S, N, P)
+
+        if mb is None:
+            data_t, st_new = flat_tree(stream_data), st
+        else:
+            st_new, idx, mb_mask = stream_lib.advance_fleet(
+                st, model.data_mask(data), t, mb.batch_size, mb.perm_fn,
+                may_redraw)
+            data_t = model.take_minibatch(flat_tree(stream_data),
+                                          flat(idx), flat(mb_mask))
+        if st is not None and st.anchor_phi is not None:
+            anchor_phi, anchor_full = st.anchor_phi, st.anchor_full
+            if may_redraw:
+                new = (st_new.epoch != st.epoch)[:, None, None]
+                full = optimum(flat_tree(stream_data), phi)
+                anchor_phi = torch.where(new, phi, anchor_phi)
+                anchor_full = torch.where(new, full, anchor_full)
+            st_new = st_new._replace(anchor_phi=anchor_phi,
+                                     anchor_full=anchor_full)
+            phi_star = (optimum(data_t, phi) - optimum(data_t, anchor_phi)
+                        + anchor_full)
+        else:
+            phi_star = optimum(data_t, phi)
+        phi, carry, diag = topology.step(model, phi, carry, phi_star, t,
+                                         schedule, hyper=hyper)
+        return phi, carry, st_new, diag
 
     return fn
 

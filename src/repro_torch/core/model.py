@@ -170,3 +170,19 @@ class LinRegModel(blocks.BlockModel):
 
     def take_minibatch(self, data, idx, mb_mask):
         return super().take_minibatch(self._raw_data(data), idx, mb_mask)
+
+    def append_node_data(self, data, node, points):
+        """`points` is an (X_new (M, D), y_new (M,)) pair, written into
+        node `node`'s first free mask-zero slots of (X, y, mask)."""
+        X, y, mask = self._raw_data(data)
+        X_new, y_new = (torch.as_tensor(np.asarray(a), dtype=ref.dtype,
+                                        device=ref.device)
+                        for a, ref in zip(points, (X, y)))
+        if X_new.dim() == 1:
+            X_new, y_new = X_new[None], y_new.reshape(1)
+        slots = self._free_slots(mask, node, X_new.shape[0])
+        X, y, mask = X.clone(), y.clone(), mask.clone()
+        X[node, slots] = X_new
+        y[node, slots] = y_new
+        mask[node, slots] = 1
+        return (X, y, mask)

@@ -23,7 +23,7 @@ Two graph representations live here:
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -179,26 +179,34 @@ def uniform(words: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 class LinkCoins(NamedTuple):
     """The key of iteration t's link coins: (link_seed, t) and the device
-    the coins are drawn on."""
+    the coins are drawn on.  `t` is a Python int, or an (S,) int64
+    tensor of per-session iterations (a serving fleet, each slot at its
+    own t): the masks then take a leading (S,) axis."""
 
     seed: int
-    t: int
+    t: Any
     device: torch.device
 
 
-def link_generator(link_seed: int, t: int, device) -> LinkCoins:
+def link_generator(link_seed: int, t, device) -> LinkCoins:
     """The counter-based generator of iteration t's link coins: coin k is
     `hash32(link_seed, STREAM_LINKS, t, k)`, a function of the absolute
     iteration (a run split at any t replays it) that gives the same bits
     on the CPU and on the card.  The reference draws from `jax.random`,
     which torch cannot reproduce: parity tests inject its masks through
     `link_mask_fn`."""
-    return LinkCoins(int(link_seed), int(t), torch.device(device))
+    if not isinstance(t, torch.Tensor):
+        t = int(t)
+    return LinkCoins(int(link_seed), t, torch.device(device))
 
 
 def _link_uniforms(gen: LinkCoins, n_coins: int) -> torch.Tensor:
+    """(..., n_coins) uniforms: one row per t (none for an int t)."""
     k = torch.arange(n_coins, dtype=torch.int64, device=gen.device)
-    h = absorb(seed_state(gen.seed), STREAM_LINKS, gen.t)     # a host int
+    # a host int for an int t; (S, 1) on the device for a fleet's t
+    h = absorb(seed_state(gen.seed), STREAM_LINKS, gen.t)
+    if isinstance(h, torch.Tensor):
+        h = h[:, None]
     return uniform(mix32(absorb(h, k)))
 
 
@@ -213,8 +221,9 @@ def link_keep_matrix(gen: LinkCoins, n: int, drop_prob: float,
     >>> bool((k == k.T).all()), bool((k.diagonal() == 1).all())
     (True, True)
     """
-    u = _link_uniforms(gen, n * n).reshape(n, n).triu(1)
-    u = u + u.T                                       # one coin per pair
+    u = _link_uniforms(gen, n * n)
+    u = u.reshape(u.shape[:-1] + (n, n)).triu(1)
+    u = u + u.transpose(-1, -2)                       # one coin per pair
     keep = (u >= drop_prob).to(dtype)
     return torch.maximum(keep, torch.eye(n, dtype=dtype, device=gen.device))
 

@@ -17,6 +17,8 @@ of its data.
   returns gather indices plus a scaled mask.
 * `minibatch_select` — the stateless sampler, the oracle `advance` is
   tested against.
+* `advance_fleet` — `advance` over a serving fleet's leading slot axis,
+  each slot at its own device-side t.
 
 Sampling is random reshuffling: epoch e = t // ceil(T/B) permutes each
 node's T sample slots, and iteration t takes window t mod ceil(T/B) of
@@ -154,6 +156,55 @@ def advance(state: StreamState, base_mask: torch.Tensor, t: int,
         perm = epoch_perms(state.keys, epoch, base_mask.shape[1], perm_fn)
     idx, mb_mask = _window(perm, base_mask, chunk, batch_size)
     return state._replace(perm=perm, epoch=epoch), idx, mb_mask
+
+
+def _fleet_epoch_perms(keys: torch.Tensor, epoch: torch.Tensor,
+                       capacity: int, perm_fn=None) -> torch.Tensor:
+    """(S, N, T) permutations of each slot's epoch: `epoch_perms` with a
+    leading slot axis (keys (S, N), epoch (S,) int64), the same integers
+    slot by slot.  A `perm_fn` hook is called once per slot with that
+    slot's epoch, read on the host (the hook's one device sync)."""
+    if perm_fn is not None:
+        return torch.stack([epoch_perms(k, e, capacity, perm_fn)
+                            for k, e in zip(keys, epoch.tolist())])
+    slots = torch.arange(capacity, dtype=torch.int64, device=keys.device)
+    h = network.absorb(keys, epoch[:, None])[..., None]        # (S, N, 1)
+    words = network.mix32(network.absorb(h, slots))
+    return torch.sort(words, dim=-1, stable=True).indices
+
+
+def advance_fleet(state: StreamState, base_mask: torch.Tensor,
+                  t: torch.Tensor, batch_size: int, perm_fn=None,
+                  may_redraw: bool = True):
+    """`advance` over a serving fleet: S sessions of one configuration,
+    each at its own absolute iteration t[s] (an (S,) int64 tensor on the
+    device, never read on the host).  `state` holds keys (S, N), perm
+    (S, N, T), epoch (S,) int64 and the anchors (S, N, P); base_mask is
+    (S, N, T).  Returns (state', idx (S, N, B), mb_mask (S, N, B)), slot
+    by slot equal to `advance` at that slot's t.
+
+    A slot enters a new epoch where its t does (t % ceil(T/B) == 0, t >
+    0).  The new permutations are computed for every slot and taken by
+    `torch.where` where the epoch changed: a hash and a sort of
+    (S, N, T) keys.  `may_redraw=False` skips that work when the caller
+    knows from its host bounds on every slot's t that no slot can enter
+    an epoch at this iteration (the serving driver's `FleetGroup`)."""
+    S, N, T = base_mask.shape
+    batch_size = min(int(batch_size), T)
+    n_chunks = -(-T // batch_size)
+    epoch = torch.div(t, n_chunks, rounding_mode="floor")
+    chunk = t - epoch * n_chunks
+    perm = state.perm
+    if may_redraw:
+        new = _fleet_epoch_perms(state.keys, epoch, T, perm_fn)
+        perm = torch.where((epoch != state.epoch)[:, None, None], new, perm)
+    pos = (chunk[:, None] * batch_size
+           + torch.arange(batch_size, device=t.device)) % T      # (S, B)
+    idx = torch.sort(torch.gather(perm, 2, pos[:, None, :].expand(
+        S, N, batch_size)), dim=-1).values
+    picked = torch.gather(base_mask, 2, idx)            # 0 where padding
+    return (state._replace(perm=perm, epoch=epoch), idx,
+            picked * (T / batch_size))
 
 
 def minibatch_select(keys: torch.Tensor, base_mask: torch.Tensor, t: int,

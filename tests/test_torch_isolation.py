@@ -38,7 +38,10 @@ def test_import_pulls_in_neither_jax_nor_repro():
               "repro_torch.data.stream", "repro_torch.models.hmm",
               "repro_torch.models.ppca", "repro_torch.core.network",
               "repro_torch.checkpoint.ckpt",
-              "repro_torch.experiments.topology_scale"):
+              "repro_torch.experiments.topology_scale",
+              "repro_torch.serving.admission", "repro_torch.serving.driver",
+              "repro_torch.serving.vb_service",
+              "repro_torch.launch.vb_serve"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"
@@ -77,6 +80,33 @@ def test_default_device_is_cuda(monkeypatch):
     run = engine.run_vb(mdl, (x, mask), engine.FusionCenter(), n_iters=1,
                         device="cpu")
     assert run.phi.device.type == "cpu"
+
+
+def test_vb_service_defaults_to_cuda(monkeypatch):
+    """`VBService` / `VBDriver` and the `vb_serve` launcher run on the
+    card unless given device="cpu"; a fleet never moves to the CPU on its
+    own, and the mesh executor (item 14) raises."""
+    from repro_torch.launch import vb_serve
+    from repro_torch.serving import driver, vb_service
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        vb_service.VBService()
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        driver.VBDriver()
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        vb_serve.main(["--sessions", "1", "--budgets", "2"])
+    with pytest.raises(NotImplementedError, match="item 14"):
+        vb_service.VBService(executor=object(), device="cpu")
+    prior, x, mask = _tiny()
+    svc = vb_service.VBService(slice_iters=2, device="cpu")
+    rid = svc.submit(vb_service.VBRequest(
+        model=model_lib.GMMModel(prior, device="cpu"), data=(x, mask),
+        topology=engine.RingDiffusion(), n_iters=2))
+    out = svc.run()[rid]
+    assert out.done and out.phi.device.type == "cpu"
+    vb_serve.main(["--device", "cpu", "--sessions", "2", "--budgets",
+                   "3", "--nodes", "4", "--per-node", "6", "--slice", "2"])
 
 
 def test_lm_entry_points_default_to_cuda(monkeypatch):

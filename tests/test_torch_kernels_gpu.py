@@ -18,7 +18,11 @@ full-batch fused run.  The sparse topologies: the segmented-sum combines
 launched twice bit-equal, split/resume and save -> restore -> continue
 bit-equal on the card, the same session on the CPU and the card within
 1e-12 relative after one iteration (the reference backend, f64), the
-link and gossip coins equal bit for bit.
+link and gossip coins equal bit for bit.  Serving: a fleet launches
+gmm_estep once a fleet iteration over (S N, T, D), the kernel at that
+shape within the bars above; each tenant bit-equal to its solo run on
+the ring, within 1e-9 on the matmul combines; a checkpoint snapshot
+holds the slice boundary while the next slice overwrites the fleet.
 """
 import numpy as np
 import pytest
@@ -489,3 +493,106 @@ def test_sparse_session_cpu_vs_card(cuda):
                                           g.n_undirected, 0.7).cpu()
                  for d in ("cpu", cuda)]
         assert torch.equal(*coins)
+
+
+# ---------------------------------------------------------------------------
+# Multi-tenant serving: the fleet on the card
+# ---------------------------------------------------------------------------
+def _fleet_env(dev, n=64, T=512, tenants=4):
+    from repro_torch.serving import vb_service
+    prior = expfam.noninformative_prior(3, 2, beta0=0.1, w0_scale=10.0,
+                                        device=dev)
+    mdl = model_lib.GMMModel(prior, 3, 2, backend="fused", device=dev)
+    adj, _ = network.random_geometric_graph(n, seed=0)
+    data = []
+    for s in range(tenants):
+        d = synthetic.paper_synthetic(n_nodes=n, n_per_node=T, seed=s,
+                                      dtype=np.float32)
+        data.append((d.x.to(dev), d.mask.to(dev)))
+    return vb_service, mdl, adj, data
+
+
+def test_fleet_one_launch_per_iteration_and_kernel_at_fleet_shape(cuda):
+    """A 4-slot fleet of 64-node tenants launches gmm_estep_nodes once a
+    fleet iteration over (4 x 64, T, D); the kernel on the fleet's
+    buffers and final iterate matches its plain version at the TOL
+    bars."""
+    vs, mdl, adj, data = _fleet_env(cuda)
+    svc = vs.VBService(slice_iters=5, max_fleet=4, device=cuda)
+    for i, d in enumerate(data):
+        svc.submit(vs.VBRequest(model=mdl, data=d,
+                                topology=engine.RingDiffusion(),
+                                n_iters=10 + 5 * i))
+    ops.gmm_estep_nodes.launches = 0
+    svc.run()
+    st = svc.stats()
+    assert ops.gmm_estep_nodes.launches == st.slices * 5
+    (g,) = svc._groups.values()
+    x, mask = (a.reshape((-1,) + a.shape[2:]) for a in g.stream_data)
+    assert x.shape == (4 * 64, 512, 2)
+    q = expfam.unpack_natural(g.phi.reshape(x.shape[0], -1), 3, 2)
+    shift = q.m.float().contiguous()
+    terms = [t.contiguous() for t in gmm.estep_terms(q, torch.float32,
+                                                     shift=shift)]
+    _check(ops.gmm_estep_nodes(x, mask, *terms, shift=shift,
+                               return_r=False),
+           ge.gmm_estep_nodes_plain(x, mask, *terms, shift=shift,
+                                    return_r=False))
+
+
+@pytest.mark.parametrize("topo_name", ["ring_drop", "diffusion", "admm"])
+def test_fleet_matches_solo_on_card(cuda, topo_name):
+    """Each tenant served in a fleet against a solo vb_run of its budget
+    on the card: the ring (an elementwise combine, per-slot link coins)
+    bit-equal, the matmul combines within 1e-9 relative."""
+    vs, mdl, adj, data = _fleet_env(cuda)
+    W = network.nearest_neighbor_weights(adj)
+    make = {"ring_drop": lambda: engine.RingDiffusion(link_drop=0.2,
+                                                      link_seed=1),
+            "diffusion": lambda: engine.Diffusion(W),
+            "admm": lambda: engine.ADMMConsensus(adj, adaptive_rho=True)}
+    topo = make[topo_name]()
+    budgets = [12, 20, 8, 16]
+    svc = vs.VBService(slice_iters=6, max_fleet=3, device=cuda)
+    rids = [svc.submit(vs.VBRequest(model=mdl, data=d, topology=topo,
+                                    n_iters=n))
+            for d, n in zip(data, budgets)]
+    out = svc.run()
+    assert svc.stats().compiles == 1
+    for d, n, rid in zip(data, budgets, rids):
+        solo = engine.run_vb(mdl, d, make[topo_name](), n_iters=n,
+                             device=cuda)
+        got = out[rid].phi
+        if topo_name == "ring_drop":
+            assert torch.equal(solo.phi, got), rid
+        else:
+            rel = float((solo.phi - got).abs().max() / solo.phi.abs().max())
+            assert rel <= 1e-9, (rid, rel)
+
+
+def test_checkpoint_snapshot_while_next_slice_overwrites(cuda, tmp_path):
+    """`save_session(wait=False)` clones the slot at the boundary; the
+    next slice, queued at once, overwrites the fleet in place while the
+    writer copies: the file holds the boundary state (bit-equal to a solo
+    run of that many iterations), and so do the periodic autosaves."""
+    vs, mdl, adj, data = _fleet_env(cuda)
+    topo = engine.RingDiffusion()
+    svc = vs.VBService(slice_iters=4, max_fleet=2, device=cuda,
+                       ckpt_dir=str(tmp_path / "auto"), ckpt_every=1)
+    rids = [svc.submit(vs.VBRequest(model=mdl, data=d, topology=topo,
+                                    n_iters=16)) for d in data[:2]]
+    svc.step_slice()
+    path = svc.save_session(rids[0], str(tmp_path / "mid.npz"), wait=False)
+    svc.step_slice()                    # overwrites the fleet meanwhile
+    svc.driver.flush_checkpoints()
+    arrays = ckpt.read_npz(path)
+    assert int(arrays["['t']"]) == 4
+    solo = engine.run_vb(mdl, data[0], topo, n_iters=4, device=cuda)
+    assert torch.equal(torch.as_tensor(arrays["['phi']"]),
+                       solo.phi.cpu())
+    svc.run()
+    for rid, d in zip(rids, data):
+        auto = ckpt.read_npz(str(tmp_path / "auto" / f"{rid}.npz"))
+        t = int(auto["['t']"])
+        solo = engine.run_vb(mdl, d, topo, n_iters=t, device=cuda)
+        assert torch.equal(torch.as_tensor(auto["['phi']"]), solo.phi.cpu())
