@@ -37,6 +37,17 @@ never JAX or the JAX package, and prints one JSON line per phase:
 6. profile — device-busy time by kernel over ten fused dSVB iterations
    against the host wall clock, and device kernels per iteration
    (torch.profiler);
+6t. telemetry_main_path — 50 fused dSVB iterations of the main path with
+   repro_torch.telemetry off, host-enabled, and host plus taps: ms per
+   iteration and host us a gmm_estep call (medians of 7 runs, the modes
+   interleaved), device kernels and copies per iteration over 20
+   profiled iterations (in the loop and over the run), CUDA-runtime
+   synchronise calls and device-to-host copies inside the loop, the
+   count of kernel_wall_seconds{kernel="gmm_estep_nodes"} beside the
+   launches and its mean beside the profiler's device time per call;
+   phi bit-equal in the three modes, equal kernels in the loop off and
+   host-enabled, vb_run/kl_mean equal to the run's kl_mean, no
+   synchronise call or device-to-host copy added in the loop;
 6a. gmm_wide_kernel_vs_plain — the wide-D kernel (D > 8) against the
    plain version at Table II's (20 x 17, K=2, D=34) and Fig. 13's (10 x
    14-43, K=2/4/6, D=52) node shapes and past the first wide design's
@@ -121,7 +132,12 @@ never JAX or the JAX package, and prints one JSON line per phase:
    in 10-iteration slices (bit-equal); device kernels per fleet
    iteration at 1, 4 and 8 occupied slots (profiled); gmm_estep_nodes
    at the fleet's 8000 x 4096 against its plain version by chunks (TOL)
-   and its device time against its bound; peak memory;
+   and its device time against its bound; peak memory; then group C
+   again with telemetry and taps on (each tenant bit-equal to the run
+   with them off, ms per fleet iteration off and on, one driver/slice
+   span a slice, the five driver gauges), and the `vb_serve` launcher
+   in-process with --trace and --metrics at a small size (its files
+   load as JSON and parse as Prometheus text);
 7. lm_kernel_vs_plain — flash_attention and ssd_scan against their plain
    versions (and flash against scaled_dot_product_attention) at the
    tests/test_kernels.py shapes, a ragged S = 1000, the causality case and
@@ -160,11 +176,11 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch import telemetry  # noqa: E402
 from repro_torch.checkpoint import ckpt  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.configs.gmm_sensor import GMMSensorConfig  # noqa: E402
 from repro_torch.core import algorithms, expfam, gmm, network  # noqa: E402
-from repro_torch.core import backends as backends_lib  # noqa: E402
 from repro_torch.core import engine as vb_engine  # noqa: E402
 from repro_torch.core import refperm  # noqa: E402
 from repro_torch.core.engine import kl_to_reference  # noqa: E402
@@ -907,6 +923,242 @@ def phase_profile(inst, dev, n_iters: int = 10):
 
 
 # ---------------------------------------------------------------------------
+# 6t. telemetry on the main path (repro_torch.telemetry)
+# ---------------------------------------------------------------------------
+TELEMETRY_ITERS = 50
+TELEMETRY_PROFILE_ITERS = 20
+# interleaved runs a mode: the host's clock moves ms an iteration by up
+# to ~2x from run to run on this path (PERF.md), more than telemetry
+# costs
+TELEMETRY_REPS = 7
+TELEMETRY_CALLS = 200
+TELEMETRY_MODES = ("off", "host", "taps")
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize")
+
+
+def _telemetry_mode(mode: str) -> None:
+    """Telemetry off and empty; then host telemetry on ("host"), or host
+    telemetry and taps ("taps")."""
+    telemetry.disable()
+    telemetry.taps.disable()
+    telemetry.reset()
+    if mode != "off":
+        telemetry.enable()
+    if mode == "taps":
+        telemetry.taps.enable()
+
+
+def _is_copy(e) -> bool:
+    return e.name.startswith(("Memcpy", "Memset"))
+
+
+def _profile_loop(fn) -> dict:
+    """Trace fn() with each engine iteration marked (`_iteration` under a
+    `record_function`, which the profiler mirrors on the device's
+    timeline): device kernels and copies over the whole run and inside
+    the loop (from the first iteration's device work to the last one's),
+    kernels by name, the CUDA-runtime synchronise calls the host made
+    between the first iteration's start and the last one's end, and the
+    device-to-host copies inside the loop."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    inner = vb_engine._iteration
+
+    def marked(*a, **k):
+        with record_function("vb_iteration"):
+            return inner(*a, **k)
+
+    vb_engine._iteration = marked
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        vb_engine._iteration = inner
+    events = list(prof.events())
+
+    def span_of(es):
+        return (min(e.time_range.start for e in es),
+                max(e.time_range.end for e in es))
+
+    marks = [e for e in events if e.name == "vb_iteration"]
+    host_marks = [e for e in marks if e.device_type == DeviceType.CPU]
+    dev_marks = [e for e in marks if e.device_type == DeviceType.CUDA]
+    lo, hi = span_of(host_marks)
+    d_lo, d_hi = span_of(dev_marks)
+    host = [e for e in events if e.device_type == DeviceType.CPU
+            and lo <= e.time_range.start <= hi]
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and e.name not in ("Command Buffer Full", "vb_iteration")]
+    in_loop = [e for e in device if d_lo <= e.time_range.start <= d_hi]
+    kernels = [e for e in device if not _is_copy(e)]
+    gmm = [e for e in kernels if "gmm_estep" in e.name]
+    by_name = {}
+    for e in kernels:
+        by_name[e.name[:80]] = by_name.get(e.name[:80], 0) + 1
+    return {
+        "iterations_marked": len(host_marks),
+        "iterations_marked_on_device": len(dev_marks),
+        "kernels": len(kernels),
+        "kernels_in_loop": sum(not _is_copy(e) for e in in_loop),
+        "copies": len(device) - len(kernels),
+        "copies_in_loop": sum(_is_copy(e) for e in in_loop),
+        "copies_by_kind": {k: sum(e.name == k for e in device)
+                           for k in sorted({e.name for e in device
+                                            if _is_copy(e)})},
+        "by_name": by_name,
+        "runtime_launches_in_loop": sum(e.name == "cudaLaunchKernel"
+                                        for e in host),
+        "sync_calls_in_loop": {n: sum(e.name == n for e in host)
+                               for n in SYNC_CALLS},
+        "d2h_copies_in_loop": sum("DtoH" in e.name for e in in_loop),
+        "gmm_estep_calls": len(gmm),
+        "gmm_estep_device_ms_per_call": sum(
+            e.time_range.elapsed_us() for e in gmm) / 1e3 / len(gmm)}
+
+
+def _kernel_call_args(inst, phi):
+    """FusedBackend's gmm_estep_nodes call on the main path's data at the
+    terms of the iterate `phi` (f32 x, centred, no r)."""
+    cfg, x, mask = inst[:3]
+    q = expfam.unpack_natural(phi, cfg.K, cfg.D)
+    shift = q.m.float().contiguous()
+    terms = [t.contiguous() for t in gmm.estep_terms(q, torch.float32,
+                                                     shift=shift)]
+    return (x, mask, *terms, float(N_NODES)), shift
+
+
+def _call_host_us(args, shift) -> float:
+    """Host microseconds a gmm_estep_nodes call over TELEMETRY_CALLS calls
+    queued back to back (the host, not the 0.03 ms kernel, sets the
+    pace)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TELEMETRY_CALLS):
+        ops.gmm_estep_nodes(*args, shift=shift, return_r=False)
+    host = (time.perf_counter() - t0) * 1e6 / TELEMETRY_CALLS
+    torch.cuda.synchronize()
+    return host
+
+
+def phase_telemetry_main_path(inst, dev) -> dict:
+    """Telemetry off, host-enabled and with taps on the main path (module
+    docstring, 6t)."""
+    t_phase = time.perf_counter()
+
+    def run(n_iters=TELEMETRY_ITERS):
+        return _estimate("dsvb", *inst, "fused", n_iters, dev)
+
+    # ms per iteration and host us a kernel call: the modes interleaved,
+    # run by run
+    times = {mode: [] for mode in TELEMETRY_MODES}
+    call_us = {mode: [] for mode in TELEMETRY_MODES}
+    args, shift = _kernel_call_args(inst, run(2).phi)
+    for mode in TELEMETRY_MODES:
+        _telemetry_mode(mode)
+        run(2)                                              # warm
+    for _ in range(TELEMETRY_REPS):
+        for mode in TELEMETRY_MODES:
+            _telemetry_mode(mode)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            times[mode].append((time.perf_counter() - t0) * 1e3
+                               / TELEMETRY_ITERS)
+            call_us[mode].append(_call_host_us(args, shift))
+    out, phi = {}, {}
+    for mode in TELEMETRY_MODES:
+        _telemetry_mode(mode)
+        before = ops.gmm_estep_nodes.launches
+        res = run()
+        torch.cuda.synchronize()
+        launched = ops.gmm_estep_nodes.launches - before
+        phi[mode] = res.phi
+        rec = {"ms_per_iter": float(np.median(times[mode])),
+               "ms_per_iter_runs": times[mode],
+               "kernel_call_host_us": float(np.median(call_us[mode])),
+               "kernel_call_host_us_runs": call_us[mode],
+               "launches": launched}
+        if mode != "off":
+            hist = [r for r in telemetry.snapshot()
+                    if r["name"] == "kernel_wall_seconds"
+                    and r["labels"] == {"kernel": "gmm_estep_nodes"}]
+            rec["kernel_wall_count"] = hist[0]["count"] if hist else 0
+            rec["kernel_wall_mean_ms"] = (hist[0]["sum"] / hist[0]["count"]
+                                          * 1e3 if hist else None)
+            ts, kl = telemetry.taps.series("vb_run/kl_mean")
+            rec["series_kl_bit_equal"] = bool(np.array_equal(
+                kl, res.kl_mean.cpu().numpy())) and ts.tolist() == list(
+                    range(TELEMETRY_ITERS))
+            rec["taps"] = telemetry.taps.counts()
+            # the host's side of each call: the kernel/<name> spans
+            spans = [e["dur"] for e in
+                     telemetry.tracer().to_chrome()["traceEvents"]
+                     if e["name"] == "kernel/gmm_estep_nodes"]
+            rec["kernel_span_mean_ms"] = sum(spans) / len(spans) / 1e3
+        telemetry.reset()
+        prof = _profile_loop(lambda: run(TELEMETRY_PROFILE_ITERS))
+        telemetry.reset()
+        rec.update(prof, kernels_per_iter=prof["kernels"]
+                   / TELEMETRY_PROFILE_ITERS,
+                   kernels_in_loop_per_iter=prof["kernels_in_loop"]
+                   / TELEMETRY_PROFILE_ITERS,
+                   copies_per_iter=prof["copies"] / TELEMETRY_PROFILE_ITERS)
+        out[mode] = rec
+    _telemetry_mode("off")
+    for mode in ("host", "taps"):
+        names = set(out[mode]["by_name"]) | set(out["off"]["by_name"])
+        out[mode]["kernels_vs_off"] = {
+            n: out[mode]["by_name"].get(n, 0) - out["off"]["by_name"].get(
+                n, 0) for n in names
+            if out[mode]["by_name"].get(n, 0)
+            != out["off"]["by_name"].get(n, 0)}
+    for rec in out.values():
+        del rec["by_name"]
+    off = out["off"]
+    emit("telemetry_main_path", estimator="dsvb", backend="fused",
+         nodes=N_NODES, points_per_node=N_PER_NODE,
+         n_iters=TELEMETRY_ITERS, profiled_iters=TELEMETRY_PROFILE_ITERS,
+         reps=TELEMETRY_REPS, modes=out,
+         host_overhead_share=out["host"]["ms_per_iter"] / off["ms_per_iter"]
+         - 1.0,
+         taps_overhead_share=out["taps"]["ms_per_iter"] / off["ms_per_iter"]
+         - 1.0,
+         kernel_call_host_us_added=out["host"]["kernel_call_host_us"]
+         - off["kernel_call_host_us"],
+         seconds=time.perf_counter() - t_phase)
+    misses = []
+    for mode, rec in out.items():
+        if not torch.equal(phi[mode], phi["off"]):
+            misses.append(f"{mode}: phi differs from the run without "
+                          "telemetry")
+        if rec["iterations_marked"] != TELEMETRY_PROFILE_ITERS \
+                or not rec["runtime_launches_in_loop"]:
+            misses.append(f"{mode}: the loop was not found in the trace")
+        if rec["sync_calls_in_loop"] != off["sync_calls_in_loop"] \
+                or rec["d2h_copies_in_loop"] != off["d2h_copies_in_loop"]:
+            misses.append(f"{mode}: synchronise calls or device-to-host "
+                          f"copies in the loop {rec['sync_calls_in_loop']}, "
+                          f"{rec['d2h_copies_in_loop']}")
+        if mode != "off" and (rec["kernel_wall_count"] != rec["launches"]
+                              or not rec["series_kl_bit_equal"]):
+            misses.append(f"{mode}: kernel_wall_seconds count "
+                          f"{rec['kernel_wall_count']} for "
+                          f"{rec['launches']} launches, vb_run/kl_mean "
+                          f"bit-equal {rec['series_kl_bit_equal']}")
+    if out["host"]["kernels_in_loop"] != off["kernels_in_loop"]:
+        misses.append(f"device kernels in the loop: {off['kernels_in_loop']}"
+                      f" off, {out['host']['kernels_in_loop']} host-enabled")
+    if misses:
+        raise AssertionError("; ".join(misses))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # 6a. the wide-D kernel (D > 8: the paper's real-data tables)
 # ---------------------------------------------------------------------------
 # Table II's and Fig. 13's node shapes (nodes, points a node, K, D)
@@ -1275,6 +1527,95 @@ def _fleet_profile(reqs, n_slots, dev) -> dict:
             "top_kernels": prof["top"][:4]}
 
 
+DRIVER_GAUGES = ("driver_queue_depth", "driver_active", "driver_capacity",
+                 "driver_occupancy", "driver_padding_waste")
+TELEMETRY_DIR = os.path.join(HERE, "build", "chip_smoke_telemetry")
+_PROM_LINE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^{}]*\})? \S+$")
+
+
+def _parse_prometheus(text: str) -> dict:
+    """{sample with labels: value} of Prometheus text exposition; raises
+    on a line that is neither a # TYPE line nor a sample."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            if line.split()[3] not in ("counter", "gauge", "histogram"):
+                raise ValueError(f"bad TYPE line: {line!r}")
+            continue
+        if not _PROM_LINE.match(line):
+            raise ValueError(f"bad sample line: {line!r}")
+        key, value = line.rsplit(" ", 1)
+        out[key] = float(value)
+    return out
+
+
+def _fleet_telemetry(reqs, run_off, out_off, dev) -> list:
+    """Group C again with telemetry and taps on, against its run with
+    them off; then the `vb_serve` launcher in-process with --trace and
+    --metrics at a small size.  Returns the misses."""
+    from repro_torch.launch import vb_serve
+
+    t0 = time.perf_counter()
+    svc, rids, res = run_off
+    _telemetry_mode("taps")
+    before = ops.gmm_estep_nodes.launches
+    svc_on, rids_on, res_on, sub_s, run_s = _fleet_serve(reqs, FLEET_SLICE,
+                                                         dev)
+    launched = ops.gmm_estep_nodes.launches - before
+    st = svc_on.stats()
+    iters = st.slices * FLEET_SLICE
+    evs = telemetry.tracer().to_chrome()["traceEvents"]
+    rows = {r["name"]: r for r in telemetry.snapshot()}
+    bit_equal = all(torch.equal(res[a].phi, res_on[b].phi)
+                    and res[a].t == res_on[b].t
+                    for a, b in zip(rids, rids_on))
+    on = {"ms_per_fleet_iter_off": out_off["ms_per_fleet_iter"],
+          "ms_per_fleet_iter_on": run_s * 1e3 / iters,
+          "slices": st.slices,
+          "driver_slice_spans": sum(e["name"] == "driver/slice"
+                                    for e in evs),
+          "gauges": {g: rows[g]["value"] for g in DRIVER_GAUGES
+                     if g in rows},
+          "kernel_wall_count": rows["kernel_wall_seconds"]["count"],
+          "gmm_estep_launches": launched,
+          "span_names": telemetry.tracer().span_names(),
+          "vs_off_bit_equal": bit_equal}
+    _telemetry_mode("off")
+    # the launcher at a small size, its files read back
+    os.makedirs(TELEMETRY_DIR, exist_ok=True)
+    trace = os.path.join(TELEMETRY_DIR, "vb_serve_trace.json")
+    prom = os.path.join(TELEMETRY_DIR, "vb_serve_metrics.prom")
+    vb_serve.main(["--sessions", "4", "--budgets", "30,60", "--nodes", "8",
+                   "--per-node", "20,13", "--slice", "8", "--max-fleet",
+                   "2", "--trace", trace, "--metrics", prom])
+    with open(trace) as f:
+        n_events = len(json.load(f)["traceEvents"])
+    with open(prom) as f:
+        samples = _parse_prometheus(f.read())
+    _telemetry_mode("off")
+    on.update(vb_serve_trace_events=n_events,
+              vb_serve_metric_samples=len(samples),
+              vb_serve_admitted=samples.get("driver_admitted_total"),
+              seconds=time.perf_counter() - t0)
+    emit("vb_serve_fleet_telemetry", group="C", **on)
+    misses = []
+    if not bit_equal:
+        misses.append("fleet C with telemetry on: not bit-equal to the run "
+                      "with it off")
+    if on["driver_slice_spans"] != st.slices \
+            or set(on["gauges"]) != set(DRIVER_GAUGES):
+        misses.append(f"fleet C telemetry: {on['driver_slice_spans']} "
+                      f"slice spans for {st.slices} slices, gauges "
+                      f"{sorted(on['gauges'])}")
+    if on["kernel_wall_count"] != launched:
+        misses.append(f"fleet C: kernel_wall_seconds count "
+                      f"{on['kernel_wall_count']} for {launched} launches")
+    if not n_events or on["vb_serve_admitted"] != 4.0:
+        misses.append(f"vb_serve --trace/--metrics: {n_events} events, "
+                      f"{on['vb_serve_admitted']} admitted")
+    return misses
+
+
 def phase_vb_serve_fleet(inst, dev) -> dict:
     """The serving slice at full width (module docstring, 6m)."""
     t_phase = time.perf_counter()
@@ -1355,6 +1696,8 @@ def phase_vb_serve_fleet(inst, dev) -> dict:
                           "length")
         if (name == "C" and not bit_equal) or worst > FLEET_REL:
             misses.append(f"fleet {name} vs solo: {worst}")
+
+    misses += _fleet_telemetry(groups["C"], runs["C"], out["C"], dev)
 
     # device kernels per fleet iteration at 1, 4 and 8 occupied slots
     profiles = [_fleet_profile(groups["A"], n, dev)
@@ -1738,7 +2081,7 @@ def phase_model_zoo(dev):
             ms = (time.perf_counter() - t0) * 1e3 / ZOO_ITERS
             prof = profile_window(lambda: go(ZOO_PROFILE_ITERS))
             ref = go(ZOO_FALLBACK_ITERS)
-            backends_lib._WARNED.clear()
+            telemetry.reset()               # the warn-once keys
             with warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")
                 fb = go(ZOO_FALLBACK_ITERS, backend="fused")
@@ -2731,6 +3074,7 @@ def main():
     sm = phase_smem_path(inst, dev)
     phase_small_vs_cpu(dev)
     phase_profile(inst, dev)
+    phase_telemetry_main_path(inst, dev)
     phase_engine_remainder(inst, dev)
     phase_stream_main_path(inst, dev)
     fleet = phase_vb_serve_fleet(inst, dev)

@@ -33,20 +33,20 @@ A model the asked-for backend cannot run (`Backend.supports` says no: an
 HMM, a PPCA or a linear-regression model with `backend="fused"`, or a GMM
 past the wide kernel's shared memory) runs the reference backend, as in
 the reference: `engine.vb_init` warns once per (backend, model type)
-through `fallback` ("... falling back to the reference backend") and
+through `fallback` ("... falling back to the reference backend"),
+counts every fallback in `backend_fallback_total{backend,model}`, and
 carries on.  That is the only fallback: a kernel that fails to build or
 to launch raises, and the fused backend never gives way to the plain
-version on the card.  (The reference also counts each fallback in
-`backend_fallback_total`; that counter comes with the port's telemetry.)
+version on the card.
 """
 from __future__ import annotations
 
 import dataclasses
-import warnings
 from typing import Any, NamedTuple, Protocol, runtime_checkable
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core import expfam, gmm
 from repro_torch.core.expfam import GMMPosterior
 
@@ -160,22 +160,20 @@ class FusedBackend:
         return expfam.pack_natural(q_star).to(out)
 
 
-#: the (backend, model type) pairs that have warned (`fallback`)
-_WARNED: set = set()
-
-
 def fallback(backend, model) -> "ReferenceBackend":
     """The reference backend, for a model `backend` does not support:
+    counts every fallback (`backend_fallback_total{backend,model}`) and
     warns the first time each (backend, model type) pair falls back (a
-    session re-opened many times warns once)."""
-    key = (backend.name, type(model).__name__)
-    if key not in _WARNED:
-        _WARNED.add(key)
-        warnings.warn(
-            f"backend {backend.name!r} does not support "
-            f"{type(model).__name__} (Backend.supports returned False); "
-            "falling back to the reference backend", UserWarning,
-            stacklevel=3)
+    session re-opened many times warns once; `telemetry.reset()` lets it
+    warn again)."""
+    model_name = type(model).__name__
+    telemetry.inc("backend_fallback_total", backend=backend.name,
+                  model=model_name)
+    telemetry.warn_once(
+        f"backend-fallback:{backend.name}:{model_name}",
+        f"backend {backend.name!r} does not support {model_name} "
+        "(Backend.supports returned False); falling back to the reference "
+        "backend", stacklevel=3)
     return ReferenceBackend()
 
 

@@ -68,8 +68,10 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_lib
+from repro_torch import telemetry
 from repro_torch.core import network as network_lib
 from repro_torch.data import stream as stream_lib
+from repro_torch.telemetry import taps
 
 
 def _not_ported(what: str, item: int):
@@ -1222,11 +1224,15 @@ def _iteration(ses: VBSession, phi, carry, st, t: int, hyper=None):
             st, ses.base_mask, t, mb.batch_size, mb.perm_fn)
         data_t = model.take_minibatch(ses.stream_data, idx, mb_mask)
     if st is not None and st.anchor_phi is not None:
-        if st_new.epoch != st.epoch:
+        refresh = st_new.epoch != st.epoch          # host integers
+        if refresh:
             anchor_phi = phi
             anchor_full = model.local_optimum(ses.stream_data, phi, rep)
         else:
             anchor_phi, anchor_full = st.anchor_phi, st.anchor_full
+        # 1 on the iterations that refreshed the SVRG anchor (a host
+        # value: filed with no device work)
+        taps.tap("stream/svrg_anchor_refresh", int(refresh), t=t)
         st_new = st_new._replace(anchor_phi=anchor_phi,
                                  anchor_full=anchor_full)
         phi_star = (model.local_optimum(data_t, phi, rep)
@@ -1311,10 +1317,13 @@ def fleet_step_fn(session: VBSession):
         if st is not None and st.anchor_phi is not None:
             anchor_phi, anchor_full = st.anchor_phi, st.anchor_full
             if may_redraw:
-                new = (st_new.epoch != st.epoch)[:, None, None]
+                refresh = st_new.epoch != st.epoch                # (S,)
+                new = refresh[:, None, None]
                 full = optimum(flat_tree(stream_data), phi)
                 anchor_phi = torch.where(new, phi, anchor_phi)
                 anchor_full = torch.where(new, full, anchor_full)
+                # per slot, where a refresh was possible (elsewhere none)
+                taps.tap("stream/svrg_anchor_refresh", refresh, t=t)
             st_new = st_new._replace(anchor_phi=anchor_phi,
                                      anchor_full=anchor_full)
             phi_star = (optimum(data_t, phi) - optimum(data_t, anchor_phi)
@@ -1371,23 +1380,41 @@ def session_hyper(topology, schedule: Schedule, dtype) -> dict:
 def vb_run(state: VBState, n_iters: int) -> tuple[VBState, VBRun]:
     """Advance a session `n_iters` (>= 1) iterations; returns
     (state', VBRun) where the run covers the iterations of THIS call.
-    Nothing in the loop waits for the device."""
+    Nothing in the loop waits for the device.
+
+    Telemetry (`repro_torch.telemetry`): an `engine/vb_run{n_iters}`
+    span; with host telemetry on, the `vb_run/*` series filed from the
+    stacked per-iteration tensors after the loop; with taps on, the
+    `vb/*` taps of each iteration, read once after the loop."""
     ses = state.session
     if ses is None:
         raise ValueError("VBState has no session attached — create states "
                          "with vb_init(...)")
     if n_iters < 1:
         raise ValueError(f"n_iters must be >= 1: {n_iters}")
+    with telemetry.span("engine/vb_run", n_iters=int(n_iters)):
+        return _vb_run_body(state, ses, n_iters)
+
+
+def _vb_run_body(state, ses, n_iters):
     model = ses.model
     phi, carry, st = state.phi, state.carry, state.stream
     kls, msds, diags = [], [], []
-    for t in range(state.t, state.t + n_iters):
-        phi, carry, st, diag = _iteration(ses, phi, carry, st, t)
-        phi_m = phi if ses.metric_nodes is None else phi[:ses.metric_nodes]
-        kls.append(kl_to_reference(model, phi_m, ses.ref_phi))
-        if ses.diagnostics:
-            msds.append(((phi - phi.mean(0)) ** 2).mean())
-            diags.append(diag)
+    window = taps.open_window(n_iters)      # None unless taps are on
+    with taps.collecting(window):
+        for t in range(state.t, state.t + n_iters):
+            phi, carry, st, diag = _iteration(ses, phi, carry, st, t)
+            phi_m = phi if ses.metric_nodes is None \
+                else phi[:ses.metric_nodes]
+            kls.append(kl_to_reference(model, phi_m, ses.ref_phi))
+            if ses.diagnostics:
+                msds.append(((phi - phi.mean(0)) ** 2).mean())
+                diags.append(diag)
+            if window is not None:
+                if ses.diagnostics:
+                    _tap_iteration(kls[-1], msds[-1], diag, t)
+                else:
+                    _tap_iteration(kls[-1], 0.0, None, t)
     kls = torch.stack(kls)
     stacked = None
     if diags and diags[-1] is not None:
@@ -1401,7 +1428,42 @@ def vb_run(state: VBState, n_iters: int) -> tuple[VBState, VBRun]:
                 consensus_err=torch.stack(msds) if ses.diagnostics
                 else None,
                 consensus_diag=stacked)
+    if window is not None:
+        window.flush()
+    if telemetry.enabled():
+        _file_run_series(run, state.t, n_iters)
+        telemetry.resolve_device_times()    # the loop's work is done
     return state_new, run
+
+
+_ADMM_SERIES = ("rho", "primal_resid", "dual_resid")
+
+
+def _tap_iteration(kl, msd, diag, t: int) -> None:
+    """The reference's per-iteration `vb/*` taps (means filed at the
+    window's end; `msd` is 0.0 without diagnostics, as there)."""
+    taps.tap("vb/kl_mean", kl, t=t, mean=True)
+    taps.tap("vb/consensus_msd", msd, t=t)
+    if diag is not None and hasattr(diag, "rho"):
+        for name in _ADMM_SERIES:
+            taps.tap(f"vb/admm_{name}", getattr(diag, name), t=t, mean=True)
+
+
+def _file_run_series(run: VBRun, t0: int, n_iters: int) -> None:
+    """The reference's `vb_run/*` series, filed from the run's stacked
+    tensors (one device-to-host copy each, after the loop)."""
+    ts = np.arange(t0, t0 + n_iters)
+    taps.record_series("vb_run/kl_mean", run.kl_mean, ts=ts)
+    if run.consensus_err is not None:
+        taps.record_series("vb_run/consensus_msd", run.consensus_err, ts=ts)
+    diags = run.consensus_diag
+    if diags is not None and hasattr(diags, "rho"):
+        for name in _ADMM_SERIES:
+            a = getattr(diags, name)
+            taps.record_series(f"vb_run/admm_{name}",
+                               a if a.dim() == 1
+                               else a.reshape(a.shape[0], -1).mean(1),
+                               ts=ts)
 
 
 def vb_step(state: VBState) -> VBState:

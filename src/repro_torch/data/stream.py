@@ -20,6 +20,10 @@ of its data.
 * `advance_fleet` — `advance` over a serving fleet's leading slot axis,
   each slot at its own device-side t.
 
+With taps on (`repro_torch.telemetry.taps`), both tap `stream/epoch`
+each iteration: a host integer for a session, an (S,) record per slot in
+a fleet.
+
 Sampling is random reshuffling: epoch e = t // ceil(T/B) permutes each
 node's T sample slots, and iteration t takes window t mod ceil(T/B) of
 the permutation (wrapping modulo T, so every slot is visited at least
@@ -54,6 +58,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import network
+from repro_torch.telemetry import taps
 
 
 class MinibatchSpec(NamedTuple):
@@ -154,6 +159,9 @@ def advance(state: StreamState, base_mask: torch.Tensor, t: int,
     perm = state.perm
     if epoch != state.epoch:
         perm = epoch_perms(state.keys, epoch, base_mask.shape[1], perm_fn)
+    # the epoch index per iteration (a host integer: no device work);
+    # rollovers show as increments in the tapped series
+    taps.tap("stream/epoch", epoch, t=t)
     idx, mb_mask = _window(perm, base_mask, chunk, batch_size)
     return state._replace(perm=perm, epoch=epoch), idx, mb_mask
 
@@ -198,6 +206,7 @@ def advance_fleet(state: StreamState, base_mask: torch.Tensor,
     if may_redraw:
         new = _fleet_epoch_perms(state.keys, epoch, T, perm_fn)
         perm = torch.where((epoch != state.epoch)[:, None, None], new, perm)
+    taps.tap("stream/epoch", epoch, t=t)        # per slot: (S,) epoch and t
     pos = (chunk[:, None] * batch_size
            + torch.arange(batch_size, device=t.device)) % T      # (S, B)
     idx = torch.sort(torch.gather(perm, 2, pos[:, None, :].expand(

@@ -1,9 +1,11 @@
 """Public wrappers around the port's kernels (`repro.kernels.ops`).
 
-`gmm_estep_nodes`, `gmm_estep`, `flash_attention` and `ssd_scan` are the
-kernel modules' wrappers themselves, so `ops.<name>.launches` is the
-kernel's launch count: a plain integer that a run can zero and read to
-show that the main path went through the kernel.
+`gmm_estep_nodes`, `gmm_estep`, `flash_attention` and `ssd_scan` wrap
+the kernel modules' wrappers with the reference's kernel telemetry
+(`_instrument`); `ops.<name>.launches` (and `gmm_estep_nodes`'
+`variant_launches`) read and write the kernel's own launch count: a
+plain integer that a run can zero and read to show that the main path
+went through the kernel.
 
 `flash_attention` takes the GQA layout of `repro.kernels.ops` directly
 (q (B,S,Hq,hd), k/v (B,S,Hkv,hd)): the kernel indexes the kv head, where
@@ -11,23 +13,83 @@ the JAX wrapper repeats k and v to the query heads.
 """
 from __future__ import annotations
 
+import functools
+import time
+
+from repro_torch import telemetry
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import gmm_estep as _ge
 from repro_torch.kernels import ssd_scan as _ss
 
-gmm_estep_nodes = _ge.gmm_estep_nodes
-gmm_estep = _ge.gmm_estep
-flash_attention = _fa.flash_attention
-ssd_scan = _ss.ssd_scan
+
+class _instrument:
+    """Kernel wall-time telemetry: a `kernel_wall_seconds{kernel=...}`
+    histogram plus a `kernel/<name>` trace span per call, one bool check
+    when telemetry is disabled.  On the card the histogram gets the
+    device time between two CUDA events recorded around the launch on
+    the current stream (never waited on here: `telemetry` resolves them
+    when the registry is read); the span covers the host's call.  On the
+    CPU both time the plain version with `time.perf_counter`.
+
+    The reference times only eager calls (the engine's jitted calls pass
+    through); every call of the port is eager, so every launch on the
+    hot path is timed.  Errors propagate: nothing is caught."""
+
+    def __init__(self, name: str, fn):
+        functools.update_wrapper(self, fn, updated=())
+        self.name = name
+
+    # the kernel's own counters, read and written through the wrapper
+    @property
+    def launches(self) -> int:
+        return self.__wrapped__.launches
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        self.__wrapped__.launches = value
+
+    def __getattr__(self, attr):
+        if attr == "__wrapped__":           # not set yet: no recursion
+            raise AttributeError(attr)
+        return getattr(self.__wrapped__, attr)
+
+    def __call__(self, *args, **kwargs):
+        if not telemetry.enabled():
+            return self.__wrapped__(*args, **kwargs)
+        name = self.name
+        with telemetry.span(f"kernel/{name}"):
+            if args[0].is_cuda:
+                start, end = telemetry.event_pair()
+                start.record()
+                out = self.__wrapped__(*args, **kwargs)
+                end.record()
+                telemetry.observe_events("kernel_wall_seconds", start, end,
+                                         kernel=name)
+            else:
+                t0 = time.perf_counter()
+                out = self.__wrapped__(*args, **kwargs)
+                telemetry.observe("kernel_wall_seconds",
+                                  time.perf_counter() - t0, kernel=name)
+        return out
 
 
-def gmm_estep_from_posterior(x, mask, q, *, block_t: int = 512,
-                             compute_dtype=None):
+gmm_estep_nodes = _instrument("gmm_estep_nodes", _ge.gmm_estep_nodes)
+gmm_estep = _instrument("gmm_estep", _ge.gmm_estep)
+flash_attention = _instrument("flash_attention", _fa.flash_attention)
+ssd_scan = _instrument("ssd_scan", _ss.ssd_scan)
+
+
+def _gmm_estep_from_posterior(x, mask, q, *, block_t: int = 512,
+                              compute_dtype=None):
     """Compute the kernel's per-component terms from a GMMPosterior (in
     `compute_dtype`, default the posterior's own), then run the fused
     step.  Matches gmm.responsibilities + gmm.sufficient_stats
     (replication 1).  The kernel takes f32 terms."""
     from repro_torch.core import gmm
     terms = gmm.estep_terms(q, dtype=compute_dtype)
-    return gmm_estep(x, mask, *(t.float().contiguous() for t in terms),
-                     block_t=block_t)
+    return _ge.gmm_estep(x, mask, *(t.float().contiguous() for t in terms),
+                         block_t=block_t)
+
+
+gmm_estep_from_posterior = _instrument("gmm_estep_from_posterior",
+                                       _gmm_estep_from_posterior)

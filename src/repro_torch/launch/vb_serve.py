@@ -27,8 +27,13 @@ Robbins-Monro taus) still lands in one fleet group per capacity rung;
 "none" for exact-shape grouping).  The run ends by printing the
 `DriverStats` counters plus the per-bucket occupancy/padding breakdown.
 
-Runs on the CUDA card unless `--device cpu` is given.  The reference's
-`--trace` / `--metrics` telemetry flags wait for ROADMAP Queue 1 item 15.
+Telemetry: `--trace OUT.json` and `--metrics OUT.prom` enable
+`repro_torch.telemetry` for the run and, at drain, write a Chrome trace
+(driver slices, first-stepped shapes, checkpoint writes, admission and
+eviction markers, kernel calls) and the metrics snapshot in Prometheus
+text format.
+
+Runs on the CUDA card unless `--device cpu` is given.
 """
 import argparse
 import os
@@ -68,10 +73,37 @@ def main(argv=None):
     ap.add_argument("--arrive-at", default="",
                     help="comma-separated slice boundaries at which each "
                          "session joins (cycled; empty = all at once)")
+    ap.add_argument("--trace", default=None, metavar="OUT.json",
+                    help="enable telemetry and dump a Chrome trace "
+                         "(chrome://tracing / Perfetto) of the run — "
+                         "driver slices, compiles, checkpoint writes, "
+                         "admission/eviction markers — at drain")
+    ap.add_argument("--metrics", default=None, metavar="OUT.prom",
+                    help="enable telemetry and dump the metrics "
+                         "snapshot (Prometheus text format) at drain")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
 
+    if not (args.trace or args.metrics):
+        _serve(args)
+        return
+    from repro_torch import telemetry
+    with telemetry.enabled_scope():
+        _serve(args)
+    if args.trace:
+        telemetry.export_chrome_trace(args.trace)
+        names = ", ".join(telemetry.tracer().span_names())
+        print(f"telemetry: wrote {len(telemetry.tracer())} trace events "
+              f"to {args.trace} ({names})")
+    if args.metrics:
+        with open(args.metrics, "w") as f:
+            f.write(telemetry.to_prometheus())
+        print(f"telemetry: wrote {len(telemetry.registry())} metric "
+              f"series to {args.metrics}")
+
+
+def _serve(args) -> None:
     import numpy as np
     import torch
 

@@ -28,6 +28,8 @@ import hashlib
 import numpy as np
 import torch
 
+from repro_torch import telemetry
+
 # Arrays at or under this many bytes are signed by content digest in
 # `static_signature`; larger ones by identity (conservative: splits
 # groups, never wrongly merges them, and never pays an O(size) hash on a
@@ -54,6 +56,10 @@ def bucket_capacity(n: int, *, growth: float = 2.0,
     while cap < n:
         # max(+1) keeps the ladder strictly increasing for tiny growth
         cap = max(cap + 1, int(-(-cap * growth // 1)))
+    # bucket-decision observability: which rungs admissions land on, and
+    # how many padded slots each decision costs
+    telemetry.inc("admission_bucket_total", rung=cap)
+    telemetry.inc("admission_padded_slots_total", value=cap - n)
     return cap
 
 

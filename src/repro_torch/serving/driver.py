@@ -46,7 +46,20 @@ delta is refreshed once a slice (`FleetGroup.fetch_flags`).
 API as a thin wrapper, and `serving/engine.py`'s LM `Engine` reuses
 `SlotTable` / `ArrivalQueue` / `DriverStats` for its prefill/decode
 waves.  Not ported: the mesh executor (`executor=`, ROADMAP Queue 1 item
-14) and the driver's telemetry (item 15).
+14).
+
+Telemetry (`repro_torch.telemetry`, the reference's catalogue): spans
+`driver/slice{k,slots}` (with `driver/compile` nested in the first slice
+of each (capacity, k) shape), `driver/sync` and `driver/checkpoint`
+(from the writer thread); counters `driver_admitted_total`,
+`driver_evicted_total`, `driver_rebucket_total`, `driver_requeue_total`,
+`driver_checkpoints_total`, `driver_checkpoint_errors_total`; the
+histogram `driver_checkpoint_write_seconds`; gauges
+`driver_queue_depth`, `driver_active`, `driver_capacity`,
+`driver_occupancy`, `driver_padding_waste` at every slice boundary; and
+instants `driver/admit`, `driver/evict`, `driver/rebucket`,
+`driver/requeue`.  With taps on, a slice's taps go to a window of k
+records read in `fetch_flags`.
 """
 from __future__ import annotations
 
@@ -63,9 +76,11 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_lib
+from repro_torch import telemetry
 from repro_torch.checkpoint import ckpt
 from repro_torch.core import engine
 from repro_torch.serving import admission
+from repro_torch.telemetry import taps
 
 
 class ArrivalQueue:
@@ -242,9 +257,15 @@ class CheckpointWriter:
     def _worker(self) -> None:
         while True:
             tree, path, event, pending = self._q.get()
+            t0 = time.perf_counter()
             try:
-                pending.path = ckpt.save(path, self._host(tree, event))
+                with telemetry.span("driver/checkpoint",
+                                    file=os.path.basename(path)):
+                    pending.path = ckpt.save(path, self._host(tree, event))
                 self.completed += 1
+                telemetry.inc("driver_checkpoints_total")
+                telemetry.observe("driver_checkpoint_write_seconds",
+                                  time.perf_counter() - t0)
             except Exception as e:
                 # surfaced by pending.wait() when someone holds the
                 # future; the periodic autosaves never wait, so the
@@ -252,6 +273,7 @@ class CheckpointWriter:
                 # and the daemon thread (and the scheduler) stay alive
                 pending.exc = e
                 self.errors += 1
+                telemetry.inc("driver_checkpoint_errors_total")
             finally:
                 pending._done.set()
                 self._q.task_done()
@@ -397,6 +419,7 @@ class FleetGroup:
         self._step = _gated_step(engine.fleet_step_fn(session))
         self._shapes: set = set()       # (capacity, k) stepped at
         self._compiles = 0
+        self._taps: Optional[taps.Window] = None    # the slice's taps
         # per-bucket accounting (read by VBDriver.stats)
         self.n_admitted = 0
         self.pad_frac_sum = 0.0         # sum over admits of padded-slot frac
@@ -518,29 +541,52 @@ class FleetGroup:
         """Queue one k-iteration slice on the device (nothing waits: host
         work may overlap until `fetch_flags`)."""
         shape = (self.capacity, k)
-        if shape not in self._shapes:
+        first = shape not in self._shapes
+        if first:
             self._shapes.add(shape)
             self._compiles += 1
+        with telemetry.span("driver/slice", k=k, slots=self.capacity):
+            if first:
+                # the first slice of a (capacity, k) shape: the analogue
+                # of the reference's compile, nested so a timeline tells
+                # it from the steady-state slices
+                with telemetry.span("driver/compile", k=k,
+                                    slots=self.capacity):
+                    self._run_slice(k)
+            else:
+                self._run_slice(k)
+
+    def _run_slice(self, k: int) -> None:
         mb = self.session.minibatch
         n_chunks = None
         if mb is not None:
             T = int(self.session.model.data_mask(self.data).shape[-1])
             n_chunks = -(-T // min(int(mb.batch_size), T))
-        for j in range(k):
-            may_redraw = n_chunks is not None and _redraw_possible(
-                self.host_t, self.host_budget, self.host_conv,
-                self.host_tol, j, n_chunks)
-            (self.phi, self.carry, self.stream, self.t, self.conv,
-             self.delta) = self._step(
-                self.data, self.stream_data, self.phi, self.carry,
-                self.stream, self.t, self.conv, self.budget, self.tol,
-                self.delta, self.hyper, may_redraw)
+        if self._taps is None:
+            self._taps = taps.open_window(k)    # None unless taps are on
+        with taps.collecting(self._taps):
+            for j in range(k):
+                may_redraw = n_chunks is not None and _redraw_possible(
+                    self.host_t, self.host_budget, self.host_conv,
+                    self.host_tol, j, n_chunks)
+                (self.phi, self.carry, self.stream, self.t, self.conv,
+                 self.delta) = self._step(
+                    self.data, self.stream_data, self.phi, self.carry,
+                    self.stream, self.t, self.conv, self.budget, self.tol,
+                    self.delta, self.hyper, may_redraw)
 
     def fetch_flags(self) -> None:
-        """Sync the small per-slot flag vectors device -> host."""
-        self.host_t = self.t.cpu().numpy().astype(np.int64)
-        self.host_conv = self.conv.cpu().numpy().astype(bool)
-        self.host_delta = self.delta.cpu().numpy().astype(np.float64)
+        """Sync the small per-slot flag vectors device -> host (and read
+        the slice's taps and kernel times, whose work is then done)."""
+        with telemetry.span("driver/sync"):
+            self.host_t = self.t.cpu().numpy().astype(np.int64)
+            self.host_conv = self.conv.cpu().numpy().astype(bool)
+            self.host_delta = self.delta.cpu().numpy().astype(np.float64)
+        if self._taps is not None:
+            self._taps.flush()
+            self._taps = None
+        if telemetry.enabled():
+            telemetry.resolve_device_times()
 
     # -- host-side views --------------------------------------------------
     def done_mask(self) -> np.ndarray:
@@ -804,6 +850,8 @@ class VBDriver:
             self._where[rid] = (entry["key"], slot)
             self._n_admitted += 1
             group.n_admitted += 1
+            telemetry.inc("driver_admitted_total")
+            telemetry.instant("driver/admit", rid=rid, slot=slot)
             if bucket is not None:
                 group.pad_frac_sum += (bucket[1] - bucket[0]) / bucket[1]
 
@@ -845,6 +893,21 @@ class VBDriver:
                 g.fetch_flags()                     # device -> host sync
             self._evict_done()
             self._clock += 1
+            if telemetry.enabled():
+                # fleet health gauges at every slice boundary (one bool
+                # check when telemetry is off)
+                occ = (self._occ_active / self._occ_slots
+                       if self._occ_slots else 0.0)
+                telemetry.set_gauge("driver_queue_depth",
+                                    len(self._queued))
+                telemetry.set_gauge("driver_active", sum(
+                    g.active_count() for g in self._groups.values()))
+                telemetry.set_gauge("driver_capacity", sum(
+                    g.capacity for g in self._groups.values()))
+                telemetry.set_gauge("driver_occupancy", occ)
+                telemetry.set_gauge("driver_padding_waste",
+                                    (1.0 - occ) if self._occ_slots
+                                    else 0.0)
             return self._remaining_locked()
 
     def _evict_done(self) -> None:
@@ -857,6 +920,8 @@ class VBDriver:
                     record = group.evict(slot)
                     del self._where[rid]
                     self._n_evicted += 1
+                    telemetry.inc("driver_evicted_total")
+                    telemetry.instant("driver/evict", rid=rid, slot=slot)
                     self._retire(rid, dict(record=record, key=key,
                                            session=group.session))
 
@@ -1055,6 +1120,8 @@ class VBDriver:
                 "pushed points")
         rec["data"] = grown
         rec["conv"] = torch.zeros_like(rec["conv"])
+        telemetry.inc("driver_rebucket_total")
+        telemetry.instant("driver/rebucket", rid=rid, rung=rung)
         self._meta[rid]["bucket"] = (true_cap, rung)
         fin["session"] = dataclasses.replace(
             ses, data=grown, stream_data=engine._stream_data(model, grown))
@@ -1139,6 +1206,8 @@ class VBDriver:
             return
         del self._finished[rid]
         self._meta[rid]["finished"] = None
+        telemetry.inc("driver_requeue_total")
+        telemetry.instant("driver/requeue", rid=rid)
         entry = dict(rid=rid, key=fin["key"], session=fin["session"],
                      record=rec)
         self._queued[rid] = entry

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch import telemetry
 from repro_torch.core import algorithms, backends, blocks, engine, expfam
 from repro_torch.core import network
 from repro_torch.core import model as model_lib
@@ -41,7 +42,10 @@ def test_import_pulls_in_neither_jax_nor_repro():
               "repro_torch.experiments.topology_scale",
               "repro_torch.serving.admission", "repro_torch.serving.driver",
               "repro_torch.serving.vb_service",
-              "repro_torch.launch.vb_serve"):
+              "repro_torch.launch.vb_serve", "repro_torch.telemetry",
+              "repro_torch.telemetry.metrics",
+              "repro_torch.telemetry.tracing",
+              "repro_torch.telemetry.taps"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"
@@ -152,7 +156,7 @@ def test_fused_backend_on_unsupported_model_falls_back():
     prior, x, mask = _tiny()
 
     def check(model, data, phi0=None):
-        backends._WARNED.clear()
+        telemetry.reset()          # the warn-once keys
         want = engine.run_vb(model, data, engine.Isolated(), n_iters=2,
                              init_phi=phi0, backend="reference",
                              device="cpu")
@@ -200,7 +204,7 @@ def test_fused_backend_runs_past_the_first_wide_limit(K, D):
     mask = torch.ones(2, 9, dtype=torch.float64)
     init_q = algorithms.perturbed_init(prior, x, rng.uniform(size=(K, D)))
     runs = {}
-    backends._WARNED.clear()
+    telemetry.reset()
     for be in ("fused", "reference"):
         with warnings.catch_warnings():
             warnings.simplefilter("error")

@@ -23,6 +23,8 @@ gmm_estep once a fleet iteration over (S N, T, D), the kernel at that
 shape within the bars above; each tenant bit-equal to its solo run on
 the ring, within 1e-9 on the matmul combines; a checkpoint snapshot
 holds the slice boundary while the next slice overwrites the fleet.
+Telemetry: `kernel_wall_seconds` counts one observation a launch, timed
+by CUDA events that are not waited on when recorded.
 """
 import numpy as np
 import pytest
@@ -596,3 +598,40 @@ def test_checkpoint_snapshot_while_next_slice_overwrites(cuda, tmp_path):
         t = int(auto["['t']"])
         solo = engine.run_vb(mdl, d, topo, n_iters=t, device=cuda)
         assert torch.equal(torch.as_tensor(auto["['phi']"]), solo.phi.cpu())
+
+
+# ---------------------------------------------------------------------------
+# Telemetry: kernel wall time by CUDA events
+# ---------------------------------------------------------------------------
+def test_kernel_wall_time_counts_launches_without_syncing(cuda):
+    """With telemetry on, each gmm_estep_nodes launch is one
+    `kernel_wall_seconds{kernel="gmm_estep_nodes"}` observation (the
+    histogram's count equals the launches), timed by CUDA events that
+    are not waited on when recorded: behind a ~0.2 s device sleep the
+    calls return while their end events are still pending, and the
+    histogram is filled only when the registry is read."""
+    from repro_torch import telemetry
+    args = _args(64, 512, 3, 2, cuda)
+    telemetry.disable()
+    telemetry.reset()
+    ops.gmm_estep_nodes(*args)                  # built and warm
+    torch.cuda.synchronize()
+    before = ops.gmm_estep_nodes.launches
+    try:
+        telemetry.enable()
+        torch.cuda._sleep(int(2e8))             # ~0.1-0.2 s on the card
+        for _ in range(5):
+            ops.gmm_estep_nodes(*args)
+        pending = list(telemetry._PENDING)
+        assert len(pending) == 5
+        assert not any(end.query() for (_, end), _, _ in pending)
+        launched = ops.gmm_estep_nodes.launches - before
+        (row,) = [r for r in telemetry.snapshot()
+                  if r["name"] == "kernel_wall_seconds"]
+        assert row["labels"] == {"kernel": "gmm_estep_nodes"}
+        assert row["count"] == launched == 5
+        assert 0 < row["sum"] < 1.0
+        assert telemetry.tracer().span_names() == ["kernel/gmm_estep_nodes"]
+    finally:
+        telemetry.disable()
+        telemetry.reset()

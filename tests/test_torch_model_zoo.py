@@ -27,8 +27,8 @@ import torch
 from repro.core import network as jn
 from repro.models import hmm as jh
 from repro.models import ppca as jp
+from repro_torch import telemetry
 from repro_torch.checkpoint import ckpt as tckpt
-from repro_torch.core import backends as tb
 from repro_torch.core import engine as te
 from repro_torch.core import expfam as tx
 from repro_torch.data import stream as tstream
@@ -315,7 +315,7 @@ def test_fused_backend_falls_back_with_one_warning(which, setups):
     topo = te.Diffusion(_t(setups[which]["W"]))
     plain = te.run_vb(tmdl, tdata, topo, n_iters=4, init_phi=tphi0,
                       device="cpu")
-    tb._WARNED.clear()
+    telemetry.reset()          # the warn-once keys
     with pytest.warns(UserWarning, match="falling back to the reference"):
         fb = te.run_vb(tmdl, tdata, topo, n_iters=4, init_phi=tphi0,
                        backend="fused", device="cpu")

@@ -35,6 +35,18 @@ CAP = 6
 
 
 @pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch intra-op thread: under the suite's six workers the
+    default pool (a thread per core in each worker) oversubscribes the
+    cores, and these small ops spend most of their time synchronising
+    the pool."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
 def _x64():
     jax.config.update("jax_enable_x64", True)
     yield
