@@ -138,6 +138,24 @@ never JAX or the JAX package, and prints one JSON line per phase:
    span a slice, the five driver gauges), and the `vb_serve` launcher
    in-process with --trace and --metrics at a small size (its files
    load as JSON and parse as Prometheus text);
+6n. the mesh executor (`run_vb(executor=)`, `VBService(executor=)`)
+   under a one-rank NCCL group from `admission.data_axis_mesh()` (a
+   HashStore, no port; a failed initialisation fails the run):
+   mesh_main_path — dSVB (Diffusion: all-gather), RingDiffusion with
+   link_drop 0.2 (the ring exchange), adaptive dVB-ADMM with per_block
+   (psums) and cVB (FusionCenter: pmean) at the main path's size, 20
+   fused iterations each: phi, the KLs, the consensus error and the ADMM
+   diagnostics bit-equal to the single-array executor, one gmm_estep
+   launch an iteration, ms an iteration with and without the executor
+   (median of 7 runs in turns, with the range), device and NCCL kernels
+   an iteration (profiled), and gmm_estep on row slices of the main
+   shape bit-equal to the same rows of the whole launch; mesh_serve_fleet
+   (after vb_serve_fleet) — group C under the executor, each tenant
+   bit-equal to the single-array fleet's result and to its solo run, ms
+   per fleet iteration against the single-array fleet's (3 runs in
+   turns); mesh_sparse (after sparse_main_path) — sparse dSVB at 100,000
+   x 4096, 5 iterations, bit-equal to the single-array run, ms an
+   iteration and peak memory of both;
 7. lm_kernel_vs_plain — flash_attention and ssd_scan against their plain
    versions (and flash against scaled_dot_product_attention) at the
    tests/test_kernels.py shapes, a ragged S = 1000, the causality case and
@@ -175,6 +193,7 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 
 from repro_torch import telemetry  # noqa: E402
 from repro_torch.checkpoint import ckpt  # noqa: E402
@@ -874,7 +893,7 @@ def phase_small_vs_cpu(dev):
 # ---------------------------------------------------------------------------
 # 6. where an iteration's time goes (torch.profiler, device activity)
 # ---------------------------------------------------------------------------
-def profile_window(fn, named=()) -> dict:
+def profile_window(fn, named=(), counts=False) -> dict:
     """Trace fn() (then a synchronize): device-busy time by kernel against
     the host wall clock (the profiler's own overhead inflates the wall
     time, so the idle share is an upper bound).  Only device-side events
@@ -882,7 +901,8 @@ def profile_window(fn, named=()) -> dict:
     kernels' time as its own device time too, and CUPTI's "Command Buffer
     Full" marks the host waiting on a full launch queue, not device
     work.  Kernels whose name holds one of the strings in `named` are
-    also listed on their own, whatever their rank."""
+    also listed on their own, whatever their rank; `counts` adds every
+    device event's count by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -898,12 +918,15 @@ def profile_window(fn, named=()) -> dict:
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     top = sorted(events, key=lambda e: e.self_device_time_total,
                  reverse=True)[:8]
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "device_idle_share": 1.0 - busy_ms / wall_ms,
-            "kernels_launched": sum(e.count for e in events),
-            "top": [_kernel_row(e) for e in top],
-            "named": [_kernel_row(e) for e in events
-                      if any(n in e.key for n in named)]}
+    out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "device_idle_share": 1.0 - busy_ms / wall_ms,
+           "kernels_launched": sum(e.count for e in events),
+           "top": [_kernel_row(e) for e in top],
+           "named": [_kernel_row(e) for e in events
+                     if any(n in e.key for n in named)]}
+    if counts:
+        out["counts"] = {e.key: e.count for e in events}
+    return out
 
 
 def _kernel_row(e) -> dict:
@@ -1668,7 +1691,7 @@ def phase_vb_serve_fleet(inst, dev) -> dict:
     # each tenant against a solo vb_run of its budget on the card, and
     # the same admissions driven in slices of FLEET_SLICE_ALT (every
     # group is measured and printed; a miss fails the phase at its end)
-    misses = []
+    misses, solos = [], {}
     for name, reqs in groups.items():
         svc, rids, res = runs[name]
         worst, bit_equal = 0.0, True
@@ -1677,6 +1700,7 @@ def phase_vb_serve_fleet(inst, dev) -> dict:
                 r.model, r.data, r.topology, n_iters=r.n_iters,
                 schedule=r.schedule, init_phi=r.init_phi,
                 minibatch=r.minibatch, diagnostics=False, device=dev)
+            solos.setdefault(name, []).append(solo.phi)
             got = res[rid].phi
             bit_equal &= bool(torch.equal(solo.phi, got))
             worst = max(worst, float((solo.phi - got).abs().max()
@@ -1739,8 +1763,11 @@ def phase_vb_serve_fleet(inst, dev) -> dict:
         misses.append(f"device kernels per fleet iteration: {kpi}")
     if misses:
         raise AssertionError("; ".join(misses))
+    svc_c, rids_c, res_c = runs["C"]
     return {"launches": launches["gmm_estep_nodes"], "max_abs_err": err,
-            "ms": k_ms, "bound_ms": bound}
+            "ms": k_ms, "bound_ms": bound,
+            # group C for the mesh phase: requests, fleet and solo results
+            "C": (groups["C"], [res_c[r].phi for r in rids_c], solos["C"])}
 
 
 # ---------------------------------------------------------------------------
@@ -2228,8 +2255,12 @@ def _live_cuda_tensors(top: int = 6) -> list:
     """The largest CUDA storages that Python objects hold now (found
     through the garbage collector): [{bytes, dtype, shape}]."""
     seen = {}
-    for o in gc.get_objects():
-        if isinstance(o, torch.Tensor) and o.is_cuda:
+    with warnings.catch_warnings():     # deprecated torch.distributed
+        warnings.simplefilter("ignore", FutureWarning)   # aliases
+        objects = gc.get_objects()
+        tensors = [o for o in objects if isinstance(o, torch.Tensor)]
+    for o in tensors:
+        if o.is_cuda:
             st = o.untyped_storage()
             seen.setdefault(st.data_ptr(), {
                 "bytes": st.nbytes(), "dtype": str(o.dtype)[6:],
@@ -2421,7 +2452,8 @@ def phase_sparse_main_path(dev) -> dict:
          max_rel_kl_diff=float(((f - r).abs() / r.abs()).max()),
          kl_fused=f.tolist(), kl_reference=r.tolist())
     torch.testing.assert_close(f, r, rtol=1e-4, atol=1e-4)
-    return {"launches": launches["gmm_estep_nodes"], "max_abs_err": err}
+    return {"launches": launches["gmm_estep_nodes"], "max_abs_err": err,
+            "inst": inst, "graph": gd}
 
 
 def _rel(a, b) -> float:
@@ -3057,6 +3089,238 @@ def _time_ssd(dev) -> dict:
             "pr12_GBps": n_bytes / PR12_SSD_MS / 1e6}
 
 
+# ---------------------------------------------------------------------------
+# 6n. the mesh executor under a one-rank NCCL group (admission.data_axis_mesh)
+# ---------------------------------------------------------------------------
+MESH_ITERS, MESH_REPS, MESH_PROFILE_ITERS = 20, 7, 10
+MESH_CASES = ("dsvb", "ring_link_drop", "admm_adaptive_per_block", "cvb")
+MESH_FLEET_REPS, MESH_SPARSE_ITERS = 3, 5
+# row slices of the main shape: a two-rank split and an interior block
+MESH_ROW_SLICES = ((0, 500), (500, 1000), (250, 750))
+
+
+def _mesh_run(name, inst, executor, dev, n_iters=None):
+    """A main-path case through run_vb, on `executor` (None: the
+    single-array executor): fused backend, f32 data, f64 iterates,
+    MESH_ITERS iterations unless told."""
+    cfg, x, mask, adj, W, prior, ref, init_q = inst
+    mdl = GMMModel(prior, cfg.K, cfg.D, backend="fused", device=dev)
+    phi0 = expfam.pack_natural(init_q).expand(x.shape[0], mdl.flat_dim)
+    sched = vb_engine.Schedule(tau=cfg.tau, d0=cfg.d0)
+    topo = {"dsvb": vb_engine.Diffusion(W),
+            "ring_link_drop": vb_engine.RingDiffusion(link_drop=0.2,
+                                                      link_seed=SEED),
+            "admm_adaptive_per_block": vb_engine.ADMMConsensus(
+                adj, rho=cfg.rho, xi=cfg.xi, adaptive_rho=True,
+                per_block=True),
+            "cvb": vb_engine.FusionCenter()}[name]
+    if name == "admm_adaptive_per_block":
+        sched = vb_engine.Schedule()
+    elif name == "cvb":
+        sched = vb_engine.ONE_SHOT
+    return vb_engine.run_vb(mdl, (x, mask), topo,
+                            n_iters=n_iters or MESH_ITERS, schedule=sched,
+                            init_phi=phi0, ref_phi=ref, executor=executor,
+                            device=dev)
+
+
+def _runs_bit_equal(a, b) -> bool:
+    same = (torch.equal(a.phi, b.phi) and torch.equal(a.kl_nodes, b.kl_nodes)
+            and torch.equal(a.consensus_err, b.consensus_err))
+    if a.consensus_diag is not None:
+        same = same and all(torch.equal(u, v) for u, v in zip(
+            a.consensus_diag, b.consensus_diag))
+    return same
+
+
+def _median_range(v) -> dict:
+    return {"median": float(np.median(v)), "min": float(min(v)),
+            "max": float(max(v))}
+
+
+def phase_mesh_main_path(inst, ex, dev) -> dict:
+    """The main path's cases under the executor against the single-array
+    executor (module docstring, 6n)."""
+    t_phase = time.perf_counter()
+    for name in MESH_CASES:                         # warm-up, outside
+        _mesh_run(name, inst, ex, dev, 2)
+        _mesh_run(name, inst, None, dev, 2)
+    torch.cuda.synchronize()
+    zero_launches()                                 # this path's window
+    mesh = {name: _mesh_run(name, inst, ex, dev) for name in MESH_CASES}
+    torch.cuda.synchronize()
+    launches = read_launches()                      # read just after
+    out, misses = {}, []
+    for name in MESH_CASES:
+        single = _mesh_run(name, inst, None, dev)
+        out[name] = {"bit_equal": _runs_bit_equal(mesh[name], single),
+                     "kl_last": float(mesh[name].kl_mean[-1])}
+        if not out[name]["bit_equal"]:
+            misses.append(f"{name}: the executor's run is not bit-equal")
+    if launches["gmm_estep_nodes"] != len(MESH_CASES) * MESH_ITERS:
+        misses.append(f"gmm_estep launches {launches}")
+    # ms an iteration, the executor and the single array in turns
+    for name in MESH_CASES:
+        ms = {"mesh": [], "single": []}
+        for _ in range(MESH_REPS):
+            for mode, executor in (("single", None), ("mesh", ex)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _mesh_run(name, inst, executor, dev)
+                torch.cuda.synchronize()
+                ms[mode].append((time.perf_counter() - t0) * 1e3
+                                / MESH_ITERS)
+        out[name].update(ms_per_iter={m: _median_range(v)
+                                      for m, v in ms.items()})
+    # device events an iteration (profiled): the executor's against the
+    # single array's, by name; NCCL's kernels, and c10d's `nccl:*`
+    # ranges (the profiler mirrors them on the device's timeline)
+    for name in MESH_CASES:
+        prof = {mode: profile_window(lambda: _mesh_run(
+            name, inst, executor, dev, MESH_PROFILE_ITERS), counts=True)
+            for mode, executor in (("mesh", ex), ("single", None))}
+        c_mesh, c_single = prof["mesh"]["counts"], prof["single"]["counts"]
+        added = {k: (c_mesh.get(k, 0) - c_single.get(k, 0))
+                 / MESH_PROFILE_ITERS for k in set(c_mesh) | set(c_single)}
+        added = dict(sorted(((k[:60], v) for k, v in added.items() if v),
+                            key=lambda kv: -abs(kv[1]))[:10])
+        for mode, p in prof.items():
+            c = p["counts"]
+            out[name][f"profile_{mode}"] = {
+                "device_events_per_iter": p["kernels_launched"]
+                / MESH_PROFILE_ITERS,
+                "nccl_kernels_per_iter": sum(
+                    v for k, v in c.items() if k.startswith("nccl")
+                    and not k.startswith("nccl:")) / MESH_PROFILE_ITERS,
+                "c10d_nccl_ranges_per_iter": sum(
+                    v for k, v in c.items() if k.startswith("nccl:"))
+                / MESH_PROFILE_ITERS,
+                "device_busy_ms_per_iter": p["device_busy_ms"]
+                / MESH_PROFILE_ITERS,
+                "device_idle_share": p["device_idle_share"]}
+        out[name]["events_added_per_iter"] = added
+        emit("mesh_main_path", case=name, nodes=N_NODES,
+             points_per_node=N_PER_NODE, n_iters=MESH_ITERS, ranks=1,
+             backend=str(dist.get_backend()), **out[name])
+    # a launch over a row slice against the same rows of the whole
+    # launch, bit for bit: each rank launches the kernel on its rows
+    cfg, x, mask = inst[:3]
+    q = expfam.unpack_natural(mesh["dsvb"].phi, cfg.K, cfg.D)
+    shift = q.m.float().contiguous()
+    terms = [t.contiguous() for t in gmm.estep_terms(q, torch.float32,
+                                                     shift=shift)]
+    whole = ops.gmm_estep_nodes(x, mask, *terms, float(N_NODES),
+                                shift=shift, return_r=True)
+    slices = []
+    for lo, hi in MESH_ROW_SLICES:
+        part = ops.gmm_estep_nodes(
+            x[lo:hi].contiguous(), mask[lo:hi].contiguous(),
+            *(t[lo:hi].contiguous() for t in terms), float(N_NODES),
+            shift=shift[lo:hi].contiguous(), return_r=True)
+        same = all(torch.equal(p, w[lo:hi]) for p, w in zip(part, whole))
+        slices.append({"rows": [lo, hi], "bit_equal": same})
+        if not same:
+            misses.append(f"gmm_estep rows {lo}:{hi} differ from the "
+                          "whole launch")
+    emit("mesh_main_path_summary", cases=list(MESH_CASES), launches=launches,
+         gmm_estep_launches_per_iter=launches["gmm_estep_nodes"]
+         / (len(MESH_CASES) * MESH_ITERS),
+         kernel_variant=gmm_estep.kernel_variant(cfg.K, cfg.D),
+         row_slices=slices, seconds=time.perf_counter() - t_phase)
+    if misses:
+        raise AssertionError("; ".join(misses))
+    return {"launches": launches["gmm_estep_nodes"]}
+
+
+def phase_mesh_serve_fleet(fleet_c, ex, dev) -> dict:
+    """Serving group C (4 rings with link drops, 1000 x 4096 each, 100
+    iterations, 25-iteration slices) under the executor: each tenant
+    bit-equal to the single-array fleet's result and to its solo run; ms
+    per fleet iteration against the single-array fleet's, in turns."""
+    t_phase = time.perf_counter()
+    reqs, fleet_phi, solo_phi = fleet_c
+
+    def serve(executor):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        svc = vb_service.VBService(slice_iters=FLEET_SLICE,
+                                   max_fleet=FLEET_MAX, bucket="pow2",
+                                   executor=executor, device=dev)
+        rids = [svc.submit(r, arrive_at=a) for r, a in reqs]
+        res = svc.run()
+        torch.cuda.synchronize()
+        st = svc.stats()
+        return ([res[r].phi for r in rids], st,
+                (time.perf_counter() - t0) * 1e3
+                / (st.slices * FLEET_SLICE))
+
+    serve(ex)                                       # warm-up, outside
+    zero_launches()                                 # this path's window
+    got, st, _ = serve(ex)
+    launches = read_launches()                      # read just after
+    iters = st.slices * FLEET_SLICE
+    ms = {"mesh": [], "single": []}
+    for _ in range(MESH_FLEET_REPS):
+        for mode, executor in (("single", None), ("mesh", ex)):
+            ms[mode].append(serve(executor)[2])
+    vs_fleet = all(torch.equal(a, b) for a, b in zip(got, fleet_phi))
+    vs_solo = all(torch.equal(a, b) for a, b in zip(got, solo_phi))
+    emit("mesh_serve_fleet", group="C", tenants=len(reqs), nodes=N_NODES,
+         points_per_node=N_PER_NODE, slice_iters=FLEET_SLICE, ranks=1,
+         fleet_iterations=iters, compiles=st.compiles,
+         gmm_estep_launches=launches["gmm_estep_nodes"],
+         gmm_estep_launches_per_fleet_iter=launches["gmm_estep_nodes"]
+         / iters, bit_equal_single_array_fleet=vs_fleet,
+         bit_equal_solo=vs_solo,
+         ms_per_fleet_iter={m: _median_range(v) for m, v in ms.items()},
+         seconds=time.perf_counter() - t_phase)
+    if not (vs_fleet and vs_solo) or launches["gmm_estep_nodes"] != iters \
+            or st.compiles != 1:
+        raise AssertionError(f"mesh fleet: vs fleet {vs_fleet}, vs solo "
+                             f"{vs_solo}, {launches}, {st}")
+    return {"launches": launches["gmm_estep_nodes"]}
+
+
+def phase_mesh_sparse(inst, gd, ex, dev) -> dict:
+    """Sparse dSVB at 100,000 x 4096 under the executor against the
+    single-array executor: bit-equal, ms an iteration, peak memory."""
+    cfg, x, mask, prior, ref, init_q = inst
+    sw = network.sparse_nearest_neighbor_weights(gd)
+
+    def run(executor, n_iters):
+        mdl = GMMModel(prior, cfg.K, cfg.D, backend="fused", device=dev)
+        phi0 = expfam.pack_natural(init_q).expand(x.shape[0], mdl.flat_dim)
+        return vb_engine.run_vb(
+            mdl, (x, mask), vb_engine.Diffusion(sw), n_iters=n_iters,
+            schedule=vb_engine.Schedule(tau=cfg.tau, d0=cfg.d0),
+            init_phi=phi0, ref_phi=ref, executor=executor, device=dev)
+
+    run(ex, 1)                                      # warm-up, outside
+    out = {}
+    for mode, executor in (("single", None), ("mesh", ex)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if mode == "mesh":
+            zero_launches()                         # this path's window
+        t0 = time.perf_counter()
+        r = run(executor, MESH_SPARSE_ITERS)
+        torch.cuda.synchronize()
+        out[mode] = {"run": r, "ms_per_iter": (time.perf_counter() - t0)
+                     * 1e3 / MESH_SPARSE_ITERS,
+                     "peak_bytes": torch.cuda.max_memory_allocated()}
+    launches = read_launches()                      # read just after
+    same = _runs_bit_equal(out["mesh"]["run"], out["single"]["run"])
+    emit("mesh_sparse", nodes=SPARSE_N, points_per_node=N_PER_NODE,
+         n_iters=MESH_SPARSE_ITERS, ranks=1, bit_equal=same,
+         launches=launches,
+         **{f"{m}_{k}": o[k] for m, o in out.items()
+            for k in ("ms_per_iter", "peak_bytes")},
+         kl_last=float(out["mesh"]["run"].kl_mean[-1]))
+    if not same or launches["gmm_estep_nodes"] != MESH_SPARSE_ITERS:
+        raise AssertionError(f"mesh sparse: bit-equal {same}, {launches}")
+    return {"launches": launches["gmm_estep_nodes"]}
+
+
 def main():
     dev_info = phase_device()
     ptxas = phase_build()
@@ -3076,11 +3340,18 @@ def main():
     phase_profile(inst, dev)
     phase_telemetry_main_path(inst, dev)
     phase_engine_remainder(inst, dev)
+    # a one-rank NCCL group; a failed initialisation fails the run
+    ex = admission.data_axis_mesh(device=dev)
+    mesh = phase_mesh_main_path(inst, ex, dev)["launches"]
     phase_stream_main_path(inst, dev)
     fleet = phase_vb_serve_fleet(inst, dev)
+    mesh += phase_mesh_serve_fleet(fleet.pop("C"), ex, dev)["launches"]
     del inst, x, mask
     torch.cuda.empty_cache()
     sparse = phase_sparse_main_path(dev)
+    mesh += phase_mesh_sparse(sparse.pop("inst"), sparse.pop("graph"), ex,
+                              dev)["launches"]
+    dist.destroy_process_group()
     torch.cuda.empty_cache()
     phase_sparse_vs_dense_card(dev)
     torch.cuda.empty_cache()
@@ -3107,11 +3378,12 @@ def main():
         "name": "gmm_estep_nodes", "route": "cuda",
         "source": "src/repro_torch/csrc/gmm_estep.cu",
         "replaces": "src/repro/kernels/gmm_estep.py:118",
-        # the main path's launches, the sparse main path's and the
-        # serving fleets' (the register path runs all three), the worst
-        # error of the three shapes
+        # the main path's launches, the sparse main path's, the serving
+        # fleets' and the mesh executor's (mesh_main_path,
+        # mesh_serve_fleet, mesh_sparse: the register path runs all of
+        # them), the worst error of the three shapes
         "launches": mp["launches"] + sparse["launches"]
-        + fleet["launches"],
+        + fleet["launches"] + mesh,
         "max_abs_err": max(mp["max_abs_err"], sparse["max_abs_err"],
                            fleet["max_abs_err"]),
         "max_err": max(mp["max_abs_err"], sparse["max_abs_err"],

@@ -1,6 +1,6 @@
 """Unified conjugate-exponential VB engine: Model x Topology.
 
-Port of `repro.core.engine` for the single-array executor.  Every estimator
+Port of `repro.core.engine`, with both executors.  Every estimator
 of the paper is the same per-iteration kernel — each node runs a VBE step
 + local VBM optimum to get phi*_i (Eq. 18) — followed by a topology rule
 that turns the stack {phi*_i} into the next iterate:
@@ -55,8 +55,16 @@ penalties, dual warmup, dual reset), written as tensor ops with no host
 sync in the step.
 
 The node axis is a plain tensor axis throughout (no Python loop over
-nodes).  Options of the reference that this port does not carry yet raise
-`NotImplementedError` naming the ROADMAP item that ports them.
+nodes).  `executor=MeshExecutor(group)` (repro_torch.dist) splits it over
+the ranks of a `torch.distributed` group, SPMD: every rank calls `run_vb`
+/ `vb_run` with the same global inputs, works on its contiguous block of
+rows (`_run_vb_sharded`), and each topology's combine becomes its
+collective (the reference's `axis` branches): an all-gather and the
+local rows for an arbitrary graph, the ring's two boundary exchanges,
+`pmean` for the fusion centre, `psum` for ADMM's norms and counters.
+The final state and the (T, N) KLs are gathered, so every rank returns
+the complete `VBRun` / `VBState`; a one-rank group gives the single-array
+executor's bits.
 """
 from __future__ import annotations
 
@@ -71,13 +79,12 @@ from repro_torch import device as device_lib
 from repro_torch import telemetry
 from repro_torch.core import network as network_lib
 from repro_torch.data import stream as stream_lib
+from repro_torch.dist import collectives, sharding
+from repro_torch.dist.collectives import (  # noqa: F401  (the reference's)
+    MeshExecutor, _ring_perms, ring_combine, ring_combine_block,
+    ring_neighbors,
+)
 from repro_torch.telemetry import taps
-
-
-def _not_ported(what: str, item: int):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md, Queue 1 "
-        f"item {item})")
 
 
 # ---------------------------------------------------------------------------
@@ -288,6 +295,21 @@ def _dense_apply(M: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
                         for s in range(z.shape[0])])
 
 
+def _gathered(z: torch.Tensor, axis) -> torch.Tensor:
+    """The whole node axis -2 of a stack: z itself on the single-array
+    executor, every rank's rows (an all-gather) under the mesh executor
+    (`axis`)."""
+    return z if axis is None else collectives.all_gather(z, axis, -2)
+
+
+def _own_rows(full: torch.Tensor, n_local: int, axis,
+              dim: int = -2) -> torch.Tensor:
+    """This rank's `n_local` rows along `dim` of a whole-network array
+    (all of it on the single-array executor)."""
+    return full if axis is None \
+        else collectives.local_rows(full, n_local, axis, dim)
+
+
 def _segment_sum(x: torch.Tensor, lengths: torch.Tensor,
                  axis: int = 0) -> torch.Tensor:
     """Sums of consecutive segments of x along `axis`, of the given
@@ -344,7 +366,11 @@ class _CombineTopology:
 
     Every combine reduces over the node axis -2 of a (..., N, P) stack: a
     solo session's (N, P), or a serving fleet's (S, N, P) with t an (S,)
-    tensor, where each slot is combined over its own nodes only."""
+    tensor, where each slot is combined over its own nodes only.
+
+    Under the mesh executor `axis` is the `MeshExecutor`, the stack holds
+    this rank's block of rows, and `local` the rank's rows of the
+    topology's `shard_inputs` (the reference's shard_map branches)."""
 
     uses_schedule = True
     emits_diagnostics = False
@@ -358,23 +384,35 @@ class _CombineTopology:
                 setattr(new, name, val.to(device))
         return new
 
+    def shard_inputs(self) -> dict:
+        """Per-node arrays the mesh executor shards along the node axis
+        (the rows of a dense weight or adjacency matrix)."""
+        return {}
+
     def init_carry(self, phi0: torch.Tensor, model=None):
         return None
+
+    def carry_specs(self):
+        """The carry's spec under the mesh executor (dist/sharding.py):
+        per-node leaves shard their node axis."""
+        return sharding.NODE
 
     def init_diag(self, model, phi0: torch.Tensor):
         return None
 
-    def combine(self, varphi: torch.Tensor, *, t=None) -> torch.Tensor:
+    def combine(self, varphi: torch.Tensor, *, axis=None, local=None,
+                t=None) -> torch.Tensor:
         raise NotImplementedError
 
     def step(self, model, phi, carry, phi_star, t: int, schedule: Schedule,
-             hyper=None):
+             hyper=None, *, axis=None, local=None, diagnostics=True):
         if schedule.eta_fixed == 1.0:
             varphi = phi_star                       # one-shot: jump to phi*
         else:                                       # Eq. 27a
             varphi = phi + _per_slot(schedule.eta(t, hyper), phi) * (
                 phi_star - phi)
-        return self.combine(varphi, t=t), carry, None
+        return (self.combine(varphi, axis=axis, local=local, t=t), carry,
+                None)
 
 
 class FusionCenter(_CombineTopology):
@@ -385,14 +423,17 @@ class FusionCenter(_CombineTopology):
     [[1.0, 3.0], [1.0, 3.0]]
     """
 
-    def combine(self, varphi, *, t=None):
-        return varphi.mean(-2, keepdim=True).expand_as(varphi)
+    def combine(self, varphi, *, axis=None, local=None, t=None):
+        mean = varphi.mean(-2, keepdim=True)
+        if axis is not None:
+            mean = collectives.pmean(mean, axis)
+        return mean.expand_as(varphi)
 
 
 class Isolated(_CombineTopology):
     """No communication (noncoop-VB): every node keeps its own iterate."""
 
-    def combine(self, varphi, *, t=None):
+    def combine(self, varphi, *, axis=None, local=None, t=None):
         return varphi
 
 
@@ -431,29 +472,42 @@ class Diffusion(_CombineTopology):
         self.weights = weights if self.sparse else _as_tensor(weights)
         self.links = _LinkSchedule(link_drop, link_seed, link_mask_fn)
 
-    def _effective_weights(self, W, t):
-        """Iteration t's weights: drop-masked, row-renormalised.  A node
-        never loses itself (the keep diagonal is forced to 1), so a row
-        whose links are all down becomes the identity combine."""
-        n = W.shape[0]
+    def shard_inputs(self) -> dict:
+        # sparse: the edge arrays are not per-node rows; the combine
+        # gathers the node axis and keeps its local rows
+        return {} if self.sparse else {"weights": self.weights}
+
+    def _effective_weights(self, W, t, *, axis=None):
+        """Iteration t's weights (W: this rank's rows under the
+        executor): drop-masked, row-renormalised.  A node never loses
+        itself (the keep diagonal is forced to 1), so a row whose links
+        are all down becomes the identity combine."""
+        n = W.shape[-1]
         keep = self.links.keep_matrix(t, n, W.dtype, W.device)
         keep = torch.maximum(keep, torch.eye(n, dtype=W.dtype,
                                              device=W.device))
-        W_eff = W * keep                              # (..., N, N)
+        W_eff = W * _own_rows(keep, W.shape[-2], axis)    # (..., N, N)
         rows = W_eff.sum(-1, keepdim=True)
         return W_eff / torch.where(rows > 0, rows, torch.ones_like(rows))
 
-    def combine(self, varphi, *, t=None):
+    def combine(self, varphi, *, axis=None, local=None, t=None):
         if self.sparse:
             keep = (self.links.keep_edges(t, self.graph.n_undirected,
                                           varphi.dtype, varphi.device)
                     if self.links.time_varying else None)
-            return _sparse_combine(self.graph, self.w_edge, self.w_self,
-                                   varphi, keep)
-        W = self.weights.to(varphi.dtype)
+            # every node must see the messages addressed to it: under
+            # the executor gather the node axis, combine over the edge
+            # list, keep the local rows
+            return _own_rows(_sparse_combine(
+                self.graph, self.w_edge, self.w_self,
+                _gathered(varphi, axis), keep), varphi.shape[-2], axis)
+        W = (self.weights if axis is None else local["weights"]).to(
+            varphi.dtype)
         if self.links.time_varying:
-            W = self._effective_weights(W, t)
-        return _dense_apply(W, varphi)
+            W = self._effective_weights(W, t, axis=axis)
+        # an arbitrary graph's combine on the executor: all-gather, then
+        # this rank's rows of W
+        return _dense_apply(W, _gathered(varphi, axis))
 
 
 class RingDiffusion(_CombineTopology):
@@ -508,24 +562,33 @@ class RingDiffusion(_CombineTopology):
         return torch.where(isolated[..., None], varphi,
                            num / safe[..., None])
 
-    def combine(self, varphi, *, t=None):
+    def combine(self, varphi, *, axis=None, local=None, t=None):
         if self.graph is not None:
             # the edge-list path: a ring's (E_und,) link masks are the
             # (N,) ring_link_keep masks (same order)
             keep = (self.links.keep_edges(t, self.graph.n_undirected,
                                           varphi.dtype, varphi.device)
                     if self.links.time_varying else None)
-            return _sparse_combine(self.graph, self.w_edge,
-                                   self.w_self_nodes, varphi, keep)
-        left = torch.roll(varphi, 1, dims=-2)            # phi_{i-1}
-        right = torch.roll(varphi, -1, dims=-2)          # phi_{i+1}
+            return _own_rows(_sparse_combine(
+                self.graph, self.w_edge, self.w_self_nodes,
+                _gathered(varphi, axis), keep), varphi.shape[-2], axis)
+        n_local = varphi.shape[-2]
+        if axis is None:
+            left = torch.roll(varphi, 1, dims=-2)        # phi_{i-1}
+            right = torch.roll(varphi, -1, dims=-2)      # phi_{i+1}
+        else:       # the ring's blocks: only boundary rows cross ranks
+            left, right = collectives.ring_boundaries(varphi, axis)
         if not self.links.time_varying:
             w_n = (1.0 - self.w_self) / 2.0
             return self.w_self * varphi + w_n * (left + right)
-        n = varphi.shape[-2]
+        n = n_local if axis is None \
+            else n_local * collectives.axis_size(axis)
         e = self.links.keep_ring(t, n, varphi.dtype, varphi.device)
-        return self._gated(varphi, left, right, torch.roll(e, 1, dims=-1),
-                           e)
+        # node i's links (i-1, i) and (i, i+1)
+        return self._gated(varphi, left, right,
+                           _own_rows(torch.roll(e, 1, dims=-1), n_local,
+                                     axis, -1),
+                           _own_rows(e, n_local, axis, -1))
 
 
 class PairwiseGossip(_CombineTopology):
@@ -577,7 +640,7 @@ class PairwiseGossip(_CombineTopology):
             network_lib.link_generator(self.seed, t, device),
             self.graph.n_undirected, 1.0 - self.p_activate, dtype)
 
-    def combine(self, varphi, *, t=None):
+    def combine(self, varphi, *, axis=None, local=None, t=None):
         if t is None:
             raise ValueError(
                 "PairwiseGossip draws its activation from the iteration "
@@ -588,11 +651,13 @@ class PairwiseGossip(_CombineTopology):
             t = int(t)
         act = self.active(t, varphi.dtype, varphi.device)
         act_dir = act.index_select(-1, g.edge_id)
-        num = varphi + _segment_sum(
-            act_dir[..., None] * varphi.index_select(-2, g.senders), g.deg,
+        full = _gathered(varphi, axis)
+        num = full + _segment_sum(
+            act_dir[..., None] * full.index_select(-2, g.senders), g.deg,
             -2)
         den = 1.0 + _segment_sum(act_dir, g.deg, -1)  # 1 + |N_i^active|
-        return num / den[..., None]
+        out = num / den[..., None]
+        return _own_rows(out, varphi.shape[-2], axis)
 
 
 class HierarchicalFusion(_CombineTopology):
@@ -658,13 +723,15 @@ class HierarchicalFusion(_CombineTopology):
         return (_segment_sum(x.index_select(-2, order), count, -2)
                 / count.to(x.dtype)[:, None])
 
-    def combine(self, varphi, *, t=None):
-        gw_mean = self._segment_mean(varphi, self.gw_order, self.gw_count)
+    def combine(self, varphi, *, axis=None, local=None, t=None):
+        full = _gathered(varphi, axis)
+        gw_mean = self._segment_mean(full, self.gw_order, self.gw_count)
         rg_mean = self._segment_mean(gw_mean, self.rg_order, self.rg_count)
-        return (self.w_self * varphi
-                + self.w_gateway * gw_mean.index_select(-2, self.gateway_of)
-                + self.w_region * rg_mean.index_select(
-                    -2, self.region_of_node))
+        out = (self.w_self * full
+               + self.w_gateway * gw_mean.index_select(-2, self.gateway_of)
+               + self.w_region * rg_mean.index_select(
+                   -2, self.region_of_node))
+        return _own_rows(out, varphi.shape[-2], axis)
 
 
 class ConsensusDiagnostics(NamedTuple):
@@ -782,6 +849,11 @@ class ADMMConsensus(_CombineTopology):
         return not (self.adaptive_rho or self.per_block or self.dual_warmup
                     or self.dual_reset is not None)
 
+    def shard_inputs(self) -> dict:
+        # sparse: the edge arrays are not per-node rows; the neighbour
+        # sum gathers, reduces and keeps its local rows
+        return {} if self.sparse else {"adj": self.adj}
+
     def init_carry(self, phi0, model=None):
         lam0 = torch.zeros_like(phi0)                 # duals lambda_i
         if self._plain:
@@ -792,6 +864,13 @@ class ADMMConsensus(_CombineTopology):
                 torch.zeros((), dtype=phi0.dtype, device=dev),
                 torch.full((), not self.dual_warmup, dtype=torch.bool,
                            device=dev))
+
+    def carry_specs(self):
+        # the duals are per node; the penalty and the gate state are the
+        # same on every rank
+        if self._plain:
+            return sharding.NODE
+        return (sharding.NODE, None, None, None, None)
 
     def _n_blocks(self, model) -> int:
         return int(np.max(model.block_labels())) + 1
@@ -826,22 +905,30 @@ class ADMMConsensus(_CombineTopology):
             link_frac=torch.ones((), dtype=dt, device=dev))
 
     @staticmethod
-    def _block_norms(z: torch.Tensor, onehot=None) -> torch.Tensor:
-        """RMS norm of the (..., N, P) stack z: per block ((...,
+    def _block_norms(zs, onehot=None, *, axis=None) -> tuple:
+        """RMS norms of each (..., N, P) stack in `zs`: per block ((...,
         n_blocks)) given the one-hot block map, else one per leading
-        index (a scalar for a solo session)."""
-        sq = (z * z).sum(-2)
-        n = z.shape[-2]
+        index (a scalar for a solo session); the node axis reduced over
+        every rank under the executor, in ONE `psum` for all of `zs`."""
+        sqs = [(z * z).sum(-2) for z in zs]
+        n = zs[0].shape[-2]
+        if axis is not None:
+            sqs = collectives.psum(torch.stack(sqs), axis).unbind(0)
+            n *= collectives.axis_size(axis)
         if onehot is not None:
-            return torch.sqrt((sq @ onehot) / (onehot.sum(0) * n))
-        return torch.sqrt(sq.sum(-1) / (n * z.shape[-1]))
+            return tuple(torch.sqrt((sq @ onehot) / (onehot.sum(0) * n))
+                         for sq in sqs)
+        return tuple(torch.sqrt(sq.sum(-1) / (n * zs[0].shape[-1]))
+                     for sq in sqs)
 
-    def _graph_ops(self, phi, t):
+    def _graph_ops(self, phi, t, axis=None, local=None):
         """(deg, neigh_sum, link_frac) of iteration t's graph: |N_i(t)|,
         z -> sum_{j in N_i(t)} z_j and the live fraction of the links.
         Dense: the adjacency masked by the surviving links, a product.
         Sparse: the directed edges gated by one coin per undirected link,
-        a segmented sum, O(E + N) memory."""
+        a segmented sum, O(E + N) memory.  Under the executor (`axis`)
+        deg and the sums are this rank's rows, over the gathered z."""
+        n_local = phi.shape[-2]
         if self.sparse:
             g = self.adj
             if self.links.time_varying:
@@ -856,34 +943,42 @@ class ADMMConsensus(_CombineTopology):
                 deg = g.deg.to(phi.dtype)
 
             def neigh_sum(z):
-                msg = z.index_select(-2, g.senders)
+                msg = _gathered(z, axis).index_select(-2, g.senders)
                 if keep_dir is not None:
                     msg = msg * keep_dir[..., None]
-                return _segment_sum(msg, g.deg, -2)
+                return _own_rows(_segment_sum(msg, g.deg, -2), n_local,
+                                 axis)
 
-            return deg, neigh_sum, link_frac
-        adj = self.adj.to(phi.dtype)
+            return _own_rows(deg, n_local, axis, -1), neigh_sum, link_frac
+        adj = (self.adj if axis is None else local["adj"]).to(phi.dtype)
         if self.links.time_varying:
-            keep = self.links.keep_matrix(t, adj.shape[0], phi.dtype,
+            keep = self.links.keep_matrix(t, self.adj.shape[-1], phi.dtype,
                                           phi.device)
-            live = adj * keep                         # (..., N, N)
-            link_frac = live.sum((-2, -1)) / adj.sum()
+            live = adj * _own_rows(keep, n_local, axis)   # (..., N, N)
+            alive = live.sum((-2, -1))
+            if axis is not None:
+                alive = collectives.psum(alive, axis)
+            link_frac = alive / self.adj.to(phi.dtype).sum()
         else:
             live = adj
             link_frac = phi.new_ones(())
-        return live.sum(-1), (lambda z: _dense_apply(live, z)), link_frac
+        return (live.sum(-1),
+                (lambda z: _dense_apply(live, _gathered(z, axis))),
+                link_frac)
 
     def step(self, model, phi, carry, phi_star, t: int, schedule: Schedule,
-             hyper=None):
+             hyper=None, *, axis=None, local=None, diagnostics=True):
         # `hyper` entries (see `hyper_names`) override the penalty and the
         # ramp rate; under adaptive_rho the penalty lives in the carry, so
-        # only xi is read from it there
+        # only xi is read from it there.  Without `diagnostics` the diag
+        # is None and nothing (no collective either) is spent on it
         rho = self.rho if not hyper or "rho" not in hyper else hyper["rho"]
         xi = self.xi if not hyper or "xi" not in hyper else hyper["xi"]
-        deg, neigh_sum, link_frac = self._graph_ops(phi, t)
+        deg, neigh_sum, link_frac = self._graph_ops(phi, t, axis, local)
         if not self._plain:
             return self._adaptive_step(model, phi, carry, phi_star, deg,
-                                       neigh_sum, link_frac, xi)
+                                       neigh_sum, link_frac, xi, axis=axis,
+                                       diagnostics=diagnostics)
         lam = carry
         deg_c = deg[..., None]                        # (..., N, 1)
         rho_n = _per_slot(rho, phi)
@@ -901,11 +996,16 @@ class ADMMConsensus(_CombineTopology):
         if self.lam_max is not None:
             bound = self.lam_max * phi_star.abs()
             lam_new = torch.clamp(lam_new, -bound, bound)
+        if not diagnostics:
+            return phi_new, lam_new, None
         clip_count = ((phi_new - phi_hat).abs().amax(-1) > self.clip_tol
                       ).sum(-1).to(torch.int32)
+        if axis is not None:
+            clip_count = collectives.psum(clip_count, axis)
+        primal_resid, dual_resid = self._block_norms(
+            (resid, rho_n * (phi_new - phi)), axis=axis)
         diag = ConsensusDiagnostics(
-            primal_resid=self._block_norms(resid),
-            dual_resid=self._block_norms(rho_n * (phi_new - phi)),
+            primal_resid=primal_resid, dual_resid=dual_resid,
             rho=torch.as_tensor(rho, dtype=phi.dtype, device=phi.device),
             kappa=torch.as_tensor(kappa, dtype=phi.dtype,
                                   device=phi.device),
@@ -916,7 +1016,7 @@ class ADMMConsensus(_CombineTopology):
         return phi_new, lam_new, diag
 
     def _adaptive_step(self, model, phi, carry, phi_star, deg, neigh_sum,
-                       link_frac, xi):
+                       link_frac, xi, *, axis=None, diagnostics=True):
         # a serving fleet's carry holds one (S,) entry per slot (rho
         # (S, n_blocks) per block), reshaped against (S, N, P) below
         lam, rho_vec, stable, t_act, active = carry
@@ -937,11 +1037,17 @@ class ADMMConsensus(_CombineTopology):
             else phi_hat                              # (38b)
         clip_active = ((phi_new - phi_hat).abs().amax(-1)
                        > self.clip_tol)               # (..., N) clip fired
-        any_clip = clip_active.any(-1)
+        # the count feeds the dual reset's ramp (any clip) and the diag;
+        # under the executor one psum serves both, and none is issued
+        # when neither reads it
+        clip_count = clip_active.sum(-1).to(torch.int32)
+        if axis is not None and (diagnostics
+                                 or self.dual_reset is not None):
+            clip_count = collectives.psum(clip_count, axis)
 
         resid = deg_c * phi_new - neigh_sum(phi_new)
-        r_norm = self._block_norms(resid, onehot)
-        s_norm = self._block_norms(rho_coord * (phi_new - phi), onehot)
+        r_norm, s_norm = self._block_norms(
+            (resid, rho_coord * (phi_new - phi)), onehot, axis=axis)
         if self.per_block:
             r_tot = torch.sqrt((r_norm ** 2).sum(-1))
             s_tot = torch.sqrt((s_norm ** 2).sum(-1))
@@ -956,8 +1062,8 @@ class ADMMConsensus(_CombineTopology):
             active = active | (stable >= self.warmup_window)
         zero = torch.zeros_like(t_act)
         t_act = torch.where(active, t_act + 1.0, zero)
-        if self.dual_reset is not None:
-            t_act = torch.where(any_clip, zero, t_act)  # ramp reset on clip
+        if self.dual_reset is not None:       # ramp reset on any clip
+            t_act = torch.where(clip_count > 0, zero, t_act)
         kappa = torch.where(t_act > 0.0, kappa_schedule(t_act, xi), zero)
 
         # (39) dual ascent
@@ -965,13 +1071,9 @@ class ADMMConsensus(_CombineTopology):
         if self.lam_max is not None:
             bound = self.lam_max * phi_star.abs()
             lam_new = torch.clamp(lam_new, -bound, bound)
-        clip_count = clip_active.sum(-1).to(torch.int32)
         if self.dual_reset is not None:
             lam_new = torch.where(clip_active[..., None],
                                   self.dual_reset * lam_new, lam_new)
-            reset_count = clip_count
-        else:
-            reset_count = torch.zeros_like(clip_count)
 
         # residual balancing (Boyd Sec. 3.4.1), gated on dual activity
         if self.adaptive_rho:
@@ -984,11 +1086,16 @@ class ADMMConsensus(_CombineTopology):
             rho_vec = torch.where(do[..., None] if self.per_block else do,
                                   balanced, rho_vec)
 
+        carry = (lam_new, rho_vec, stable, t_act, active)
+        if not diagnostics:
+            return phi_new, carry, None
         diag = ConsensusDiagnostics(
             primal_resid=r_norm, dual_resid=s_norm, rho=rho_vec,
-            kappa=kappa, clip_count=clip_count, reset_count=reset_count,
+            kappa=kappa, clip_count=clip_count,
+            reset_count=(clip_count if self.dual_reset is not None
+                         else torch.zeros_like(clip_count)),
             dual_on=active.to(dt), link_frac=link_frac)
-        return phi_new, (lam_new, rho_vec, stable, t_act, active), diag
+        return phi_new, carry, diag
 
 
 # ---------------------------------------------------------------------------
@@ -1029,7 +1136,9 @@ class VBSession:
     dtype), or `data` itself for a model without `stream_data`; streaming
     minibatches gather from it.  `minibatch` is the session's
     `MinibatchSpec` (None: full batch) and `base_mask` the (N, T) mask of
-    `data` it subsamples."""
+    `data` it subsamples.  `executor` is the session's `MeshExecutor`
+    (None: the single-array executor); the buffers stay global either
+    way, and each `vb_run` takes its rank's rows of them."""
 
     model: Any
     data: Any
@@ -1042,6 +1151,7 @@ class VBSession:
     stream_data: Any
     minibatch: Optional[stream_lib.MinibatchSpec] = None
     base_mask: Optional[torch.Tensor] = None
+    executor: Optional[MeshExecutor] = None
 
     def with_data(self, data) -> "VBSession":
         """The same session over NEW per-node buffers (data arriving
@@ -1130,7 +1240,13 @@ def vb_init(model, data, topology, *, schedule: Schedule = Schedule(),
     `run_vb`'s (minus `n_iters`)."""
     dev = device_lib.resolve(device)
     if executor is not None:
-        raise _not_ported("the mesh executor (executor=)", 14)
+        if not isinstance(executor, MeshExecutor):
+            raise TypeError(f"executor must be a dist.MeshExecutor or "
+                            f"None, not {type(executor).__name__}")
+        if metric_nodes is not None:
+            raise ValueError("metric_nodes is only supported on the "
+                             "single-array executor")
+        collectives.check_device(executor, dev)
     model_dev = getattr(model, "device", dev)
     if torch.device(model_dev) != dev:
         raise ValueError(f"the model lives on {model_dev}, the run was "
@@ -1154,6 +1270,10 @@ def vb_init(model, data, topology, *, schedule: Schedule = Schedule(),
             "(Eq. 27a); it ignores `schedule` — pass the default")
     data = _on_device(data, dev)
     n_nodes = _leaves(data)[0].shape[0]
+    if executor is not None and n_nodes % collectives.axis_size(executor):
+        raise ValueError(
+            f"{n_nodes} nodes do not split evenly over the executor's "
+            f"{collectives.axis_size(executor)} ranks")
     # the hot path's copy of the data, cast once here, not per iteration
     stream_data = _stream_data(model, data)
     topology = topology.to(dev)
@@ -1196,16 +1316,19 @@ def vb_init(model, data, topology, *, schedule: Schedule = Schedule(),
                                                 float(replication)))
     session = VBSession(model, data, topology, schedule, float(replication),
                         ref_phi, diagnostics, metric_nodes, stream_data,
-                        minibatch, base_mask)
+                        minibatch, base_mask, executor)
     return VBState(
         phi=init_phi, t=0, carry=topology.init_carry(init_phi, model),
         diag=topology.init_diag(model, init_phi) if diagnostics else None,
         session=session, stream=stream0)
 
 
-def _iteration(ses: VBSession, phi, carry, st, t: int, hyper=None):
+def _iteration(ses: VBSession, phi, carry, st, t: int, hyper=None, *,
+               axis=None, local=None):
     """ONE VB iteration at the absolute t: (phi', carry', stream', diag).
-    `hyper` is the optional per-session constants dict (`hyper_names`).
+    `hyper` is the optional per-session constants dict (`hyper_names`);
+    `axis` / `local` the mesh executor's (`_CombineTopology`), with `ses`
+    then holding this rank's rows (`_local_session`).
 
     Streaming: gather this iteration's minibatch from the streamed data;
     its scaled mask keeps the statistics unbiased.  SVRG (anchors in the
@@ -1230,9 +1353,10 @@ def _iteration(ses: VBSession, phi, carry, st, t: int, hyper=None):
             anchor_full = model.local_optimum(ses.stream_data, phi, rep)
         else:
             anchor_phi, anchor_full = st.anchor_phi, st.anchor_full
-        # 1 on the iterations that refreshed the SVRG anchor (a host
-        # value: filed with no device work)
-        taps.tap("stream/svrg_anchor_refresh", int(refresh), t=t)
+        if axis is None:
+            # 1 on the iterations that refreshed the SVRG anchor (a host
+            # value: filed with no device work)
+            taps.tap("stream/svrg_anchor_refresh", int(refresh), t=t)
         st_new = st_new._replace(anchor_phi=anchor_phi,
                                  anchor_full=anchor_full)
         phi_star = (model.local_optimum(data_t, phi, rep)
@@ -1241,25 +1365,29 @@ def _iteration(ses: VBSession, phi, carry, st, t: int, hyper=None):
     else:
         phi_star = model.local_optimum(data_t, phi, rep)
     phi, carry, diag = ses.topology.step(model, phi, carry, phi_star, t,
-                                         ses.schedule, hyper=hyper)
+                                         ses.schedule, hyper=hyper,
+                                         axis=axis, local=local,
+                                         diagnostics=ses.diagnostics)
     return phi, carry, st_new, diag
 
 
-def session_step_fn(session: VBSession):
+def session_step_fn(session: VBSession, *, axis=None, local=None):
     """The one-iteration kernel over raw state, with the data buffers as
     an ARGUMENT: fn(data, phi, carry, stream, t, hyper=None) -> (phi',
     carry', stream', diag).  Data other than the session's own goes
     through `VBSession.with_data` (same shapes and dtypes).  `hyper` is a
     per-session constants dict (`session_hyper`); None keeps the
-    session's built-in values."""
+    session's built-in values.  `axis` / `local`: the mesh executor's,
+    the state and data then this rank's rows."""
     def fn(data, phi, carry, st, t, hyper=None):
         ses = session if data is session.data else session.with_data(data)
-        return _iteration(ses, phi, carry, st, int(t), hyper=hyper)
+        return _iteration(ses, phi, carry, st, int(t), hyper=hyper,
+                          axis=axis, local=local)
 
     return fn
 
 
-def fleet_step_fn(session: VBSession):
+def fleet_step_fn(session: VBSession, *, axis=None, local=None):
     """The one-iteration kernel over a serving FLEET: S sessions of this
     session's configuration (model, topology structure, schedule branch,
     replication, minibatch) batched along a leading slot axis.
@@ -1288,7 +1416,12 @@ def fleet_step_fn(session: VBSession):
     full-batch anchor is recomputed for the whole fleet when
     `may_redraw` and kept where a slot's epoch did not change (one extra
     local step at such an iteration, as a solo session makes one at its
-    own epoch change)."""
+    own epoch change).
+
+    `axis` / `local` run the fleet under the mesh executor: the slot
+    axis stays a leading batch axis on every rank, the node axis is this
+    rank's block of rows (a `_local_session`'s), and the topology
+    combines over the ranks."""
     model, mb, rep = session.model, session.minibatch, session.replication
     topology, schedule = session.topology, session.schedule
 
@@ -1322,8 +1455,10 @@ def fleet_step_fn(session: VBSession):
                 full = optimum(flat_tree(stream_data), phi)
                 anchor_phi = torch.where(new, phi, anchor_phi)
                 anchor_full = torch.where(new, full, anchor_full)
-                # per slot, where a refresh was possible (elsewhere none)
-                taps.tap("stream/svrg_anchor_refresh", refresh, t=t)
+                if axis is None:
+                    # per slot, where a refresh was possible (elsewhere
+                    # none)
+                    taps.tap("stream/svrg_anchor_refresh", refresh, t=t)
             st_new = st_new._replace(anchor_phi=anchor_phi,
                                      anchor_full=anchor_full)
             phi_star = (optimum(data_t, phi) - optimum(data_t, anchor_phi)
@@ -1331,7 +1466,9 @@ def fleet_step_fn(session: VBSession):
         else:
             phi_star = optimum(data_t, phi)
         phi, carry, diag = topology.step(model, phi, carry, phi_star, t,
-                                         schedule, hyper=hyper)
+                                         schedule, hyper=hyper, axis=axis,
+                                         local=local,
+                                         diagnostics=session.diagnostics)
         return phi, carry, st_new, diag
 
     return fn
@@ -1397,25 +1534,9 @@ def vb_run(state: VBState, n_iters: int) -> tuple[VBState, VBRun]:
 
 
 def _vb_run_body(state, ses, n_iters):
-    model = ses.model
-    phi, carry, st = state.phi, state.carry, state.stream
-    kls, msds, diags = [], [], []
-    window = taps.open_window(n_iters)      # None unless taps are on
-    with taps.collecting(window):
-        for t in range(state.t, state.t + n_iters):
-            phi, carry, st, diag = _iteration(ses, phi, carry, st, t)
-            phi_m = phi if ses.metric_nodes is None \
-                else phi[:ses.metric_nodes]
-            kls.append(kl_to_reference(model, phi_m, ses.ref_phi))
-            if ses.diagnostics:
-                msds.append(((phi - phi.mean(0)) ** 2).mean())
-                diags.append(diag)
-            if window is not None:
-                if ses.diagnostics:
-                    _tap_iteration(kls[-1], msds[-1], diag, t)
-                else:
-                    _tap_iteration(kls[-1], 0.0, None, t)
-    kls = torch.stack(kls)
+    run_steps = _scan_steps if ses.executor is None else _run_vb_sharded
+    phi, carry, st, kls, msds, diags = run_steps(
+        ses, state.phi, state.carry, state.stream, state.t, n_iters)
     stacked = None
     if diags and diags[-1] is not None:
         stacked = type(diags[-1])(*(torch.stack(f) for f in zip(*diags)))
@@ -1428,12 +1549,110 @@ def _vb_run_body(state, ses, n_iters):
                 consensus_err=torch.stack(msds) if ses.diagnostics
                 else None,
                 consensus_diag=stacked)
-    if window is not None:
-        window.flush()
     if telemetry.enabled():
         _file_run_series(run, state.t, n_iters)
         telemetry.resolve_device_times()    # the loop's work is done
     return state_new, run
+
+
+def _scan_steps(ses, phi, carry, st, t0: int, n_iters: int, *, axis=None,
+                local=None):
+    """`n_iters` iterations from the absolute t0, the loop of both
+    executors: (phi, carry, stream, KLs (T, N), [msd], [diag]).  Under
+    the executor (`axis`) everything is this rank's rows, and the
+    consensus error's mean and msd are reduced over the ranks (`pmean`).
+    The per-iteration `vb/*` taps run on the single-array executor only,
+    as in the reference."""
+    model = ses.model
+    kls, msds, diags = [], [], []
+    window = taps.open_window(n_iters) if axis is None else None
+    with taps.collecting(window):
+        for t in range(t0, t0 + n_iters):
+            phi, carry, st, diag = _iteration(ses, phi, carry, st, t,
+                                              axis=axis, local=local)
+            phi_m = phi if ses.metric_nodes is None \
+                else phi[:ses.metric_nodes]
+            kls.append(kl_to_reference(model, phi_m, ses.ref_phi))
+            if ses.diagnostics:
+                mean = phi.mean(0)
+                if axis is not None:
+                    mean = collectives.pmean(mean, axis)
+                msd = ((phi - mean) ** 2).mean()
+                if axis is not None:
+                    msd = collectives.pmean(msd, axis)
+                msds.append(msd)
+                diags.append(diag)
+            if window is not None:
+                if ses.diagnostics:
+                    _tap_iteration(kls[-1], msds[-1], diag, t)
+                else:
+                    _tap_iteration(kls[-1], 0.0, None, t)
+    if window is not None:
+        window.flush()
+    return phi, carry, st, torch.stack(kls), msds, diags
+
+
+def _local_session(ses: VBSession, ex: MeshExecutor, n_local: int,
+                   data_spec) -> VBSession:
+    """This rank's view of a session: its rows of the data buffers (the
+    hot path's copy and the streaming mask too; `data_spec` from
+    `sharding.vb_node_specs`), and a minibatch `perm_fn` cut to its rows
+    (`stream.local_spec`)."""
+    def take(tree, spec=data_spec):
+        return sharding.local_tree(tree, spec, ex, n_local)
+
+    return dataclasses.replace(
+        ses, data=take(ses.data), stream_data=take(ses.stream_data),
+        base_mask=take(ses.base_mask, sharding.NODE),
+        minibatch=_local_minibatch(ses.minibatch, ex, n_local))
+
+
+def _local_minibatch(mb, ex: MeshExecutor, n_local: int):
+    """A minibatch spec whose `perm_fn` is cut to this rank's rows
+    (`stream.local_spec`); None stays None."""
+    if mb is None:
+        return None
+    return stream_lib.local_spec(mb, collectives.axis_index(ex) * n_local,
+                                 n_local)
+
+
+def _local_inputs(topology, ex: MeshExecutor, n_local: int) -> dict:
+    """This rank's rows of the topology's `shard_inputs`, by the specs
+    `sharding.vb_node_specs` gives them (for a run and for a fleet)."""
+    inputs = topology.shard_inputs()
+    keys = sorted(inputs)
+    specs = sharding.vb_node_specs(None, has_carry=False,
+                                   n_local=len(keys))[0][4:]
+    return {k: sharding.local_tree(inputs[k], s, ex, n_local)
+            for k, s in zip(keys, specs)}
+
+
+def _run_vb_sharded(ses, phi0, carry0, stream0, t0: int, n_iters: int):
+    """The mesh executor, SPMD (the reference's shard_map
+    `_run_vb_sharded`): take this rank's contiguous block of rows of the
+    data, phi, the carry's and the stream's per-node leaves and the
+    topology's `shard_inputs` (`dist/sharding.vb_node_specs`), run the
+    loop with the combines' collectives, then gather the final phi,
+    carry and stream and the (T, N) KLs once, so every rank returns the
+    whole state.  The diagnostics are reduced inside the step, the same
+    on every rank."""
+    ex = ses.executor
+    n_local = phi0.shape[0] // collectives.axis_size(ex)
+    has_carry = carry0 is not None
+    in_specs, out_specs = sharding.vb_node_specs(
+        ses.data, has_carry=has_carry, n_local=0,
+        carry_specs=ses.topology.carry_specs() if has_carry else None,
+        stream_specs=(None if stream0 is None
+                      else stream_lib.state_specs(stream0)))
+    local = _local_inputs(ses.topology, ex, n_local)
+    phi, carry, st, kls, msds, diags = _scan_steps(
+        _local_session(ses, ex, n_local, in_specs[0]),
+        *(sharding.local_tree(v, s, ex, n_local)
+          for v, s in zip((phi0, carry0, stream0), in_specs[1:4])),
+        t0, n_iters, axis=ex, local=local)
+    phi, carry, st, kls = (sharding.gather_tree(v, s, ex) for v, s in zip(
+        (phi, carry, st, kls), out_specs[:4]))
+    return phi, carry, st, kls, msds, diags
 
 
 _ADMM_SERIES = ("rho", "primal_resid", "dual_resid")
@@ -1500,7 +1719,12 @@ def run_vb(model, data, topology, *, n_iters: int,
     diagnostics : also record the per-iteration consensus error
     metric_nodes : evaluate the Eq. 46 metric on the first rows only
     device : where the run executes; None = CUDA (raises without a card)
-    executor : not ported yet (raises NotImplementedError)
+    executor : None = single-array (the node axis a plain tensor axis);
+        `MeshExecutor(group)` = the node axis split over the group's
+        ranks, SPMD (every rank calls with the same global inputs and
+        gets the whole `VBRun`); the group's backend must serve `device`
+        (NCCL for CUDA, gloo for the CPU), N must divide evenly, and
+        `metric_nodes` is not supported
 
     Exactly `vb_run(vb_init(<same arguments>), n_iters)[1]`.
     """

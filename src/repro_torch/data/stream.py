@@ -19,6 +19,10 @@ of its data.
   tested against.
 * `advance_fleet` — `advance` over a serving fleet's leading slot axis,
   each slot at its own device-side t.
+* `state_specs`, `local_spec` — the mesh executor's view: each rank
+  holds its rows of the keys, permutations and anchors (the keys are of
+  GLOBAL node indices, so the stream does not depend on the executor),
+  and a `perm_fn`'s permutations are cut to its rows.
 
 With taps on (`repro_torch.telemetry.taps`), both tap `stream/epoch`
 each iteration: a host integer for a session, an (S,) record per slot in
@@ -128,6 +132,33 @@ def init_state(n_nodes: int, seed: int, capacity: int, *, device="cpu",
     """Stream state at t = 0: the keys and epoch 0's permutations."""
     keys = node_keys(n_nodes, seed, device)
     return StreamState(keys, epoch_perms(keys, 0, capacity, perm_fn), 0)
+
+
+def state_specs(state: StreamState) -> StreamState:
+    """The mesh executor's specs of a carried `StreamState`
+    (dist/sharding.py): the keys, the permutations and the SVRG anchors
+    (when present) shard their node axis 0, the epoch replicates."""
+    return StreamState(
+        keys=0, perm=0, epoch=None,
+        anchor_phi=None if state.anchor_phi is None else 0,
+        anchor_full=None if state.anchor_full is None else 0)
+
+
+def local_spec(spec: MinibatchSpec, row0: int,
+               n_local: int) -> MinibatchSpec:
+    """`spec` as a rank of the mesh executor sees it: a `perm_fn`'s
+    (N, T) permutations cut to the rows [row0, row0 + n_local)."""
+    if spec.perm_fn is None:
+        return spec
+    whole = spec.perm_fn
+
+    def perm_fn(epoch):
+        perm = whole(epoch)
+        perm = perm if isinstance(perm, torch.Tensor) \
+            else torch.from_numpy(np.array(perm))
+        return perm[row0:row0 + n_local]
+
+    return spec._replace(perm_fn=perm_fn)
 
 
 def _window(perm: torch.Tensor, base_mask: torch.Tensor, chunk: int,

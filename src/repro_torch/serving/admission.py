@@ -18,8 +18,9 @@ fixed-shape device batches:
   of the zoo buckets alike.
 
 The trees are the port's: tensors and arrays, tuples (NamedTuples
-included), lists and dicts.  `data_axis_mesh` waits for ROADMAP Queue 1
-item 14.
+included), lists and dicts.  `data_axis_mesh` is the mesh executor over
+the default `torch.distributed` group (a one-rank group made in process
+when none is initialised), which the serving smokes use.
 """
 from __future__ import annotations
 
@@ -27,8 +28,11 @@ import hashlib
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch import device as device_lib
 from repro_torch import telemetry
+from repro_torch.dist.collectives import MeshExecutor, check_device
 
 # Arrays at or under this many bytes are signed by content digest in
 # `static_signature`; larger ones by identity (conservative: splits
@@ -221,3 +225,19 @@ def static_signature(obj, *, ignore: tuple = ()):
         return obj
     except TypeError:
         return ("id", id(obj))
+
+
+def data_axis_mesh(axis: str = "data", device=None):
+    """`MeshExecutor` with `axis` spanning every rank of the default
+    `torch.distributed` group.  Without one, a one-rank group is made
+    in-process over a `HashStore` (no port, no network): NCCL for a CUDA
+    `device` (None = the card), gloo for the CPU.  A group that fails to
+    initialise raises."""
+    dev = device_lib.resolve(device)
+    if not dist.is_initialized():
+        dist.init_process_group(
+            "nccl" if dev.type == "cuda" else "gloo",
+            store=dist.HashStore(), rank=0, world_size=1)
+    ex = MeshExecutor(None, axis)
+    check_device(ex, dev)
+    return ex

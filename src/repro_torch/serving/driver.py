@@ -45,8 +45,18 @@ delta is refreshed once a slice (`FleetGroup.fetch_flags`).
 `VBDriver` is the scheduler; `serving/vb_service.py` keeps its public
 API as a thin wrapper, and `serving/engine.py`'s LM `Engine` reuses
 `SlotTable` / `ArrivalQueue` / `DriverStats` for its prefill/decode
-waves.  Not ported: the mesh executor (`executor=`, ROADMAP Queue 1 item
-14).
+waves.
+
+Under the mesh executor (`executor=MeshExecutor(group)`, SPMD: every
+rank drives the same driver with the same requests) the fleet's buffers
+stay global; each slice takes this rank's block of the node axis (the
+slot axis stays a leading batch axis on every rank), runs the k gated
+iterations with the topology's collectives and the early-stop delta
+averaged over the ranks, and gathers phi, the carry and the stream back.
+t, conv, budget and delta are the same on every rank, so every decision
+(admit, evict, budgets, the epoch redraw test) is too.  The checkpoint
+files are rank 0's alone (`save_session`, the autosaves): the ranks hold
+the same state, and ranks sharing a directory would race on one file.
 
 Telemetry (`repro_torch.telemetry`, the reference's catalogue): spans
 `driver/slice{k,slots}` (with `driver/compile` nested in the first slice
@@ -79,6 +89,8 @@ from repro_torch import device as device_lib
 from repro_torch import telemetry
 from repro_torch.checkpoint import ckpt
 from repro_torch.core import engine
+from repro_torch.data import stream as stream_lib
+from repro_torch.dist import collectives, sharding
 from repro_torch.serving import admission
 from repro_torch.telemetry import taps
 
@@ -331,7 +343,7 @@ def _tree_where(active: torch.Tensor, new, old):
     return _tree_map(pick, new, old)
 
 
-def _gated_step(step_fn):
+def _gated_step(step_fn, axis=None):
     """Wrap `engine.fleet_step_fn` with the per-session budget /
     early-stop gate: inactive sessions (converged, or budget spent) keep
     their state bit for bit and their absolute t frozen, so a session
@@ -341,7 +353,9 @@ def _gated_step(step_fn):
     active mask.  The reference's arithmetic, per slot: delta = sqrt of
     the mean over (N, P) of (phi' - phi)^2, conv' = conv or (tol > 0 and
     delta < tol), and `where(active, new, old)` over the whole state
-    tree, the stream's anchors included."""
+    tree, the stream's anchors included.  Under the mesh executor
+    (`axis`) the mean is over every rank's nodes (`pmean`), so every rank
+    takes the same stop decision."""
 
     def one(data, stream_data, phi, carry, st, t, conv, budget, tol,
             delta_prev, hyper, may_redraw):
@@ -349,6 +363,8 @@ def _gated_step(step_fn):
         phi2, carry2, st2, _ = step_fn(data, stream_data, phi, carry, st,
                                        t, hyper, may_redraw)
         msq = ((phi2 - phi) ** 2).mean((-2, -1))
+        if axis is not None:
+            msq = collectives.pmean(msq, axis)
         delta = torch.sqrt(msq).to(phi.dtype)
         conv2 = conv | ((tol > 0.0) & (delta < tol))
         return (torch.where(active[:, None, None], phi2, phi),
@@ -399,11 +415,13 @@ class FleetGroup:
     `stream` with a leading (S,) axis; `t` (S,) int64; `conv` (S,) bool;
     `budget` (S,) int64; `tol` and `delta` (S,) in phi's dtype; `hyper`
     {name: (S,)}.  Nothing re-stacks or re-casts the data per iteration.
+    With an `executor` a slice runs on this rank's block of the node axis
+    (`_run_slice`).
     """
 
     def __init__(self, session: engine.VBSession,
                  max_fleet: Optional[int] = None,
-                 bucket_capacity: Optional[int] = None):
+                 bucket_capacity: Optional[int] = None, executor=None):
         self.session = session          # template (data ignored per-slot)
         self.max_fleet = max_fleet
         self.bucket_capacity = bucket_capacity  # data rung; None = exact
@@ -416,7 +434,25 @@ class FleetGroup:
         # fetch_flags after each slice; written in step with control ops)
         self.host_t = self.host_conv = None
         self.host_budget = self.host_delta = self.host_tol = None
-        self._step = _gated_step(engine.fleet_step_fn(session))
+        self.executor = executor
+        if executor is None:
+            self._step = _gated_step(engine.fleet_step_fn(session))
+        else:
+            # the reference's `_mesh_slice_fn`: the node axis sharded,
+            # the fleet axis a leading batch axis on every rank; the step
+            # reads the template's model, topology, schedule, replication
+            # and minibatch spec, never its data
+            n_nodes = engine._leaves(session.data)[0].shape[0]
+            n_local = n_nodes // collectives.axis_size(executor)
+            template = dataclasses.replace(
+                session, minibatch=engine._local_minibatch(
+                    session.minibatch, executor, n_local))
+            local = engine._local_inputs(session.topology, executor,
+                                         n_local)
+            self._step = _gated_step(engine.fleet_step_fn(
+                template, axis=executor, local=local), axis=executor)
+            self._n_local = n_local
+        self._local_data = None     # this rank's rows of data/stream_data
         self._shapes: set = set()       # (capacity, k) stepped at
         self._compiles = 0
         self._taps: Optional[taps.Window] = None    # the slice's taps
@@ -443,6 +479,7 @@ class FleetGroup:
 
         self.data = _tree_map(rep, record["data"])
         self.stream_data = self._stream_buffers()
+        self._local_data = None
         self.phi = rep(record["phi"])
         self.carry = _tree_map(rep, record["carry"])
         self.stream = _tree_map(rep, record["stream"])
@@ -470,6 +507,7 @@ class FleetGroup:
 
         self.data = _tree_map(pad, self.data)
         self.stream_data = self._stream_buffers()
+        self._local_data = None
         self.phi = pad(self.phi)
         self.carry = _tree_map(pad, self.carry)
         self.stream = _tree_map(pad, self.stream)
@@ -535,7 +573,7 @@ class FleetGroup:
                                engine._leaves(self.data)):
             if buf is not d:
                 buf[i].copy_(src)
-
+        self._local_data = None
     # -- slice execution --------------------------------------------------
     def step_slice(self, k: int) -> None:
         """Queue one k-iteration slice on the device (nothing waits: host
@@ -556,12 +594,39 @@ class FleetGroup:
             else:
                 self._run_slice(k)
 
+    def _mesh_specs(self) -> tuple:
+        """The fleet's specs (dist/sharding.py) of (data, stream_data,
+        phi, carry, stream): the engine executor's `vb_node_specs`, each
+        node axis one to the right of the slot axis."""
+        has_carry = self.carry is not None
+        in_specs, _ = sharding.vb_node_specs(
+            self.data, has_carry=has_carry, n_local=0,
+            carry_specs=(self.session.topology.carry_specs()
+                         if has_carry else None),
+            stream_specs=(stream_lib.state_specs(self.stream)
+                          if self.stream is not None else None))
+        data, phi, carry, stream = in_specs
+        return tuple(sharding.fleet_spec(s)
+                     for s in (data, data, phi, carry, stream))
+
     def _run_slice(self, k: int) -> None:
         mb = self.session.minibatch
         n_chunks = None
         if mb is not None:
             T = int(self.session.model.data_mask(self.data).shape[-1])
             n_chunks = -(-T // min(int(mb.batch_size), T))
+        data, stream_data = self.data, self.stream_data
+        phi, carry, st = self.phi, self.carry, self.stream
+        ex = self.executor
+        if ex is not None:          # this rank's rows of the node axis
+            specs = self._mesh_specs()
+            if self._local_data is None:    # the buffers changed
+                self._local_data = tuple(
+                    sharding.local_tree(v, s, ex, self._n_local)
+                    for v, s in zip((data, stream_data), specs[:2]))
+            data, stream_data = self._local_data
+            phi, carry, st = (sharding.local_tree(v, s, ex, self._n_local)
+                              for v, s in zip((phi, carry, st), specs[2:]))
         if self._taps is None:
             self._taps = taps.open_window(k)    # None unless taps are on
         with taps.collecting(self._taps):
@@ -569,11 +634,14 @@ class FleetGroup:
                 may_redraw = n_chunks is not None and _redraw_possible(
                     self.host_t, self.host_budget, self.host_conv,
                     self.host_tol, j, n_chunks)
-                (self.phi, self.carry, self.stream, self.t, self.conv,
-                 self.delta) = self._step(
-                    self.data, self.stream_data, self.phi, self.carry,
-                    self.stream, self.t, self.conv, self.budget, self.tol,
-                    self.delta, self.hyper, may_redraw)
+                phi, carry, st, self.t, self.conv, self.delta = self._step(
+                    data, stream_data, phi, carry, st, self.t, self.conv,
+                    self.budget, self.tol, self.delta, self.hyper,
+                    may_redraw)
+        if ex is not None:          # every rank's rows back together
+            phi, carry, st = (sharding.gather_tree(v, s, ex)
+                              for v, s in zip((phi, carry, st), specs[2:]))
+        self.phi, self.carry, self.stream = phi, carry, st
 
     def fetch_flags(self) -> None:
         """Sync the small per-slot flag vectors device -> host (and read
@@ -663,8 +731,10 @@ class VBDriver:
     max_fleet : fixed slot capacity per fleet group (arrivals beyond it
         queue until an eviction frees a slot); None = power-of-two
         auto-growth.
-    executor : not ported (ROADMAP Queue 1 item 14): raises
-        NotImplementedError when given.
+    executor : optional `dist.MeshExecutor`: every fleet's node axis
+        split over the group's ranks (the fleet axis a leading batch axis
+        on each), SPMD (module docstring); its backend must serve
+        `device`, and each session's node count must divide evenly.
     bucket : capacity-bucketed admission.  "pow2" (default) pads each
         session's per-node data buffers up to the next power-of-two
         ladder rung (`admission.bucket_capacity`) with mask-zero slots, so
@@ -677,7 +747,9 @@ class VBDriver:
     bucket_min : smallest ladder rung.
     ckpt_dir / ckpt_every : when set, every `ckpt_every` slices each
         occupied slot's boundary state is handed to the background
-        `CheckpointWriter` as `<ckpt_dir>/<rid>.npz`.
+        `CheckpointWriter` as `<ckpt_dir>/<rid>.npz`.  Under the executor
+        rank 0 alone writes, so `DriverStats.checkpoints` and
+        `checkpoint_errors` count rank 0's writes (0 on the others).
     device : where the fleets run; None = the CUDA card (raises without
         one), "cpu" only when asked for.  Each request's model must live
         there.
@@ -698,12 +770,14 @@ class VBDriver:
                  bucket_min: int = 8,
                  ckpt_dir: Optional[str] = None, ckpt_every: int = 0,
                  device=None):
-        if executor is not None:
-            raise engine._not_ported("the mesh executor (executor=)", 14)
         if slice_iters < 1:
             raise ValueError(f"slice_iters must be >= 1: {slice_iters}")
         if max_fleet is not None and max_fleet < 1:
             raise ValueError(f"max_fleet must be >= 1: {max_fleet}")
+        if executor is not None and not isinstance(executor,
+                                                   collectives.MeshExecutor):
+            raise TypeError(f"executor must be a dist.MeshExecutor or None, "
+                            f"not {type(executor).__name__}")
         if bucket is None or bucket == "pow2":
             self._bucket_growth = 2.0 if bucket == "pow2" else None
         else:
@@ -790,7 +864,8 @@ class VBDriver:
         state = engine.vb_init(
             req.model, data, req.topology, schedule=req.schedule,
             replication=req.replication, init_phi=req.init_phi,
-            minibatch=req.minibatch, diagnostics=False, device=self.device)
+            executor=self.executor, minibatch=req.minibatch,
+            diagnostics=False, device=self.device)
         dt, dev = state.phi.dtype, state.phi.device
         hyper = engine.session_hyper(req.topology, req.schedule, dt)
         record = dict(phi=state.phi.contiguous(),
@@ -840,7 +915,8 @@ class VBDriver:
                 group = FleetGroup(entry["session"],
                                    max_fleet=self.max_fleet,
                                    bucket_capacity=(bucket[1] if bucket
-                                                    else None))
+                                                    else None),
+                                   executor=self.executor)
                 self._groups[entry["key"]] = group
             slot = group.admit(rid, rec)
             if slot is None:
@@ -873,6 +949,7 @@ class VBDriver:
                        if g.active_count() > 0]
             snaps = []
             if self.ckpt_dir and self.ckpt_every and stepped \
+                    and self._writes_files() \
                     and (self._slices + 1) % self.ckpt_every == 0:
                 for g in stepped:       # boundary state, before the slice
                     snaps.extend((rid, g.state_tree(slot))
@@ -1221,7 +1298,12 @@ class VBDriver:
         reference's file format (either package resumes the other's).
         With `wait=False` the device-to-host copy and compression happen
         on the background writer thread (call `flush_checkpoints`, or
-        rely on `drain`, before reading the file)."""
+        rely on `drain`, before reading the file).
+
+        Under the executor every rank calls it (SPMD) and rank 0 writes;
+        with `wait` the ranks then agree on the outcome (one `psum`), so
+        a failed write raises on every rank, and the file is on disk
+        when any rank returns."""
         with self._lock:
             if rid in self._where:
                 key, i = self._where[rid]
@@ -1232,8 +1314,39 @@ class VBDriver:
                 tree = dict(self._queued[rid]["record"])
             else:
                 raise KeyError(f"unknown session {rid!r}")
-        pending = self._writer.submit(tree, path)
-        return pending.wait() if wait else path
+        if not self._writes_files():
+            pending = None
+        else:
+            pending = self._writer.submit(tree, path)
+        if not wait:
+            return path
+        if self.executor is None:
+            return pending.wait()
+        exc = None
+        if pending is not None:
+            try:
+                pending.wait()
+            except Exception as e:      # re-raised below, after the psum
+                exc = e
+        failed = collectives.psum(torch.tensor(
+            [int(exc is not None)], dtype=torch.int32, device=self.device),
+            self.executor)
+        if exc is not None:
+            raise exc
+        if int(failed.item()):
+            raise RuntimeError(f"rank 0 failed to write checkpoint {path!r}")
+        return path
 
     def flush_checkpoints(self) -> None:
+        """Wait for the background writes.  Under the executor every rank
+        calls it, and it returns once rank 0's files are on disk."""
         self._writer.flush()
+        if self.executor is not None:
+            collectives.psum(torch.zeros(1, dtype=torch.int32,
+                                         device=self.device), self.executor)
+
+    def _writes_files(self) -> bool:
+        """Whether this process writes the checkpoint files: always on
+        the single-array executor, rank 0 alone under the mesh executor."""
+        return (self.executor is None
+                or collectives.axis_index(self.executor) == 0)

@@ -5,7 +5,7 @@
 `Engine` is the host-side driver: it admits a batch of requests, prefills
 them (right-aligned padding) with the kernels when `use_kernels`, then
 decodes until every request has its tokens.  Meshes and cache shardings
-are not ported (ROADMAP Queue 1 item 14).
+are not ported (ROADMAP Queue 1 item 16, with the LM training stack).
 """
 from __future__ import annotations
 
@@ -23,7 +23,7 @@ from repro_torch.serving.driver import ArrivalQueue, DriverStats, SlotTable
 
 def cache_shardings(*args, **kwargs):
     raise NotImplementedError("cache shardings over a device mesh are not "
-                              "ported (ROADMAP Queue 1 item 14)")
+                              "ported (ROADMAP Queue 1 item 16)")
 
 
 # ---------------------------------------------------------------------------
@@ -84,7 +84,7 @@ class Engine:
                  bucket_min: int = 8, mesh=None, device=None):
         if mesh is not None:
             raise NotImplementedError("a device mesh is not ported "
-                                      "(ROADMAP Queue 1 item 14)")
+                                      "(ROADMAP Queue 1 item 16)")
         self.device = resolve(device)
         if params.device.type != self.device.type:
             raise ValueError(f"params are on {params.device}, the engine "

@@ -47,8 +47,9 @@ Example::
     svc.stats()                    # DriverStats: compiles/occupancy/...
 
 Runs on the CUDA card unless built with `device="cpu"` (the models must
-live on the same device).  `executor=` (the mesh executor) is not ported:
-ROADMAP Queue 1 item 14.
+live on the same device).  `executor=MeshExecutor(group)` splits every
+fleet's node axis over a `torch.distributed` group's ranks, SPMD: each
+rank makes the same service and the same calls (serving/driver.py).
 """
 from __future__ import annotations
 
@@ -87,7 +88,9 @@ class VBService:
     slice_iters : iterations per slice, the scheduling quantum: between
         slices the driver admits arrivals, evicts finished sessions,
         applies pushed data, checkpoints, or answers status.
-    executor : not ported (ROADMAP Queue 1 item 14); raises when given.
+    executor : optional `dist.MeshExecutor`: shard every fleet's node
+        axis over the group's ranks (the fleet axis stays a leading batch
+        axis on each); every rank runs the same service.
     max_fleet : fixed fleet capacity (continuous batching: arrivals
         beyond it queue until an eviction frees a slot); None =
         power-of-two growth.

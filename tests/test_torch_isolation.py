@@ -45,7 +45,9 @@ def test_import_pulls_in_neither_jax_nor_repro():
               "repro_torch.launch.vb_serve", "repro_torch.telemetry",
               "repro_torch.telemetry.metrics",
               "repro_torch.telemetry.tracing",
-              "repro_torch.telemetry.taps"):
+              "repro_torch.telemetry.taps", "repro_torch.dist",
+              "repro_torch.dist.collectives", "repro_torch.dist.sharding",
+              "repro_torch.core.distributed"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"
@@ -89,7 +91,7 @@ def test_default_device_is_cuda(monkeypatch):
 def test_vb_service_defaults_to_cuda(monkeypatch):
     """`VBService` / `VBDriver` and the `vb_serve` launcher run on the
     card unless given device="cpu"; a fleet never moves to the CPU on its
-    own, and the mesh executor (item 14) raises."""
+    own, and an executor that is not a `dist.MeshExecutor` raises."""
     from repro_torch.launch import vb_serve
     from repro_torch.serving import driver, vb_service
 
@@ -100,7 +102,7 @@ def test_vb_service_defaults_to_cuda(monkeypatch):
         driver.VBDriver()
     with pytest.raises(RuntimeError, match='device="cpu"'):
         vb_serve.main(["--sessions", "1", "--budgets", "2"])
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(TypeError, match="MeshExecutor"):
         vb_service.VBService(executor=object(), device="cpu")
     prior, x, mask = _tiny()
     svc = vb_service.VBService(slice_iters=2, device="cpu")
@@ -219,7 +221,8 @@ def test_unported_options_raise():
     prior, x, mask = _tiny()
     mdl = model_lib.GMMModel(prior, device="cpu")
     adj = torch.ones(4, 4) - torch.eye(4)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    # item 14 (the mesh executor) is ported: only a MeshExecutor is one
+    with pytest.raises(TypeError, match="MeshExecutor"):
         engine.vb_init(mdl, (x, mask), engine.Isolated(), executor=object(),
                        device="cpu")
     # item 11 (sparse topologies) is ported: its options run

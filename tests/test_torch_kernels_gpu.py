@@ -24,7 +24,11 @@ shape within the bars above; each tenant bit-equal to its solo run on
 the ring, within 1e-9 on the matmul combines; a checkpoint snapshot
 holds the slice boundary while the next slice overwrites the fleet.
 Telemetry: `kernel_wall_seconds` counts one observation a launch, timed
-by CUDA events that are not waited on when recorded.
+by CUDA events that are not waited on when recorded.  The mesh
+executor: under a one-rank NCCL group (`admission.data_axis_mesh`) runs
+and a serving fleet bit-equal to the single-array executor; gmm_estep
+launched on a row slice (a rank's block of nodes) bit-equal to the same
+rows of the whole launch, on each of the kernel's three paths.
 """
 import numpy as np
 import pytest
@@ -635,3 +639,69 @@ def test_kernel_wall_time_counts_launches_without_syncing(cuda):
     finally:
         telemetry.disable()
         telemetry.reset()
+
+
+@pytest.mark.parametrize("K,D", [(3, 2), (8, 2), (2, 34)])
+def test_gmm_estep_row_slices_bit_equal(cuda, K, D):
+    """A rank launches the kernel on its own rows: each statistic is a
+    node's own, so a launch over rows lo:hi equals those rows of the
+    whole launch bit for bit (register, shared-memory and wide paths)."""
+    x, mask, *terms = _args(64, 300, K, D, cuda, seed=K + D)
+    shift = torch.randn(64, K, D, device=cuda)
+    whole = ops.gmm_estep_nodes(x, mask, *terms, 64.0, shift=shift)
+    for lo, hi in ((0, 32), (32, 64), (16, 48)):
+        part = ops.gmm_estep_nodes(
+            x[lo:hi].contiguous(), mask[lo:hi].contiguous(),
+            *(t[lo:hi].contiguous() for t in terms), 64.0,
+            shift=shift[lo:hi].contiguous())
+        for p, w in zip(part, whole):
+            assert torch.equal(p, w[lo:hi]), (ge.kernel_variant(K, D), lo)
+
+
+def test_one_rank_nccl_executor_bit_equal(cuda):
+    """The executor under a one-rank NCCL group gives the single-array
+    executor's bits: runs of each collective's topology, and a serving
+    fleet of rings with link drops."""
+    import torch.distributed as dist
+
+    from repro_torch.serving import admission, vb_service
+
+    made = not dist.is_initialized()
+    ex = admission.data_axis_mesh(device=cuda)
+    try:
+        data = synthetic.paper_synthetic(n_nodes=8, n_per_node=40, seed=1)
+        x, mask = data.x.to(cuda), data.mask.to(cuda)
+        prior = expfam.noninformative_prior(3, 2, beta0=0.1, w0_scale=10.0,
+                                            device=cuda)
+        mdl = model_lib.GMMModel(prior, 3, 2, backend="fused", device=cuda)
+        adj, _ = network.random_geometric_graph(8, seed=3)
+        W = network.nearest_neighbor_weights(adj)
+        for topo, kw in (
+                (engine.Diffusion(W), {}),
+                (engine.RingDiffusion(link_drop=0.2), {}),
+                (engine.ADMMConsensus(adj, adaptive_rho=True,
+                                      per_block=True), {}),
+                (engine.FusionCenter(), dict(schedule=engine.ONE_SHOT))):
+            a = engine.run_vb(mdl, (x, mask), topo, n_iters=10, **kw)
+            b = engine.run_vb(mdl, (x, mask), topo, n_iters=10,
+                              executor=ex, **kw)
+            for u, v in ((a.phi, b.phi), (a.kl_nodes, b.kl_nodes),
+                         (a.consensus_err, b.consensus_err)):
+                assert torch.equal(u, v), type(topo).__name__
+            if a.consensus_diag is not None:
+                assert all(torch.equal(u, v) for u, v in zip(
+                    a.consensus_diag, b.consensus_diag))
+        ring = engine.RingDiffusion(link_drop=0.2)
+        phis = []
+        for executor in (None, ex):
+            svc = vb_service.VBService(slice_iters=4, max_fleet=2,
+                                       executor=executor, device=cuda)
+            rids = [svc.submit(vb_service.VBRequest(
+                model=mdl, data=(x, mask), topology=ring, n_iters=9,
+                schedule=engine.Schedule(tau=tau))) for tau in (0.2, 0.1)]
+            out = svc.run()
+            phis.append([out[r].phi for r in rids])
+        assert all(torch.equal(u, v) for u, v in zip(*phis))
+    finally:
+        if made:
+            dist.destroy_process_group()

@@ -84,9 +84,9 @@ def test_temperature_sampling_is_seeded(pair):
 
 def test_unported_engine_options_raise(pair):
     cfg, tcfg, params, tlm = pair
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="item 16"):
         engine.Engine(tcfg, tlm, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="item 16"):
         engine.cache_shardings([], tcfg, None)
 
 

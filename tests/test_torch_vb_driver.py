@@ -243,7 +243,7 @@ def test_compiles_through_join_leave_and_growth(env):
     st = grow.stats()
     # capacities 1, 2 and 4 each stepped once
     assert st.capacity == 4 and st.compiles == 3
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(TypeError, match="MeshExecutor"):
         VBService(executor=object(), device="cpu")
 
 
