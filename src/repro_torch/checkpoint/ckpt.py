@@ -19,7 +19,10 @@ streaming session's current epoch: its permutations and SVRG anchors;
 file's (N, 2) keys are left for the session's own).  The session itself
 (model, topology, data) is not saved: `restore` loads into the state of
 a `vb_init` of the same configuration.  For the LM side stack: the
-model's weights (`lm_params_from_arrays`, `load_reference_lm_checkpoint`).
+model's weights (`lm_params_from_arrays`, `load_reference_lm_checkpoint`)
+and the JAX params tree of {parameter name: tensor} dicts (`lm_tree`: a
+homogeneous stack's layers stacked on a leading axis), which
+`training.train_step` uses to write and read a training state.
 Everything is read and written with numpy alone.
 """
 from __future__ import annotations
@@ -302,22 +305,22 @@ def _key_parts(key: str) -> list:
     return parts
 
 
-def lm_params_from_arrays(cfg, arrays: dict, *, device, dtype=None):
-    """The port's `LM` with the JAX package's params, given as `ckpt.save`
-    flattens them: {keystr path: array}.  A homogeneous stack's arrays carry
-    a leading n_layers axis (`['blocks']['attn']['wq']`, split here into
-    one tensor per layer); a list of layers carries an index
-    (`['blocks'][0]['attn']['wq']`).  Shapes are checked against `cfg`;
-    a missing or extra key raises.  `dtype` (a torch dtype) overrides the
-    config's param dtype; the f32 SSM parameters stay f32."""
-    if dtype is not None:
-        cfg = cfg.replace(param_dtype=str(dtype).removeprefix("torch."))
-    lm = LM(cfg, device=device, init=False)
-    want = dict(lm.named_parameters())
+def _lm_named(cfg, arrays: dict, prefix: str = "",
+              replica: int | None = None) -> dict:
+    """{parameter name: array} of the JAX params tree under `prefix`
+    (`ckpt.save`'s keystr paths).  A homogeneous stack's arrays carry a
+    leading n_layers axis (`['blocks']['attn']['wq']`, split here into
+    one array per layer); a list of layers carries an index
+    (`['blocks'][0]['attn']['wq']`).  `replica` takes that index of a
+    leading replica axis first (a consensus mode's state)."""
     stacked = _homogeneous(cfg)
     got = {}
     for key, arr in arrays.items():
-        parts = _key_parts(key)
+        if prefix and not key.startswith(prefix + "["):
+            continue
+        parts = _key_parts(key[len(prefix):])
+        if replica is not None:
+            arr = _tensor(arr)[replica]
         if parts[0] == "blocks" and isinstance(parts[1], str) != stacked:
             raise ValueError(f"{key} does not match the layout of "
                              f"{cfg.name}'s layers in the JAX params ("
@@ -331,14 +334,70 @@ def lm_params_from_arrays(cfg, arrays: dict, *, device, dtype=None):
                 got[".".join(map(str, ["blocks", i, *parts[1:]]))] = arr[i]
         else:
             got[".".join(map(str, parts))] = arr
+    return got
+
+
+def _load_named(cfg, got: dict, want: dict, what: str) -> None:
+    """Copy `got` into the tensors of `want` (same names; shapes checked,
+    each cast to its tensor's dtype and device)."""
     missing, extra = sorted(set(want) - set(got)), sorted(set(got) - set(want))
     if missing or extra:
-        raise KeyError(f"params do not match {cfg.name}: missing {missing}, "
+        raise KeyError(f"{what} do not match {cfg.name}: missing {missing}, "
                        f"extra {extra}")
     with torch.no_grad():
         for name, p in want.items():
             p.copy_(_load(got[name], p, name))
+
+
+def lm_params_from_arrays(cfg, arrays: dict, *, device, dtype=None):
+    """The port's `LM` with the JAX package's params, given as `ckpt.save`
+    flattens them: {keystr path: array} (see `_lm_named`).  Shapes are
+    checked against `cfg`; a missing or extra key raises.  `dtype` (a
+    torch dtype) overrides the config's param dtype; the f32 SSM, RG-LRU
+    and router parameters stay f32."""
+    if dtype is not None:
+        cfg = cfg.replace(param_dtype=str(dtype).removeprefix("torch."))
+    lm = LM(cfg, device=device, init=False)
+    _load_named(cfg, _lm_named(cfg, arrays), dict(lm.named_parameters()),
+                "params")
     return lm
+
+
+def lm_tree(cfg, named: dict) -> dict:
+    """The JAX params tree of {parameter name: tensor} (the model's
+    parameters, its AdamW moments or its duals): nested dicts, with a
+    homogeneous stack's layers stacked on a leading axis and a list of
+    layers otherwise."""
+    tree: dict = {}
+    layers: dict = {}
+    for name, t in named.items():
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            layers.setdefault(int(parts[1]), {})[tuple(parts[2:])] = t
+            continue
+        node = tree
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = t.detach()
+
+    def nest(flat: dict) -> dict:
+        out: dict = {}
+        for path, t in flat.items():
+            node = out
+            for part in path[:-1]:
+                node = node.setdefault(part, {})
+            node[path[-1]] = t
+        return out
+
+    blocks = [layers[i] for i in sorted(layers)]
+    if _homogeneous(cfg):
+        tree["blocks"] = nest({path: torch.stack([b[path].detach()
+                                                  for b in blocks])
+                               for path in blocks[0]})
+    else:
+        tree["blocks"] = [nest({p: t.detach() for p, t in b.items()})
+                          for b in blocks]
+    return tree
 
 
 def load_reference_lm_checkpoint(path: str, cfg, *, device, dtype=None):

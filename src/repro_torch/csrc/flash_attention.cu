@@ -15,7 +15,8 @@
 // reaches (above the causal diagonal, left of the window) are skipped.
 //
 // Layout: q (B, S, Hq, HD), k/v (B, S, Hkv, HD), o (B, S, Hq, HD), all
-// contiguous, all bf16 or all f32; HD in {16, 32, 64, 128}.
+// contiguous, all bf16 or all f32; HD in {16, 32, 64, 128, 256} (256:
+// RecurrentGemma-2B's MQA layers).
 //
 // What bounds it on the H100: operations.  At the Yi-6B prefill of
 // chip_smoke.py (B=4, S=2048, Hq=32, Hkv=4, HD=128, bf16, causal) the work
@@ -25,7 +26,9 @@
 //
 // bf16: the tensor-core kernel (flash_wgmma_kernel<HD>).  One block of
 // 288 threads per (128-row query tile, hq, b): two consumer warpgroups own
-// 64 query rows each, one producer warp issues the loads.
+// 64 query rows each, one producer warp issues the loads.  At HD 256 a
+// block takes 64 query rows and its two warpgroups split the output
+// columns (Geo's note: the whole accumulator spilled).
 //  * Loads: TMA (cp.async.bulk.tensor, 4-d tensor maps over (HD, H, S, B)
 //    built host-side through the runtime's driver entry point) into a ring
 //    of two K/V stages completed on mbarriers ("full", with the bytes
@@ -45,10 +48,11 @@
 //  * Schedule: blocks late in the causal triangle go first (the linear
 //    block index runs the query tiles backwards) and the query heads of a
 //    kv head are neighbours, so their K/V tiles are read from L2.
-//  * Shared memory: 2 query tiles + 2 stages x (K, V) tiles of 64 x HD bf16
-//    + barriers + 1 KB alignment slack (99,368 bytes at HD 128, one block
-//    an SM).  Registers (ptxas -v, chip_smoke.py's build line): 155 a
-//    thread at HD 128 (117, 96, 80 at HD 64, 32, 16), no spills.
+//  * Shared memory: 2 query tiles (1 at HD 256) + 2 stages x (K, V) tiles
+//    of 64 x HD bf16 + barriers + 1 KB alignment slack (99,368 bytes at HD
+//    128, 164,904 at HD 256; one block an SM).  Registers (ptxas -v,
+//    chip_smoke.py's build line): 157 a thread at HD 128 (117, 96, 80 at
+//    HD 64, 32, 16), no spills.
 //  * On the H100 at the Yi-6B shape: 0.439 ms, 313 TFLOP/s, 3.2x the
 //    operations bound (PERF.md).
 //  * Left on the table: softmax and the two products of one warpgroup do
@@ -278,7 +282,6 @@ namespace wg {
 
 using namespace hopper;
 
-constexpr int kBQ = 128;         // query rows per block: 2 warpgroups x 64
 constexpr int kWQ = 64;          // query rows per consumer warpgroup
 constexpr int kBK = 64;          // keys per tile
 constexpr int kStages = 2;       // K/V ring depth
@@ -289,6 +292,16 @@ constexpr float kLog2e = 1.4426950408889634f;
 // Tile geometry for head dim HD: a tile of R rows is stored as NA swizzle
 // atoms of R rows x AC columns (SW bytes a row), atom after atom, exactly
 // as the TMA box {AC, 1, R, 1} with the SW-byte swizzle writes it.
+//
+// Up to HD 128 a block holds NQ = 2 query tiles, one per consumer
+// warpgroup, and each warpgroup accumulates all HD output columns.  At HD
+// 256 a 64 x 256 f32 accumulator is 128 registers a thread, and with the
+// score tile that spilled (ptxas: 168 registers a thread, the most a
+// 288-thread block of warpgroups gets, and 1 KB of spill stores).  So
+// there the block holds NQ = 1 query tile and the two warpgroups split the
+// output columns: both form the same scores (the same instructions on the
+// same tiles, so the same bits) and each multiplies P by its own half of
+// V, NACC = NA / 2 atoms.  Q K^T runs twice, 1.5x the products of one pass.
 template <int HD>
 struct Geo {
   static constexpr int SW = HD * 2 < 128 ? HD * 2 : 128;
@@ -296,9 +309,12 @@ struct Geo {
   static constexpr int NA = HD / AC;
   static constexpr uint32_t SWZ = SW == 128 ? kSw128 : SW == 64 ? kSw64
                                                                 : kSw32;
+  static constexpr int NQ = HD > 128 ? 1 : 2;      // query tiles a block
+  static constexpr int BQ = 64 * NQ;               // query rows a block
+  static constexpr int NACC = NA / (3 - NQ);       // atoms a warpgroup owns
   static constexpr int TILE = 64 * HD * 2;          // one 64-row tile, bytes
-  static constexpr int Q_OFF = 0;                   // 2 query tiles
-  static constexpr int K_OFF = 2 * TILE;            // kStages K tiles
+  static constexpr int Q_OFF = 0;                   // NQ query tiles
+  static constexpr int K_OFF = NQ * TILE;           // kStages K tiles
   static constexpr int V_OFF = K_OFF + kStages * TILE;
   static constexpr int BAR_OFF = V_OFF + kStages * TILE;
   static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * kStages) + 1024;
@@ -351,14 +367,14 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   // heavy query tiles (late in the causal triangle) first; the query heads
   // of one kv head next to each other, so their K/V tiles meet in L2
   const int per_tile = Hq * B;
-  const int n_qt = (S + kBQ - 1) / kBQ;
+  const int n_qt = (S + G::BQ - 1) / G::BQ;
   const int qt = n_qt - 1 - (int)(blockIdx.x / per_tile);
   const int rem = blockIdx.x % per_tile;
   const int b = rem / Hq, hq = rem % Hq;
   const int hkv = hq / (Hq / Hkv);
-  const int q0 = qt * kBQ;
+  const int q0 = qt * G::BQ;
   int j_lo, j_hi;
-  tile_range(q0, kBQ, S, causal, window, j_lo, j_hi);
+  tile_range(q0, G::BQ, S, causal, window, j_lo, j_hi);
 
   const int tid = threadIdx.x;
   if (tid == 0) {
@@ -373,8 +389,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
   if (tid >= kConsumers) {       // the producer warp: one thread issues TMA
     if (tid != kConsumers) return;
-    mbar_arrive_expect_tx(q_full, 2 * G::TILE);
-    for (int g = 0; g < 2; ++g)
+    mbar_arrive_expect_tx(q_full, G::NQ * G::TILE);
+    for (int g = 0; g < G::NQ; ++g)
       for (int a = 0; a < G::NA; ++a)
         tma_load_4d(Qs + g * G::TILE + a * 64 * G::SW, &tq, q_full,
                     a * G::AC, hq, q0 + g * kWQ, b);
@@ -392,19 +408,22 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     return;
   }
 
-  // ---- consumer warpgroup g: query rows wq0 .. wq0 + 63 ----
+  // ---- consumer warpgroup g: query rows wq0 .. wq0 + 63, output atoms
+  // a0 .. a0 + NACC - 1 ----
   const int g = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
   const int quad = lane % 4;
-  const int wq0 = q0 + g * kWQ;
+  const int qg = G::NQ == 2 ? g : 0;              // this warpgroup's Q tile
+  const int a0 = G::NQ == 2 ? 0 : g * G::NACC;    // its first output atom
+  const int wq0 = q0 + qg * kWQ;
   int w_lo, w_hi;
   tile_range(wq0, kWQ, S, causal, window, w_lo, w_hi);
   const int row0 = wq0 + 16 * warp + lane / 4;     // and row0 + 8
   const float sl = scale * kLog2e;                  // logits in log2 units
-  const uint8_t* Qg = Qs + g * G::TILE;
+  const uint8_t* Qg = Qs + qg * G::TILE;
 
-  float acc[G::NA][G::AC / 2];
+  float acc[G::NACC][G::AC / 2];
 #pragma unroll
-  for (int a = 0; a < G::NA; ++a)
+  for (int a = 0; a < G::NACC; ++a)
 #pragma unroll
     for (int i = 0; i < G::AC / 2; ++i) acc[a][i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
@@ -474,7 +493,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         l[ri] = alpha * l[ri] + rs;
         m[ri] = m_new;
 #pragma unroll
-        for (int a = 0; a < G::NA; ++a)
+        for (int a = 0; a < G::NACC; ++a)
 #pragma unroll
           for (int c = 0; c < G::AC / 8; ++c) {
             acc[a][4 * c + 2 * ri] *= alpha;
@@ -492,14 +511,15 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       }
       // acc += P V: V (keys x HD, HD contiguous) is the MN-major B operand
 #pragma unroll
-      for (int a = 0; a < G::NA; ++a) fence_regs(acc[a]);
+      for (int a = 0; a < G::NACC; ++a) fence_regs(acc[a]);
       wgmma_fence();
 #pragma unroll
       for (int kc = 0; kc < 4; ++kc)
 #pragma unroll
-        for (int a = 0; a < G::NA; ++a) {
+        for (int a = 0; a < G::NACC; ++a) {
           const uint64_t dv = make_desc(
-              Vt + a * 64 * G::SW + 16 * kc * G::SW, 8 * G::SW, G::SWZ);
+              Vt + (a0 + a) * 64 * G::SW + 16 * kc * G::SW, 8 * G::SW,
+              G::SWZ);
           if constexpr (G::AC == 64)
             wgmma_rs_m64n64k16_tb(acc[a], p[kc], dv);
           else if constexpr (G::AC == 32)
@@ -510,7 +530,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_commit();
       wgmma_wait0();
 #pragma unroll
-      for (int a = 0; a < G::NA; ++a) fence_regs(acc[a]);
+      for (int a = 0; a < G::NACC; ++a) fence_regs(acc[a]);
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);   // this warp is done with stage s
@@ -528,10 +548,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (row >= S) continue;
     const float denom = fmaxf(lt, 1e-30f);
 #pragma unroll
-    for (int a = 0; a < G::NA; ++a)
+    for (int a = 0; a < G::NACC; ++a)
 #pragma unroll
       for (int c = 0; c < G::AC / 8; ++c) {
-        const int col = a * G::AC + 8 * c + 2 * quad;
+        const int col = (a0 + a) * G::AC + 8 * c + 2 * quad;
         *reinterpret_cast<__nv_bfloat162*>(&ob[row * q_row + col]) =
             __floats2bfloat162_rn(acc[a][4 * c + 2 * ri] / denom,
                                   acc[a][4 * c + 2 * ri + 1] / denom);
@@ -604,7 +624,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  const long blocks = (long)((S + kBQ - 1) / kBQ) * Hq * B;
+  const long blocks = (long)((S + Geo<HD>::BQ - 1) / Geo<HD>::BQ) * Hq * B;
   kern<<<(unsigned)blocks, kThreads, smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), B, S, Hq, Hkv, scale,
       causal, window);
@@ -656,6 +676,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                    causal, window, s);
     case 128:
       return (int)launch_dtype<128>(bf16, q, k, v, o, B, S, Hq, Hkv, scale,
+                                    causal, window, s);
+    case 256:
+      return (int)launch_dtype<256>(bf16, q, k, v, o, B, S, Hq, Hkv, scale,
                                     causal, window, s);
     default:
       return (int)cudaErrorInvalidValue;

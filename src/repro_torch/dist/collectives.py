@@ -151,11 +151,17 @@ def ring_neighbors(x: torch.Tensor, ex: MeshExecutor):
 
 
 def ring_combine(x: torch.Tensor, ex: MeshExecutor,
-                 w_self: float = 1.0 / 3.0) -> torch.Tensor:
+                 w_self: float = 1.0 / 3.0,
+                 compute_dtype=None) -> torch.Tensor:
     """Eq. 27b with ring nearest-neighbour weights for ONE tensor per
     rank: x_i <- w_self x_i + w_n (x_{i-1} + x_{i+1}), w_n = (1 - w_self)
-    / 2 (Eq. 47 on a cycle at w_self = 1/3)."""
+    / 2 (Eq. 47 on a cycle at w_self = 1/3).  `compute_dtype` upcasts
+    AFTER the exchange, so the wire carries the storage dtype (bf16
+    weights exchange bf16 bytes) while the weighted sum runs at the
+    higher precision (the result stays in `compute_dtype`)."""
     left, right = ring_neighbors(x, ex)
+    if compute_dtype is not None:
+        x, left, right = (a.to(compute_dtype) for a in (x, left, right))
     w_n = (1.0 - w_self) / 2.0
     return w_self * x + w_n * (left + right)
 

@@ -30,9 +30,9 @@ import math
 
 import torch
 
-#: head dims the kernel is instantiated for (tests/test_kernels.py's sweep
-#: and Yi-6B's 128)
-HEAD_DIMS = (16, 32, 64, 128)
+#: head dims the kernel is instantiated for (tests/test_kernels.py's sweep,
+#: Yi-6B's 128 and RecurrentGemma-2B's 256)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 #: query rows per block and keys per tile of the f32 kernel (simt::kBQ,
 #: kBK in the source); the bf16 kernel's blocks take 128 query rows
 BLOCK_Q = BLOCK_K = 64
@@ -59,15 +59,23 @@ def smem_bytes(hd: int, dtype=torch.float32) -> int:
     """Dynamic shared memory of one block.  f32: Q and K tiles transposed
     (strides BLOCK_Q + 4, BLOCK_K + 1), the V tile and the P tile.  bf16:
     the block's two 64-row query tiles, STAGES_BF16 K and V tiles, the
-    mbarriers and 1 KB to align the tiles to the swizzle's 1024 bytes."""
+    mbarriers and 1 KB to align the tiles to the swizzle's 1024 bytes; at
+    hd 256 one query tile (the two warpgroups split the output columns)."""
     if dtype == torch.bfloat16:
-        tiles = (2 + 2 * STAGES_BF16) * 64 * hd * 2
+        q_tiles = 1 if hd > 128 else 2
+        tiles = (q_tiles + 2 * STAGES_BF16) * 64 * hd * 2
         return tiles + 8 * (1 + 2 * STAGES_BF16) + 1024
     return 4 * (hd * (BLOCK_Q + 4) + hd * (BLOCK_K + 1) + BLOCK_K * hd
                 + BLOCK_K * (BLOCK_Q + 4))
 
 
 def _check(q, k, v, window):
+    if torch.is_grad_enabled() and any(a.requires_grad
+                                       for a in (q, k, v)):
+        raise RuntimeError(
+            "the kernel has no backward (nor has the JAX package's Pallas "
+            "kernel): call it without gradients, or train on the plain "
+            "path (use_kernels=False)")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"q, k, v must be (B, S, H, hd): {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")

@@ -74,6 +74,12 @@ def scratch_bytes(B: int, S: int, H: int, P: int, N: int) -> int:
 
 
 def _check(x, dt, A, Bm, Cm, chunk):
+    if torch.is_grad_enabled() and any(a.requires_grad
+                                       for a in (x, dt, A, Bm, Cm)):
+        raise RuntimeError(
+            "the kernel has no backward (nor has the JAX package's Pallas "
+            "kernel): call it without gradients, or train on the plain "
+            "path (use_kernels=False)")
     if x.dim() != 4:
         raise ValueError(f"x must be (B, S, H, P): {tuple(x.shape)}")
     B, S, H, P = x.shape

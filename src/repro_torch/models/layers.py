@@ -10,8 +10,9 @@ in float32, as in the JAX package.  Where the JAX package mixes dtypes
 (an f32 cache with bf16 activations), the port casts explicitly to the
 type JAX promotes to.
 
-Parameters are created with `requires_grad=False`: training is not ported
-(ROADMAP Queue 1 item 16).
+Parameters are created with `requires_grad=False`, so serving builds no
+autograd graph; training turns gradients on for its model
+(`training.train_step.init_state`).
 """
 from __future__ import annotations
 
@@ -343,23 +344,25 @@ def _vocab_rows(cfg: ModelConfig) -> int:
 
 
 class Embed(nn.Module):
-    """tok (V, d); unembed (d, V) unless the embeddings are tied."""
+    """tok (V, d); unembed (d, V) unless the embeddings are tied;
+    frontend_proj (d, d), the projector from the (stubbed) modality
+    encoder's output space, when the config has a frontend."""
 
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
-        if cfg.frontend != "none":
-            raise NotImplementedError(
-                f"frontend={cfg.frontend!r} is not ported (ROADMAP Queue 1 "
-                f"item 16: modality frontends)")
         V = _vocab_rows(cfg)
         self.tok = param((V, cfg.d_model), dtype, device)
         self.unembed = (None if cfg.tie_embeddings
                         else param((cfg.d_model, V), dtype, device))
+        self.frontend_proj = (None if cfg.frontend == "none" else
+                              param((cfg.d_model, cfg.d_model), dtype,
+                                    device))
 
     def reset_parameters(self, generator: torch.Generator):
         normal_init_(self.tok, generator, 0.02)
-        if self.unembed is not None:
-            dense_init_(self.unembed, generator)
+        for w in (self.unembed, self.frontend_proj):
+            if w is not None:
+                dense_init_(w, generator)
 
 
 def embed_params(cfg: ModelConfig, dtype, *, generator, device) -> Embed:
@@ -369,11 +372,14 @@ def embed_params(cfg: ModelConfig, dtype, *, generator, device) -> Embed:
 
 
 def embed(tokens, p, cfg: ModelConfig, frontend_embeds=None):
-    """tokens (B, S) integer ids -> (B, S, d)."""
-    if frontend_embeds is not None:
-        raise NotImplementedError("frontend embeddings are not ported "
-                                  "(ROADMAP Queue 1 item 16)")
-    return p.tok[tokens]
+    """tokens (B, S) integer ids -> (B, S, d).  For vlm/audio archs, the
+    first `frontend_len` positions take the projected stub embeddings
+    `frontend_embeds` (B, frontend_len, d) instead of token embeddings."""
+    x = p.tok[tokens]
+    if frontend_embeds is not None and cfg.frontend_len > 0:
+        fe = frontend_embeds.to(x.dtype) @ p.frontend_proj
+        x = torch.cat([fe, x[:, cfg.frontend_len:]], dim=1)
+    return x
 
 
 def unembed(x, p, cfg: ModelConfig):

@@ -1,21 +1,22 @@
-"""Model assembly (port of `repro.models.model`) for the block kinds the
-port has:
-  attn — pre-norm attention (full-causal or sliding-window) + MLP
+"""Model assembly (port of `repro.models.model`).  Three block kinds,
+resolved per layer from `cfg.layer_kinds()`:
+  attn — pre-norm attention (full-causal or sliding-window) + MLP or MoE
+  rec  — Griffin RG-LRU recurrent block + MLP
   ssm  — Mamba-2 SSD block (single-norm residual, no MLP; d_ff == 0)
-
-`rec` blocks (RG-LRU), MoE and modality frontends are not ported: building
-an `LM` for a config that needs them raises NotImplementedError naming
-ROADMAP Queue 1 item 16.
 
 The JAX package stacks the weights of a homogeneous stack on a leading
 n_layers axis and scans over it; the port holds the layers in an
 `nn.ModuleList` and loops over them in Python (so every stack is a list,
 and `checkpoint.ckpt.lm_params_from_arrays` splits stacked arrays).  The
-caches are likewise a list with one entry per layer.
+caches are likewise a list with one entry per layer.  With `cfg.remat`
+and gradients on, each layer runs under `torch.utils.checkpoint` (the
+reference's `jax.checkpoint`): its activations are recomputed in the
+backward pass instead of kept.
 
 Public entry points:
   LM(cfg, device=None, generator=None) / init_params(cfg, generator, device)
-  forward(cfg, params, tokens, collect_cache=False, use_kernels=False)
+  forward(cfg, params, tokens, frontend_embeds=None, collect_cache=False,
+          use_kernels=False)
   init_cache(cfg, batch, cache_len, dtype, device=None)
   decode_step(cfg, params, token, cache, pos)
   param_count(cfg, active_only=False)
@@ -24,45 +25,53 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
-from repro_torch.models import layers, mamba2
-
-
-def _unported(cfg: ModelConfig):
-    """Raise on what this model assembly does not port yet."""
-    if "rec" in cfg.layer_kinds():
-        raise NotImplementedError(
-            f"{cfg.name}: RG-LRU 'rec' blocks are not ported (ROADMAP "
-            f"Queue 1 item 16: rglru)")
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: mixture-of-experts layers are not ported (ROADMAP "
-            f"Queue 1 item 16: moe)")
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: frontend={cfg.frontend!r} is not ported (ROADMAP "
-            f"Queue 1 item 16: modality frontends)")
+from repro_torch.models import layers, mamba2, moe, rglru
 
 
 # ---------------------------------------------------------------------------
 # Layers
 # ---------------------------------------------------------------------------
 class AttnLayer(nn.Module):
-    """norm1 -> attention -> residual -> norm2 -> MLP -> residual."""
+    """norm1 -> attention -> residual -> norm2 -> MLP (or MoE) ->
+    residual."""
 
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
         self.norm1 = layers.param((cfg.d_model,), dtype, device)
         self.attn = layers.Attention(cfg, dtype, device)
         self.norm2 = layers.param((cfg.d_model,), dtype, device)
-        self.mlp = layers.MLP(cfg, dtype, device)
+        if cfg.is_moe:
+            self.moe = moe.MoE(cfg, dtype, device)
+        else:
+            self.mlp = layers.MLP(cfg, dtype, device)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator):
         self.norm1.zero_()
         self.attn.reset_parameters(generator)
+        self.norm2.zero_()
+        (self.moe if hasattr(self, "moe") else self.mlp).reset_parameters(
+            generator)
+
+
+class RecLayer(nn.Module):
+    """norm1 -> RG-LRU block -> residual -> norm2 -> MLP -> residual."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self.norm1 = layers.param((cfg.d_model,), dtype, device)
+        self.rec = rglru.RGLRU(cfg, dtype, device)
+        self.norm2 = layers.param((cfg.d_model,), dtype, device)
+        self.mlp = layers.MLP(cfg, dtype, device)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator):
+        self.norm1.zero_()
+        self.rec.reset_parameters(generator)
         self.norm2.zero_()
         self.mlp.reset_parameters(generator)
 
@@ -81,7 +90,7 @@ class SSMLayer(nn.Module):
         self.ssm.reset_parameters(generator)
 
 
-_LAYERS = {"attn": AttnLayer, "ssm": SSMLayer}
+_LAYERS = {"attn": AttnLayer, "rec": RecLayer, "ssm": SSMLayer}
 
 
 def _layer_params(cfg: ModelConfig, kind: str, dtype, *, generator, device):
@@ -108,7 +117,6 @@ class LM(nn.Module):
                  generator: torch.Generator | None = None,
                  init: bool = True):
         super().__init__()
-        _unported(cfg)
         dev = resolve(device)
         self.cfg = cfg
         dtype = layers.dtype_of(cfg.param_dtype)
@@ -131,10 +139,10 @@ class LM(nn.Module):
         for blk in self.blocks:
             blk.reset_parameters(generator)
 
-    def forward(self, tokens, *, collect_cache: bool = False,
-                use_kernels: bool = False):
-        return forward(self.cfg, self, tokens, collect_cache=collect_cache,
-                       use_kernels=use_kernels)
+    def forward(self, tokens, frontend_embeds=None, *,
+                collect_cache: bool = False, use_kernels: bool = False):
+        return forward(self.cfg, self, tokens, frontend_embeds,
+                       collect_cache=collect_cache, use_kernels=use_kernels)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
@@ -156,9 +164,22 @@ def _layer_fwd(x, p, cfg: ModelConfig, kind: str, positions, *,
                          use_kernels=use_kernels)
         x = x + a
         h2 = layers.rms_norm(x, p.norm2, cfg.norm_eps)
-        x = x + p.mlp(h2)
+        if cfg.is_moe:
+            f, aux = moe.moe_block(h2, p.moe, cfg)
+        else:
+            f, aux = p.mlp(h2), 0.0
+        x = x + f
         cache = _attn_cache_entry(cfg, k, v) if collect_cache else None
-        return x, 0.0, cache
+        return x, aux, cache
+    if kind == "rec":
+        h = layers.rms_norm(x, p.norm1, cfg.norm_eps)
+        if collect_cache:
+            r, state = p.rec(h, return_state=True)
+        else:
+            r, state = p.rec(h), None
+        x = x + r
+        h2 = layers.rms_norm(x, p.norm2, cfg.norm_eps)
+        return x + p.mlp(h2), 0.0, state
     if kind == "ssm":
         h = layers.rms_norm(x, p.norm, cfg.norm_eps)
         if collect_cache:
@@ -180,24 +201,35 @@ def _attn_cache_entry(cfg: ModelConfig, k, v):
 # ---------------------------------------------------------------------------
 # Whole-model forward
 # ---------------------------------------------------------------------------
+def _remat(cfg: ModelConfig, params: LM) -> bool:
+    """Whether the layers run under activation checkpointing: the config
+    asks for it and a backward pass will follow."""
+    return cfg.remat and torch.is_grad_enabled() and any(
+        p.requires_grad for p in params.parameters())
+
+
 def forward(cfg: ModelConfig, params: LM, tokens, frontend_embeds=None, *,
             collect_cache: bool = False, use_kernels: bool = False):
     """tokens (B, S) -> dict(logits (B,S,V) f32, aux_loss, cache?).  The
-    cache is a list with one entry per layer."""
+    cache is a list with one entry per layer; aux_loss sums the MoE
+    layers' router losses (0.0 without MoE)."""
     B, S = tokens.shape
     x = layers.embed(tokens, params.embed, cfg, frontend_embeds)
     x = x.to(layers.dtype_of(cfg.compute_dtype))
     positions = layers.default_positions(cfg, B, S, device=tokens.device)
-    cache = []
+    remat = _remat(cfg, params)
+    auxs, cache = [], []
     for p, kind in zip(params.blocks, cfg.layer_kinds()):
-        x, _, c = _layer_fwd(x, p, cfg, kind, positions,
-                             collect_cache=collect_cache,
-                             use_kernels=use_kernels)
+        fwd = lambda x, p=p, kind=kind: _layer_fwd(
+            x, p, cfg, kind, positions, collect_cache=collect_cache,
+            use_kernels=use_kernels)
+        x, aux, c = (checkpoint(fwd, x, use_reentrant=False) if remat
+                     else fwd(x))
+        auxs.append(aux)
         cache.append(c)
     x = layers.rms_norm(x, params.final_norm, cfg.norm_eps)
     logits = layers.unembed(x, params.embed, cfg)
-    # aux_loss is the MoE router loss; no MoE layer is ported
-    out = {"logits": logits, "aux_loss": 0.0}
+    out = {"logits": logits, "aux_loss": sum(auxs, 0.0)}
     if collect_cache:
         out["cache"] = cache
     return out
@@ -213,8 +245,8 @@ def _cache_len(cfg: ModelConfig, seq_len: int) -> int:
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                dtype=torch.bfloat16, *, device=None) -> list:
     """Empty decode cache, one entry per layer: (k, v) (B, Sc, Hkv, hd) for
-    attn, (conv_buf (B, W-1, d_in+2N), h (B, H, P, N) f32) for ssm."""
-    _unported(cfg)
+    attn, (conv_buf (B, W-1, w), h (B, w) f32) for rec, (conv_buf (B, W-1,
+    d_in+2N), h (B, H, P, N) f32) for ssm."""
     dev = resolve(device)
     sc = _cache_len(cfg, seq_len)
 
@@ -223,6 +255,11 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
             shp = (batch, sc, cfg.n_kv_heads, cfg.hd)
             return (torch.zeros(shp, dtype=dtype, device=dev),
                     torch.zeros(shp, dtype=dtype, device=dev))
+        if kind == "rec":
+            w = rglru._lru_width(cfg)
+            return (torch.zeros((batch, cfg.conv_width - 1, w), dtype=dtype,
+                                device=dev),
+                    torch.zeros((batch, w), dtype=torch.float32, device=dev))
         d_in, H, N = mamba2._dims(cfg)
         return (torch.zeros((batch, cfg.conv_width - 1, d_in + 2 * N),
                             dtype=dtype, device=dev),
@@ -240,7 +277,14 @@ def _layer_decode(x, p, cfg: ModelConfig, kind: str, cache_entry, pos):
                                             window=cfg.window)
         x = x + a
         h2 = layers.rms_norm(x, p.norm2, cfg.norm_eps)
-        return x + p.mlp(h2), (ck, cv)
+        f = moe.moe_block(h2, p.moe, cfg)[0] if cfg.is_moe else p.mlp(h2)
+        return x + f, (ck, cv)
+    if kind == "rec":
+        h = layers.rms_norm(x, p.norm1, cfg.norm_eps)
+        r, state = rglru.rec_decode_step(h, p.rec, cfg, cache_entry)
+        x = x + r
+        h2 = layers.rms_norm(x, p.norm2, cfg.norm_eps)
+        return x + p.mlp(h2), state
     if kind == "ssm":
         h = layers.rms_norm(x, p.norm, cfg.norm_eps)
         s, state = mamba2.ssm_decode_step(h, p.ssm, cfg, cache_entry)
@@ -262,13 +306,8 @@ def decode_step(cfg: ModelConfig, params: LM, token, cache: list, pos: int):
 
 
 # ---------------------------------------------------------------------------
-# Analytic parameter counts (every config, ported blocks or not)
+# Analytic parameter counts (for 6ND roofline model-FLOPs)
 # ---------------------------------------------------------------------------
-def _lru_width(cfg: ModelConfig) -> int:
-    """The RG-LRU width (`repro.models.rglru._lru_width`)."""
-    return cfg.lru_width or cfg.d_model
-
-
 def param_count(cfg: ModelConfig, active_only: bool = False) -> int:
     d, hd = cfg.d_model, cfg.hd
     total = cfg.vocab_size * d
@@ -286,7 +325,7 @@ def param_count(cfg: ModelConfig, active_only: bool = False) -> int:
             else:
                 total += 3 * d * cfg.d_ff
         elif kind == "rec":
-            w = _lru_width(cfg)
+            w = rglru._lru_width(cfg)
             total += 2 * d * w + 2 * w * w + cfg.conv_width * w + w * d
             total += 3 * d * cfg.d_ff + 2 * d
         elif kind == "ssm":

@@ -4,8 +4,10 @@
 `make_prefill_step` and `make_decode_step` are the two step functions;
 `Engine` is the host-side driver: it admits a batch of requests, prefills
 them (right-aligned padding) with the kernels when `use_kernels`, then
-decodes until every request has its tokens.  Meshes and cache shardings
-are not ported (ROADMAP Queue 1 item 16, with the LM training stack).
+decodes until every request has its tokens.  A config with a modality
+frontend prefills with zero stub embeddings in its first `frontend_len`
+positions, as the reference does.  Meshes and cache shardings are not
+ported (ROADMAP Queue 1 item 16: LM sharding).
 """
 from __future__ import annotations
 
@@ -23,7 +25,17 @@ from repro_torch.serving.driver import ArrivalQueue, DriverStats, SlotTable
 
 def cache_shardings(*args, **kwargs):
     raise NotImplementedError("cache shardings over a device mesh are not "
-                              "ported (ROADMAP Queue 1 item 16)")
+                              "ported (ROADMAP Queue 1 item 16: LM "
+                              "sharding)")
+
+
+def frontend_stub(cfg: ModelConfig, batch: int, device):
+    """The (B, frontend_len, d_model) f32 zeros the reference's engine
+    feeds a config with a modality frontend; None without one."""
+    if cfg.frontend == "none":
+        return None
+    return torch.zeros((batch, cfg.frontend_len, cfg.d_model),
+                       dtype=torch.float32, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -84,7 +96,8 @@ class Engine:
                  bucket_min: int = 8, mesh=None, device=None):
         if mesh is not None:
             raise NotImplementedError("a device mesh is not ported "
-                                      "(ROADMAP Queue 1 item 16)")
+                                      "(ROADMAP Queue 1 item 16: LM "
+                                      "sharding)")
         self.device = resolve(device)
         if params.device.type != self.device.type:
             raise ValueError(f"params are on {params.device}, the engine "
@@ -167,7 +180,8 @@ class Engine:
         self._shapes.add(("prefill", B, plen))
         logits, cache = self._prefill(
             self.params, torch.as_tensor(toks, dtype=torch.int64,
-                                         device=self.device))
+                                         device=self.device),
+            frontend_stub(cfg, B, self.device))
         # re-home the prefill cache into a full-length f32 decode cache
         full = model_lib.init_cache(cfg, B, total, torch.float32,
                                     device=self.device)
@@ -217,7 +231,8 @@ def _sample(logits, temperature: float, generator: torch.Generator):
 def _splice_cache(cfg: ModelConfig, full: list, prefill: list,
                   plen: int) -> list:
     """Copy the prefill cache into the (longer) decode cache buffers, cast
-    to their dtype (attention K/V at offset 0, in place)."""
+    to their dtype (attention K/V at offset 0, in place; the rec and ssm
+    states (conv_buf, h) replace the empty ones)."""
     out = []
     for kind, dst, src in zip(cfg.layer_kinds(), full, prefill):
         if kind == "attn":

@@ -47,7 +47,12 @@ def test_import_pulls_in_neither_jax_nor_repro():
               "repro_torch.telemetry.tracing",
               "repro_torch.telemetry.taps", "repro_torch.dist",
               "repro_torch.dist.collectives", "repro_torch.dist.sharding",
-              "repro_torch.core.distributed"):
+              "repro_torch.core.distributed", "repro_torch.models.moe",
+              "repro_torch.models.rglru", "repro_torch.data.tokens",
+              "repro_torch.optim", "repro_torch.optim.adamw",
+              "repro_torch.optim.schedules", "repro_torch.optim.consensus",
+              "repro_torch.training.train_step",
+              "repro_torch.training.trainer", "repro_torch.launch.train"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"
@@ -132,6 +137,18 @@ def test_lm_entry_points_default_to_cuda(monkeypatch):
     e = lm_engine.Engine(cfg, params, device="cpu", max_seq=12)
     out = e.generate([lm_engine.Request(np.arange(4, dtype=np.int32), 2)])
     assert out[0].shape == (6,)
+    # training: the state, the trainer and the launcher
+    from repro_torch.launch import train
+    from repro_torch.training import train_step, trainer
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        train_step.init_state(cfg)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        trainer.Trainer(cfg)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        train.main(["--arch", "yi_6b", "--smoke", "--steps", "1"])
+    tr = trainer.Trainer(cfg, device="cpu", global_batch=2, seq_len=8)
+    tr.run(1)
+    assert tr.state.params.device.type == "cpu"
 
 
 class _OtherModel(blocks.BlockModel):

@@ -28,8 +28,12 @@ by CUDA events that are not waited on when recorded.  The mesh
 executor: under a one-rank NCCL group (`admission.data_axis_mesh`) runs
 and a serving fleet bit-equal to the single-array executor; gmm_estep
 launched on a row slice (a rank's block of nodes) bit-equal to the same
-rows of the whole launch, on each of the kernel's three paths.
+rows of the whole launch, on each of the kernel's three paths.  The LM
+families: flash_attention at head_dim 256 (RecurrentGemma-2B's MQA), and
+one bf16 train step of the MoE and rec smoke configs against the CPU.
 """
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -285,6 +289,118 @@ def test_flash_attention_yi_6b_prefill_shape(cuda):
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=2e-2)
     assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,window,dtype", [
+    (2, 300, 4, 1, 0, torch.bfloat16), (2, 300, 4, 1, 64, torch.bfloat16),
+    (1, 200, 4, 2, 32, torch.float32),
+    # RecurrentGemma-2B's prefill: MQA, 10 query heads, window 2048
+    (4, 2048, 10, 1, 2048, torch.bfloat16)])
+def test_flash_attention_head_dim_256(cuda, B, S, Hq, Hkv, window, dtype):
+    """hd 256, where the bf16 kernel's two warpgroups split the output
+    columns: causal, windowed and MQA against the plain version (2e-2 in
+    bf16, 2e-5 in f32), two launches bit-identical."""
+    g = torch.Generator(cuda).manual_seed(S + window)
+    q, k, v = (torch.randn(B, S, h, 256, generator=g, device=cuda).to(dtype)
+               for h in (Hq, Hkv, Hkv))
+    got = ops.flash_attention(q, k, v, window=window)
+    again = ops.flash_attention(q, k, v, window=window)
+    want = fa.flash_attention_plain(q, k, v, window=window)
+    torch.cuda.synchronize()
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+    assert torch.equal(got, again)
+
+
+def _ulp(x: torch.Tensor, dtype) -> torch.Tensor:
+    """One unit in the last place of each entry of |x| in `dtype` (bf16
+    keeps 8 significant bits, f32 24)."""
+    bits = 8 if dtype == torch.bfloat16 else 24
+    return torch.ldexp(torch.ones_like(x), torch.frexp(x.abs())[1] - bits)
+
+
+@pytest.mark.parametrize("arch", ["granite_moe_3b_a800m",
+                                  "recurrentgemma_2b"])
+def test_bf16_train_step_card_vs_cpu(cuda, arch):
+    """One bf16 allreduce step of the MoE and rec smoke configs on the
+    card against the same step on the CPU from the same state: the MoE
+    scatter, the RG-LRU scan and remat on the device.  bf16 keeps 8 bits
+    (3.9e-3 a rounding, several along the chain) and the two devices sum
+    in other orders, so the loss is held at 1e-2 relative, and each
+    tensor's clipped gradient, read from the first moment mu = (1 - b1)
+    g, at 2e-2 of its norm (nu = (1 - b2) g^2 at 4e-2).  On each device
+    every parameter entry must be AdamW's update of the start from that
+    device's own moments, to one ulp of its dtype (plus f32 roundings of
+    the update): the parameters then differ between the devices only as
+    the moments do.  (The first step
+    moves an entry by lr x g / (|g| + eps), so an entry whose gradient
+    differs in sign on the two devices, at rounding level, moves by
+    +-lr: the test prints how many do.)"""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.data import tokens
+    from repro_torch.training import train_step as ts
+    b1, b2, eps = 0.9, 0.95, 1e-8           # adamw.update's defaults
+    cfg = get_smoke_config(arch).replace(param_dtype="bfloat16",
+                                         compute_dtype="bfloat16")
+    hyper = ts.TrainHyper(peak_lr=1e-3, warmup=0, total_steps=10)
+    cpu = ts.init_state(cfg, torch.Generator().manual_seed(0),
+                        device="cpu")
+    start = {n: p.detach().float().clone()
+             for n, p in cpu.params.named_parameters()}
+    card = ts.train_state_to(cpu, cuda)
+    batch = tokens.Batcher(cfg.vocab_size, 4, 32).next_batch()
+    step = ts.make_train_step(cfg, hyper=hyper)
+    cpu, m_cpu = step(cpu, ts.batch_to(batch, "cpu"))
+    card, m_card = step(card, ts.batch_to(batch, cuda))
+    torch.cuda.synchronize()
+    assert float(m_card["lr"]) == float(m_cpu["lr"])
+    lr = float(np.float32(float(m_cpu["lr"])))
+    bc1 = float(np.float32(1.0) - np.float32(b1))
+    bc2 = float(np.float32(1.0) - np.float32(b2))
+
+    def ulps_from_adamw(state, name):
+        """Largest distance of the state's parameter from AdamW's update
+        of the start by the state's own moments, in units of one ulp of
+        the parameter's dtype plus 4 f32 ulps of the update's terms (the
+        card divides by a scalar as a product with its reciprocal, so
+        an f32 parameter may differ by an f32 rounding or two)."""
+        p = state.params.get_parameter(name).detach()
+        mu, nu = (m[name].cpu() for m in (state.opt.mu, state.opt.nu))
+        ratio = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
+        decay = hyper.weight_decay * start[name]
+        want = (start[name] - lr * (ratio + decay)).to(p.dtype).float()
+        got = p.cpu().float()
+        tol = _ulp(torch.maximum(got.abs(), want.abs()), p.dtype) \
+            + 4 * _ulp(lr * (ratio.abs() + decay.abs()), torch.float32)
+        return float(((got - want).abs() / tol).max())
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    want = dict(cpu.params.named_parameters())
+    report = {}
+    for name, p in card.params.named_parameters():
+        assert p.dtype == want[name].dtype
+        got, ref = p.detach().cpu().float(), want[name].detach().float()
+        mu_card, mu_cpu = card.opt.mu[name].cpu(), cpu.opt.mu[name]
+        report[name] = {
+            "grad_rel_err": rel(mu_card, mu_cpu),
+            "nu_rel_err": rel(card.opt.nu[name].cpu(), cpu.opt.nu[name]),
+            "card_update_ulps": ulps_from_adamw(card, name),
+            "cpu_update_ulps": ulps_from_adamw(cpu, name),
+            "sign_flips": int((torch.sign(mu_card)
+                               != torch.sign(mu_cpu)).sum()),
+            "past_one_ulp": int(((got - ref).abs() > _ulp(
+                torch.maximum(got.abs(), ref.abs()), p.dtype)).sum()),
+            "numel": p.numel()}
+    print(arch, json.dumps(report))
+    assert float(m_card["loss"]) == pytest.approx(float(m_cpu["loss"]),
+                                                  rel=1e-2)
+    for name, r in report.items():
+        assert r["grad_rel_err"] <= 2e-2, (name, r)
+        assert r["nu_rel_err"] <= 4e-2, (name, r)
+        assert r["card_update_ulps"] <= 1 and r["cpu_update_ulps"] <= 1, \
+            (name, r)
 
 
 def test_ssd_scan_mamba2_prefill_shape(cuda):

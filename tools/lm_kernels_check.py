@@ -28,10 +28,13 @@ import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
 FLASH_SHAPES = ((2, 64, 4, 2, 32), (1, 128, 2, 1, 64), (2, 96, 4, 4, 16),
-                (1, 256, 8, 2, 128), (1, 1000, 8, 1, 128))
+                (1, 256, 8, 2, 128), (1, 1000, 8, 1, 128),
+                (1, 300, 4, 1, 256))
 SSD_SHAPES = ((2, 64, 4, 16, 8, 16), (1, 128, 2, 32, 16, 32),
               (2, 64, 2, 8, 4, 64), (1, 96, 3, 16, 8, 32))
 YI = (cs.LM_BATCH, cs.LM_PROMPT, 32, 4, 128)
+# RecurrentGemma-2B's attention layers: MQA, head_dim 256, window 2048
+RG = (cs.LM_BATCH, cs.LM_PROMPT, 10, 1, 256)
 MAMBA = (cs.LM_BATCH, cs.LM_PROMPT, 32, 64, 128)
 
 
@@ -60,6 +63,10 @@ def main() -> int:
                               f"window {window}",
                               lambda a=(B, S, Hq, Hkv, hd, dtype, window):
                               cs._flash_case(*a, dev, gen)[1]))
+    for window in (0, 2048):
+        cases.append((f"flash bf16 {RG} window {window}",
+                      lambda w=window: cs._flash_case(*RG, torch.bfloat16, w,
+                                                      dev, gen)[1]))
     for shape in SSD_SHAPES:
         cases.append((f"ssd f32 {shape}", lambda s=shape: cs._ssd_case(
             *s, torch.float32, dev, gen)))
@@ -67,6 +74,8 @@ def main() -> int:
         cases.append((f"ssd {dtype} {MAMBA}", lambda d=dtype: cs._ssd_case(
             *MAMBA, 256, d, dev, gen, full=True)))
     cases.append(("time flash_attention", lambda: cs._time_flash(dev)))
+    cases.append(("time flash_attention hd 256", lambda: cs._time_flash(
+        dev, RG, window=2048)))
     cases.append(("time ssd_scan", lambda: cs._time_ssd(dev)))
     bf = torch.bfloat16
     B, S, Hq, Hkv, hd = YI
