@@ -89,7 +89,10 @@ never JAX or the JAX package, and prints one JSON line per phase:
    equal to the reference backend (the one fallback);
 6i. sparse_main_path — the paper's experiment at N=100,000 sensors x 4096
    points (K=3, D=2, f32 data, f64 iterates) over
-   `random_geometric_edges(100000)` (its build seconds, under 30 s):
+   `random_geometric_edges(100000)` (its build seconds, under 30 s;
+   the host data, `paper_synthetic`'s ~75-100 s of numpy, made by a
+   worker process started after the device phase, so it overlaps the
+   phases before this one: the same function and seed, the same bytes):
    sparse dSVB, nsg-dVB and adaptive dVB-ADMM through algorithms.run_*,
    RingDiffusion over the ring's edge list with link_drop=0.2,
    PairwiseGossip (p=0.3) and HierarchicalFusion, 20 fused iterations
@@ -188,6 +191,20 @@ never JAX or the JAX package, and prints one JSON line per phase:
    f32 smoke config, two allreduce steps on the card against the CPU
    from the same state: loss 1e-5 relative, each parameter tensor 1e-4
    relative L2 error);
+10. LM sharding on a (1, 1) ("data", "model") device mesh (one card: a
+   one-rank NCCL group from `launch.mesh.make_test_mesh(1, 1)`, the same
+   DTensor code as a larger mesh): lm_mesh_serve_yi_6b /
+   lm_mesh_serve_mamba2_370m (`Engine(mesh=)` on the published configs
+   at full width and depth in bf16 with the kernels, 4 x 2048-token
+   prompts, 32 greedy tokens: tokens equal and the last prefill logits
+   bit-equal to the unsharded Engine on the same parameters; one kernel
+   launch a layer in a prefill, each on its rank's shard through
+   `local_map`; prefill ms, ms a decode step and peak memory of both
+   engines); lm_mesh_train (Mamba-2 370M, `Trainer(mesh=)` in allreduce
+   and ADMM, 3 steps on the Batcher's 4 x 1024 batches: the state
+   bit-equal to the unsharded Trainer's, ms a step of both; then a
+   save/restore round trip of a mesh Trainer in both modes, on the bf16
+   smoke config: the whole model's compressed file takes minutes);
 
 then the kernels line, the card's name and power limit and, last,
 {"ok": true, "device": {...}}.  Each path runs with every launch count set
@@ -225,11 +242,12 @@ from repro_torch.core.engine import kl_to_reference  # noqa: E402
 from repro_torch.core.model import GMMModel  # noqa: E402
 from repro_torch.data import stream as stream_lib  # noqa: E402
 from repro_torch.data import synthetic, tokens  # noqa: E402
-from repro_torch.dist import collectives  # noqa: E402
+from repro_torch.dist import collectives, sharding  # noqa: E402
 from repro_torch.experiments import paper_figures, streaming  # noqa: E402
 from repro_torch.experiments import topology_scale  # noqa: E402
 from repro_torch.kernels import build, gmm_estep, ops  # noqa: E402
 from repro_torch.kernels import flash_attention, ssd_scan  # noqa: E402
+from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.models import hmm, mamba2, ppca  # noqa: E402
 from repro_torch.models import model as lm_model  # noqa: E402
 from repro_torch.serving import admission, engine  # noqa: E402
@@ -2186,6 +2204,59 @@ SPARSE_CPU_N, SPARSE_CPU_T = 1000, 20
 # the checkpoint round trips: save at t = a, restore, continue b
 CKPT_N, CKPT_T, CKPT_A, CKPT_B, CKPT_BATCH = 1000, 256, 5, 5, 64
 CKPT_DIR = os.path.join(HERE, "build", "chip_smoke_ckpt")
+# the sparse main path's host data, made by a worker process while the
+# earlier phases run (`start_sparse_data`); it writes x, mask and labels
+# to its stdout, then its own seconds
+_SPARSE_WORKER = r"""
+import os, sys, time
+import numpy as np
+from repro_torch.data import synthetic
+t0 = time.perf_counter()
+n, t, seed, chunk = (int(a) for a in sys.argv[1:5])
+d = synthetic.paper_synthetic(n_nodes=n, n_per_node=t, seed=seed,
+                              dtype=np.float32)
+for a in (d.x.numpy(), d.mask.numpy(), d.labels.numpy(),
+          np.float64(time.perf_counter() - t0)):
+    view = memoryview(np.ascontiguousarray(a)).cast("B")
+    while len(view):                 # a write may take part of a chunk
+        view = view[os.write(1, view[:chunk]):]
+"""
+# the worker's pipe is read and written this many bytes a call at most
+# (one read or write of 2 GiB or more stops short on Linux)
+PIPE_CHUNK = 1 << 26
+
+
+def start_sparse_data(n: int = SPARSE_N, t: int = N_PER_NODE):
+    """The worker process making `paper_synthetic(n, t, seed=SEED)` in
+    float32 (no card: CUDA_VISIBLE_DEVICES is empty)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    return subprocess.Popen(
+        [sys.executable, "-c", _SPARSE_WORKER, str(n), str(t), str(SEED),
+         str(PIPE_CHUNK)], stdout=subprocess.PIPE, bufsize=0, env=env)
+
+
+def sparse_data(worker, n: int = SPARSE_N, t: int = N_PER_NODE):
+    """(the worker's `SensorData`, its seconds): its arrays read from its
+    stdout, and the worker waited for; a worker that fails fails here."""
+    arrays = (np.empty((n, t, 2), np.float32), np.empty((n, t), np.float32),
+              np.empty((n, t), np.int32), np.empty((), np.float64))
+    for a in arrays:
+        view, got = memoryview(a).cast("B"), 0
+        while got < len(view):
+            k = worker.stdout.readinto(view[got:got + PIPE_CHUNK])
+            if not k:
+                worker.wait()
+                raise RuntimeError(f"the sparse data worker ended after "
+                                   f"{got} of {len(view)} bytes (rc "
+                                   f"{worker.returncode})")
+            got += k
+    if worker.wait() != 0:
+        raise RuntimeError(f"the sparse data worker failed: rc "
+                           f"{worker.returncode}")
+    return synthetic._tensors(*arrays[:3]), float(arrays[3])
+
+
 def _ref_posterior(x, mask, labels, prior, K, chunk=2048):
     """The Eq. 46 reference (the true-label posterior, as `_instance`),
     accumulated a chunk of nodes at a time."""
@@ -2370,16 +2441,16 @@ def _plain_by_chunks(x, mask, terms, shift):
     return (None, *(torch.cat(p) for p in zip(*parts)))
 
 
-def phase_sparse_main_path(dev) -> dict:
+def phase_sparse_main_path(dev, worker) -> dict:
     """Six sparse runs at 100,000 sensors x 4096 points, fused backend,
     SPARSE_ITERS iterations each; then the kernel at that size against
-    its plain version, and sparse dSVB against the reference backend."""
+    its plain version, and sparse dSVB against the reference backend.
+    The host data comes from `worker` (`start_sparse_data`)."""
     t0 = time.perf_counter()
     g, _pos = network.random_geometric_edges(SPARSE_N, seed=SEED)
     graph_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    data = synthetic.paper_synthetic(n_nodes=SPARSE_N, n_per_node=N_PER_NODE,
-                                     seed=SEED, dtype=np.float32)
+    data, data_worker_s = sparse_data(worker)
     data_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     inst = _sparse_instance(data, dev)
@@ -2391,6 +2462,7 @@ def phase_sparse_main_path(dev) -> dict:
          directed_edges=2 * g.n_undirected,
          mean_degree=2 * g.n_undirected / SPARSE_N,
          graph_build_seconds=graph_s, data_seconds=data_s,
+         data_worker_seconds=data_worker_s,
          instance_seconds=time.perf_counter() - t0, data_bytes=data_bytes,
          dense_f64_matrix_bytes=8 * SPARSE_N * SPARSE_N)
     if graph_s >= SPARSE_GRAPH_MAX_S:
@@ -3238,11 +3310,11 @@ def _train_run(trainer, n_steps: int) -> dict:
                                           for n, b in cc.bytes.items()}}
 
 
-def _trainer(cfg, dev, dp_mode="allreduce", executor=None):
+def _trainer(cfg, dev, dp_mode="allreduce", mesh=None, seed=0):
     hyper = train_step.TrainHyper(peak_lr=3e-4, warmup=TRAIN_WARMUP,
                                   total_steps=TRAIN_STEPS)
-    return Trainer(cfg, executor, dp_mode=dp_mode, hyper=hyper,
-                   global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=0,
+    return Trainer(cfg, mesh, dp_mode=dp_mode, hyper=hyper,
+                   global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=seed,
                    device=dev)
 
 
@@ -3269,15 +3341,16 @@ def phase_lm_train_yi_6b(dev) -> dict:
     return out
 
 
-def phase_lm_train_mamba2_370m(dev, ex) -> dict:
+def phase_lm_train_mamba2_370m(dev, mesh) -> dict:
     """The whole published Mamba-2 370M (48 layers, bf16) trained in the
-    three modes; the consensus modes over the one-rank NCCL group `ex`."""
+    three modes; the consensus modes over `mesh`, a one-rank ("data",)
+    mesh (one plain replica)."""
     cfg = get_config("mamba2_370m")
     out = {"arch": "mamba2_370m", "layers": cfg.n_layers,
            "params": lm_model.param_count(cfg), "dtype": cfg.param_dtype,
            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ}
     for mode in train_step.DP_MODES:
-        tr = _trainer(cfg, dev, mode, None if mode == "allreduce" else ex)
+        tr = _trainer(cfg, dev, mode, None if mode == "allreduce" else mesh)
         out[mode] = _train_run(tr, TRAIN_STEPS)
         del tr
         gc.collect()
@@ -3319,6 +3392,186 @@ def phase_lm_train_small_vs_cpu(dev) -> dict:
             raise AssertionError(f"{arch}: card vs CPU {out[arch]}")
     emit("lm_train_small_vs_cpu", steps=SMALL_STEPS, dtype="float32",
          loss_rtol=SMALL_LOSS_RTOL, param_rel_l2=SMALL_PARAM_RTOL, **out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 10. LM sharding on a (1, 1) device mesh
+# ---------------------------------------------------------------------------
+MESH_TRAIN_STEPS = 3
+
+
+def _engine_steps(eng, toks) -> dict:
+    """One prefill of `toks` and LM_NEW decode steps on its cache through
+    `eng`'s own step functions and layout (host clock, synchronised; each
+    decode step ends in the host read of its token): prefill ms, ms a
+    decode step, the prefill's last-position logits (whole), and the
+    kernel launches of the prefill alone."""
+    cfg, B = eng.cfg, toks.shape[0]
+    end = LM_PROMPT + LM_NEW
+    with eng.context():
+        rows = eng._rows(toks)
+        frontend = eng._rows(engine.frontend_stub(cfg, B, toks.device))
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        logits, cache = eng._prefill(eng.params, rows, frontend)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        launches = read_launches()
+        # a copy: a view would hold the whole (B, S, V) logits alive
+        last = sharding.full(logits)[:, -1].float().clone()
+        full = eng._decode_cache(B, end)
+        cache = engine._splice_cache(cfg, full, cache, LM_PROMPT)
+        cur = engine._sample(logits, 0.0, None)
+        del logits
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(LM_PROMPT, end):
+            out, cache = eng._decode(eng.params, cur, cache, t)
+            cache = eng._at_rest(cache, full)
+            cur = engine._sample(out, 0.0, None)
+            sharding.full(cur).cpu()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / LM_NEW
+        del cache, full
+    return {"prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+            "launches_per_prefill": launches, "last_logits": last}
+
+
+def phase_lm_mesh_serve(arch: str, dev, mesh) -> dict:
+    """`Engine(mesh=)` on a published config at full width and depth
+    (bf16, the kernels) against the unsharded `Engine` on the same
+    parameters: the greedy tokens equal, the last prefill logits
+    bit-equal, one kernel launch a layer in each prefill (on the rank's
+    local shards under the mesh), and each engine's generate window
+    (launches, s, peak memory), prefill ms and ms a decode step."""
+    cfg = get_config(arch)
+    lm = lm_model.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                              device=dev)
+    reqs = _requests(cfg, LM_NEW)
+    toks = torch.as_tensor(admission.right_aligned_batch(
+        [r.prompt for r in reqs]), dtype=torch.int64, device=dev)
+    kinds = cfg.layer_kinds()
+    want = {"gmm_estep_nodes": 0, "flash_attention": kinds.count("attn"),
+            "ssd_scan": kinds.count("ssm")}
+    out = {"arch": arch, "layers": cfg.n_layers, "dtype": cfg.param_dtype,
+           "mesh_axes": mesh_lib.axis_sizes(mesh), "batch": LM_BATCH,
+           "prompt": LM_PROMPT, "new_tokens": LM_NEW}
+    toks_out, logits = {}, {}
+    for name, m in (("plain", None), ("mesh", mesh)):
+        eng = engine.Engine(cfg, lm, max_seq=LM_PROMPT + LM_NEW,
+                            use_kernels=True, device=dev, mesh=m)
+        # warm-up outside the window (DTensor's sharding propagation
+        # caches, the library handles)
+        eng.generate([engine.Request(r.prompt[:64], 2) for r in reqs])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()                           # the path's window
+        t0 = time.perf_counter()
+        toks_out[name] = eng.generate(reqs)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        launches = read_launches()                # read just after
+        peak = torch.cuda.max_memory_allocated()
+        steps = _engine_steps(eng, toks)
+        logits[name] = steps.pop("last_logits")
+        if launches != want or steps["launches_per_prefill"] != want:
+            raise AssertionError(f"{arch} {name}: launches {launches}, a "
+                                 f"prefill {steps['launches_per_prefill']}"
+                                 f" (want {want} each)")
+        out[name] = {"launches": launches, "generate_s": gen_s,
+                     "generate_tokens_per_s": LM_BATCH * LM_NEW / gen_s,
+                     "max_memory_allocated_gb": peak / 1e9, **steps}
+        del eng
+        torch.cuda.empty_cache()
+    out["tokens_equal"] = all(np.array_equal(a, b) for a, b in
+                              zip(toks_out["plain"], toks_out["mesh"]))
+    out["last_logits_bit_equal"] = bool(torch.equal(logits["plain"],
+                                                    logits["mesh"]))
+    out["decode_ms_ratio_mesh_to_plain"] = (
+        out["mesh"]["decode_ms_per_step"]
+        / out["plain"]["decode_ms_per_step"])
+    out["prefill_ms_ratio_mesh_to_plain"] = (
+        out["mesh"]["prefill_ms"] / out["plain"]["prefill_ms"])
+    if not (out["tokens_equal"] and out["last_logits_bit_equal"]):
+        raise AssertionError(f"{arch}: the mesh engine differs from the "
+                             f"unsharded one: tokens equal "
+                             f"{out['tokens_equal']}, logits bit-equal "
+                             f"{out['last_logits_bit_equal']}")
+    del lm, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(f"lm_mesh_serve_{arch}", **out)
+    return out
+
+
+def _train_states_equal(a, b) -> bool:
+    """Two training states bit for bit, in the checkpoint layout (DTensors
+    gathered whole)."""
+    fa = ckpt._flatten(train_step.train_state_tree(a))
+    fb = ckpt._flatten(train_step.train_state_tree(b))
+    if sorted(fa) != sorted(fb):
+        return False
+    return all(torch.equal(fa[k], fb[k]) if isinstance(fa[k], torch.Tensor)
+               else fa[k] == fb[k] for k in fa)
+
+
+def phase_lm_mesh_train(dev, mesh, data) -> dict:
+    """Mamba-2 370M (published, bf16), `Trainer(mesh=)` in allreduce and
+    ADMM on the (1, 1) `mesh`, MESH_TRAIN_STEPS steps on the Batcher's
+    batches, against the unsharded Trainer (allreduce: no mesh; ADMM: the
+    one-rank ("data",) mesh `data`, a plain replica): the states bit for
+    bit and ms a step of both.  Then a mesh trainer's checkpoint restored
+    into a fresh mesh trainer bit for bit, in both modes, on Mamba-2's
+    bf16 smoke config: the 48-layer state's compressed file takes
+    minutes a round trip."""
+    cfg = get_config("mamba2_370m")
+    out = {"arch": "mamba2_370m", "layers": cfg.n_layers,
+           "dtype": cfg.param_dtype, "mesh_axes": mesh_lib.axis_sizes(mesh),
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "steps": MESH_TRAIN_STEPS}
+    for mode in ("allreduce", "admm"):
+        runs, states = {}, {}
+        for name, m in (("plain", None if mode == "allreduce" else data),
+                        ("mesh", mesh)):
+            tr = _trainer(cfg, dev, mode, m)
+            torch.cuda.synchronize()
+            hist = tr.run(MESH_TRAIN_STEPS, log_every=1)
+            torch.cuda.synchronize()
+            walls = [0.0] + [h["wall_s"] for h in hist]
+            runs[name] = {"step_ms": [1e3 * (b - a) for a, b in
+                                      zip(walls, walls[1:])],
+                          "loss": [h["loss"] for h in hist]}
+            states[name] = tr.state
+            del tr
+        same = _train_states_equal(states["plain"], states["mesh"])
+        del states
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[mode] = {**runs, "state_bit_equal": same,
+                     "losses_equal": runs["plain"]["loss"]
+                     == runs["mesh"]["loss"]}
+        if not (same and out[mode]["losses_equal"]):
+            raise AssertionError(f"lm_mesh_train {mode}: {out[mode]}")
+    small = get_smoke_config("mamba2_370m").replace(
+        param_dtype="bfloat16", compute_dtype="bfloat16")
+    root = os.path.join("build", "chip_smoke_ckpt", "lm_mesh_train")
+    for mode in ("allreduce", "admm"):
+        kw = dict(dp_mode=mode, hyper=train_step.TrainHyper(
+            peak_lr=1e-3, warmup=1, total_steps=10), global_batch=4,
+            seq_len=64, device=dev, ckpt_dir=os.path.join(root, mode))
+        tr = Trainer(small, mesh, **kw)
+        tr.run(2, log_every=100)
+        tr.save(2)
+        back = Trainer(small, mesh, seed=1, **kw)
+        back.restore(2)
+        out[mode]["save_restore_bit_equal"] = _train_states_equal(
+            tr.state, back.state)
+        if not out[mode]["save_restore_bit_equal"]:
+            raise AssertionError(f"lm_mesh_train {mode}: the checkpoint "
+                                 f"does not round-trip")
+    out["save_restore_config"] = "mamba2_370m smoke, bf16"
+    emit("lm_mesh_train", **out)
     return out
 
 
@@ -3556,6 +3809,16 @@ def phase_mesh_sparse(inst, gd, ex, dev) -> dict:
 
 def main():
     dev_info = phase_device()
+    worker = start_sparse_data()
+    try:
+        run(dev_info, worker)
+    finally:
+        if worker.poll() is None:            # a phase before it failed
+            worker.kill()
+            worker.wait()
+
+
+def run(dev_info, worker):
     ptxas = phase_build()
     dev = torch.device("cuda")
     t0 = time.perf_counter()
@@ -3581,7 +3844,7 @@ def main():
     mesh += phase_mesh_serve_fleet(fleet.pop("C"), ex, dev)["launches"]
     del inst, x, mask
     torch.cuda.empty_cache()
-    sparse = phase_sparse_main_path(dev)
+    sparse = phase_sparse_main_path(dev, worker)
     mesh += phase_mesh_sparse(sparse.pop("inst"), sparse.pop("graph"), ex,
                               dev)["launches"]
     dist.destroy_process_group()
@@ -3612,9 +3875,18 @@ def main():
         fam = phase_lm_serve(arch, dev)
         emit(f"lm_serve_{arch}", **fam)
         flash_launches += fam["launches"]["flash_attention"]
+    # a one-rank NCCL group and the (1, 1) mesh over it; a failed
+    # initialisation fails the run
+    mesh11 = mesh_lib.make_test_mesh(1, 1, device=dev)
+    ssd_launches = mb["launches"]["ssd_scan"]
+    for arch in ("yi_6b", "mamba2_370m"):
+        ms = phase_lm_mesh_serve(arch, dev, mesh11)["mesh"]["launches"]
+        flash_launches += ms["flash_attention"]
+        ssd_launches += ms["ssd_scan"]
     phase_lm_train_yi_6b(dev)
-    ex = admission.data_axis_mesh(device=dev)   # a one-rank NCCL group
-    phase_lm_train_mamba2_370m(dev, ex)
+    data1 = mesh_lib.data_mesh(device=dev)
+    phase_lm_train_mamba2_370m(dev, data1)
+    phase_lm_mesh_train(dev, mesh11, data1)
     dist.destroy_process_group()
     phase_lm_train_small_vs_cpu(dev)
 
@@ -3658,7 +3930,8 @@ def main():
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:84",
         # Yi-6B's, RecurrentGemma-2B's, Granite-MoE's and Qwen2-VL's
-        # serving launches; the worse error of the sweep, Yi-6B's prefill
+        # serving launches, and Yi-6B's through Engine(mesh=); the worse
+        # error of the sweep, Yi-6B's prefill
         # shape and hd 256 (RecurrentGemma-2B's); timed at Yi-6B's shape
         "launches": flash_launches,
         "max_abs_err": max(lm_err["flash_attention"], hd256["max_abs_err"]),
@@ -3669,7 +3942,8 @@ def main():
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:74",
-        "launches": mb["launches"]["ssd_scan"],
+        # Mamba-2's serving launches, unsharded and through Engine(mesh=)
+        "launches": ssd_launches,
         "max_abs_err": lm_err["ssd_scan"], "max_err": lm_err["ssd_scan"],
         "ms": sd["ms"], "plain_ms": sd["plain_ms"],
         "bound_ms": sd["bound_ms"], "bound_by": sd["bound_by"],

@@ -33,10 +33,12 @@ import re
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.engine import VBState
 from repro_torch.core.expfam import GMMPosterior
 from repro_torch.core.linreg import NGPosterior
+from repro_torch.dist import sharding
 from repro_torch.models.hmm import HMMPosterior
 from repro_torch.models.model import LM, _homogeneous
 
@@ -90,12 +92,15 @@ def _tensor(arr) -> torch.Tensor:
     return torch.as_tensor(arr)
 
 
-def _load(arr, like: torch.Tensor, key: str) -> torch.Tensor:
-    t = _tensor(arr)
-    if tuple(t.shape) != tuple(like.shape):
-        raise ValueError(f"{key}: shape {tuple(t.shape)} != "
+def _check_shape(arr, like: torch.Tensor, key: str) -> None:
+    if tuple(np.shape(arr)) != tuple(like.shape):
+        raise ValueError(f"{key}: shape {tuple(np.shape(arr))} != "
                          f"{tuple(like.shape)}")
-    return t.to(device=like.device, dtype=like.dtype)
+
+
+def _load(arr, like: torch.Tensor, key: str) -> torch.Tensor:
+    _check_shape(arr, like, key)
+    return _tensor(arr).to(device=like.device, dtype=like.dtype)
 
 
 def _stream_from_arrays(get, like):
@@ -339,14 +344,20 @@ def _lm_named(cfg, arrays: dict, prefix: str = "",
 
 def _load_named(cfg, got: dict, want: dict, what: str) -> None:
     """Copy `got` into the tensors of `want` (same names; shapes checked,
-    each cast to its tensor's dtype and device)."""
+    each cast to its tensor's dtype and device).  A DTensor of `want`
+    takes this rank's block of its array."""
     missing, extra = sorted(set(want) - set(got)), sorted(set(got) - set(want))
     if missing or extra:
         raise KeyError(f"{what} do not match {cfg.name}: missing {missing}, "
                        f"extra {extra}")
     with torch.no_grad():
         for name, p in want.items():
-            p.copy_(_load(got[name], p, name))
+            if isinstance(p, DTensor):
+                _check_shape(got[name], p, name)
+                p.to_local().copy_(sharding.local_shard(
+                    _tensor(got[name]), p.device_mesh, p.placements))
+            else:
+                p.copy_(_load(got[name], p, name))
 
 
 def lm_params_from_arrays(cfg, arrays: dict, *, device, dtype=None):

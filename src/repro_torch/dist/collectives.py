@@ -19,6 +19,10 @@ the collectives are issued in the same order on every rank.
   `batch_isend_irecv`; a rank that is its own peer (a one-rank group)
   copies locally, since NCCL has no send to self.
 
+`axis_executor(mesh, axis)` is the executor over one axis of a
+`torch.distributed.device_mesh.DeviceMesh` (the LM mesh's consensus
+axis).
+
 A CUDA tensor needs an NCCL group and a CPU tensor a gloo group
 (`check_device`); nothing falls back to another backend or device.
 """
@@ -39,7 +43,27 @@ class MeshExecutor(NamedTuple):
     axis: str = "data"
 
 
+def axis_executor(mesh, axis: str = "data") -> MeshExecutor:
+    """The executor over one named axis of a `DeviceMesh` (its group
+    through this rank: the ranks that share every other coordinate).  On
+    the LM mesh the consensus combines run so between replicas, each
+    rank exchanging its own model shard with the peer at the same model
+    coordinate; "pod" on the multi-pod mesh."""
+    return MeshExecutor(mesh.get_group(axis), axis)
+
+
 _BACKEND_OF = {"cuda": "nccl", "cpu": "gloo"}
+
+
+def ensure_group(device) -> None:
+    """Without an initialised default group, make a one-rank group
+    in-process over a `HashStore` (no port, no network): NCCL for a CUDA
+    `device`, gloo for the CPU.  A group that fails to initialise
+    raises."""
+    if not dist.is_initialized():
+        dist.init_process_group(_BACKEND_OF[torch.device(device).type],
+                                store=dist.HashStore(), rank=0,
+                                world_size=1)
 
 
 def _require_group(ex: MeshExecutor) -> None:

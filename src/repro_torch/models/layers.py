@@ -13,17 +13,26 @@ type JAX promotes to.
 Parameters are created with `requires_grad=False`, so serving builds no
 autograd graph; training turns gradients on for its model
 (`training.train_step.init_state`).
+
+Under an ambient device mesh (`dist.sharding.use_mesh`) the weights and
+activations are DTensors: the projections, norms and pointwise math run
+as DTensor ops, and the per-head attention runs in a per-shard region
+(`attention_local`): each rank attends over its own rows and, when the
+kv heads divide the "model" axis, its own heads (else every head).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import sharding
 
 NEG_INF = -1e30
 
@@ -40,6 +49,16 @@ def promoted(*ts: torch.Tensor) -> list[torch.Tensor]:
     for t in ts[1:]:
         dtype = torch.promote_types(dtype, t.dtype)
     return [t.to(dtype) for t in ts]
+
+
+def conv_tail(x, W: int):
+    """The last (W-1) pre-conv inputs of x (B, S, C), zero-padded when
+    the sequence is shorter: a causal conv's state for decode
+    continuation (the Mamba-2 and RG-LRU blocks)."""
+    S = x.shape[1]
+    if S < W - 1:
+        x = F.pad(x, (0, 0, W - 1 - S, 0))
+    return x[:, -(W - 1):, :]
 
 
 def param(shape, dtype, device) -> nn.Parameter:
@@ -185,12 +204,16 @@ def _qkv(x, p, cfg: ModelConfig, positions):
     return q, k, v
 
 
-def sdpa(q, k, v, mask, scale):
+def sdpa(q, k, v, mask, scale, *, reduce=None):
     """q (B,Sq,Hkv,G,hd), k/v (B,Skv,Hkv,hd), mask (...,Sq,Skv) add-mask.
     f32 logits from f32 operands (JAX's preferred_element_type; TF32
-    stays off), softmax in f32, weights cast back to q's dtype."""
-    logits = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float()) * scale
-    logits = logits + mask
+    stays off), softmax in f32, weights cast back to q's dtype.
+    `reduce` sums the logits over the ranks that hold the other parts of
+    a head_dim-sharded contraction (in place)."""
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float())
+    if reduce is not None:
+        reduce(logits)
+    logits = logits * scale + mask
     w = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhgqk,bkhd->bqhgd", w, v)
 
@@ -246,30 +269,74 @@ def chunked_sdpa(q, k, v, scale, *, window: int = 0,
     return torch.cat(outs, dim=1)
 
 
-def attention_block(x, p, cfg: ModelConfig, positions, *, window: int = 0):
-    """Training/prefill attention.  Returns (out (B,S,d), k, v for
-    caching)."""
-    B, S, _ = x.shape
-    q, k, v = _qkv(x, p, cfg, positions)
-    g = cfg.n_heads // cfg.n_kv_heads
+def attention_core(q, k, v, cfg: ModelConfig, *, window: int = 0):
+    """Causal (or sliding-window) attention of q (B, S, Hq, hd) over k/v
+    (B, S, Hkv, hd) -> (B, S, Hq, hd), on whatever heads and rows the
+    tensors hold (in a per-shard region, a rank's own)."""
+    B, S, Hq, hd = q.shape
+    g = Hq // k.shape[2]
     if cfg.attn_flat_heads:
         # every query head its own kv head (the JAX mesh layout knob)
         kq = torch.repeat_interleave(k, g, dim=2)
         vq = torch.repeat_interleave(v, g, dim=2)
-        qg = q.reshape(B, S, cfg.n_heads, 1, cfg.hd)
+        qg = q.reshape(B, S, Hq, 1, hd)
     else:
         kq, vq = k, v
-        qg = q.reshape(B, S, cfg.n_kv_heads, g, cfg.hd)
+        qg = q.reshape(B, S, k.shape[2], g, hd)
     scale = 1.0 / math.sqrt(cfg.hd)
     if S > CHUNKED_ATTN_THRESHOLD:
         out = chunked_sdpa(qg, kq, vq, scale, window=window,
                            q_chunk=cfg.attn_q_chunk,
                            windowed_kv=cfg.windowed_kv)
     else:
-        mask = causal_mask(S, window, torch.float32, device=x.device)
+        mask = causal_mask(S, window, torch.float32, device=q.device)
         out = sdpa(qg, kq, vq, mask, scale)
+    return out.reshape(B, S, Hq, hd)
+
+
+def attention_local(fn, q, k, v):
+    """`fn(q, k, v)` (an attention over whole heads) on each rank's rows
+    and, when the kv heads divide the "model" axis, its own heads; else
+    q, k and v are first replicated over "model" (what XLA does for the
+    reference's un-partitionable kernel call).  Without an ambient mesh,
+    `fn` on the tensors themselves."""
+    mesh = sharding.current_mesh()
+    if mesh is None:
+        return fn(q, k, v)
+    split = k.shape[2] % sharding.axis_size(mesh, "model") == 0
+    pl = sharding.placements_for(mesh, batch=q.shape[0],
+                                 model_dim=2 if split else None)
+    return sharding.region(fn, mesh, (pl, pl, pl), pl)(q, k, v)
+
+
+def attention_block(x, p, cfg: ModelConfig, positions, *, window: int = 0):
+    """Training/prefill attention.  Returns (out (B,S,d), k, v for
+    caching)."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(x, p, cfg, positions)
+    out = attention_local(
+        lambda q, k, v: attention_core(q, k, v, cfg, window=window),
+        q, k, v)
     out = out.reshape(B, S, cfg.n_heads * cfg.hd) @ p.wo
     return out, k, v
+
+
+def _decode_core(q, k, v, cache_k, cache_v, *, pos: int, slot: int,
+                 scale: float, reduce=None):
+    """Write the new key and value at `slot` of the cache (in place) and
+    attend q (B, 1, Hq, hd) over the slots written so far; all shapes are
+    the tensors' own (a rank's rows, heads or head_dim slice)."""
+    B, _, Hq, hd = q.shape
+    Sc, Hkv = cache_k.shape[1], cache_k.shape[2]
+    cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
+    cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
+    qg = q.reshape(B, 1, Hkv, Hq // Hkv, hd)
+    valid = torch.arange(Sc, device=q.device) <= pos
+    zero = torch.zeros((), device=q.device)
+    mask = torch.where(valid, zero, NEG_INF)[None, None, None, None, :]
+    out = sdpa(qg, cache_k.to(q.dtype), cache_v.to(q.dtype), mask, scale,
+               reduce=reduce)
+    return out.reshape(B, 1, Hq, hd), cache_k, cache_v
 
 
 def attention_decode(x, p, cfg: ModelConfig, cache_k, cache_v, pos: int, *,
@@ -282,6 +349,14 @@ def attention_decode(x, p, cfg: ModelConfig, cache_k, cache_v, pos: int, *,
     JAX function returns updated copies; in place saves a copy of the
     whole cache per layer and step).  Returns (out (B,1,d), cache_k,
     cache_v).
+
+    Under a mesh the cache keeps its layout (`serving.engine.
+    cache_shardings`: rows over the dp axes, head_dim or the kv heads
+    over "model"), and each rank writes and attends over its own block:
+    with head_dim sharded, the QK^T partial sums are added over "model"
+    before the softmax (the reference pins q's head_dim to "model" when
+    the kv heads do not divide it, so the contraction partial-sums small
+    logits instead of gathering the cache).
     """
     B = x.shape[0]
     Sc = cache_k.shape[1]
@@ -289,17 +364,41 @@ def attention_decode(x, p, cfg: ModelConfig, cache_k, cache_v, pos: int, *,
     q, k, v = _qkv(x, p, cfg, positions)
     slot = pos % Sc if window > 0 else pos
     slot = min(max(slot, 0), Sc - 1)      # dynamic_update_slice clamps
-    cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
-    g = cfg.n_heads // cfg.n_kv_heads
-    qg = q.reshape(B, 1, cfg.n_kv_heads, g, cfg.hd)
-    valid = torch.arange(Sc, device=x.device) <= pos
-    zero = torch.zeros((), device=x.device)
-    mask = torch.where(valid, zero, NEG_INF)[None, None, None, None, :]
-    out = sdpa(qg, cache_k.to(q.dtype), cache_v.to(q.dtype), mask,
-               1.0 / math.sqrt(cfg.hd))
+    core = functools.partial(_decode_core, pos=pos, slot=slot,
+                             scale=1.0 / math.sqrt(cfg.hd))
+    mesh = sharding.current_mesh()
+    if mesh is None:
+        out, cache_k, cache_v = core(q, k, v, cache_k, cache_v)
+    else:
+        m = sharding.axis_size(mesh, "model")
+        if m > 1 and cfg.n_kv_heads % m != 0:
+            q = sharding.constrain_last_dim_model(q)
+        out, cache_k, cache_v = _decode_local(mesh, core, q, k, v, cache_k,
+                                              cache_v)
     out = out.reshape(B, 1, cfg.n_heads * cfg.hd) @ p.wo
     return out, cache_k, cache_v
+
+
+def _decode_local(mesh, core, q, k, v, cache_k, cache_v):
+    """`core` (`_decode_core`) on each rank's block of the cache, in the
+    cache's own layout: its model-sharded dim is head_dim (3), the kv
+    heads (2) or none (then the cache is replicated over "model" for the
+    step)."""
+    B = q.shape[0]
+    md = sharding.model_dim_of(cache_k)
+    if md not in (2, 3):
+        md = None
+    pl = sharding.placements_for(mesh, batch=B, model_dim=md)
+    if md == 3 and sharding.axis_size(mesh, "model") > 1:
+        group = mesh.get_group("model")
+        core = functools.partial(
+            core, reduce=lambda t: dist.all_reduce(t, group=group))
+    out, ck, cv = sharding.region(core, mesh, (pl,) * 5, (pl, pl, pl))(
+        q, k, v, cache_k, cache_v)
+    if md == 3:                 # whole heads again before the projection
+        out = sharding.relayout(out, mesh,
+                                sharding.placements_for(mesh, batch=B))
+    return out, ck, cv
 
 
 # ---------------------------------------------------------------------------
@@ -375,7 +474,7 @@ def embed(tokens, p, cfg: ModelConfig, frontend_embeds=None):
     """tokens (B, S) integer ids -> (B, S, d).  For vlm/audio archs, the
     first `frontend_len` positions take the projected stub embeddings
     `frontend_embeds` (B, frontend_len, d) instead of token embeddings."""
-    x = p.tok[tokens]
+    x = F.embedding(tokens, p.tok)
     if frontend_embeds is not None and cfg.frontend_len > 0:
         fe = frontend_embeds.to(x.dtype) @ p.frontend_proj
         x = torch.cat([fe, x[:, cfg.frontend_len:]], dim=1)

@@ -9,6 +9,12 @@ inside chunks of length L, linear state passing across chunks.
 the kernel's plain version); `ssm_block(use_kernel=True)` runs the CUDA
 kernel of `repro_torch.kernels.ssd_scan` instead.
 
+Under an ambient mesh (`dist.sharding.use_mesh`) the projections are
+DTensor ops; the convolution and a decode step's recurrence run on each
+rank's rows, and the SSD scan on its rows and (when the heads divide
+"model") its heads, in per-shard regions (exact: nothing there mixes rows
+or heads).
+
 Dtypes follow the JAX package: with bf16 weights, C B^T and the intra
 product run in bf16, the state and the decays in f32, and where JAX
 promotes a mixed pair (an f32 decode cache with bf16 activations) the port
@@ -21,7 +27,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import layers
+from repro_torch.dist import sharding
+from repro_torch.models import kernel_adapters, layers
 
 
 def _dims(cfg: ModelConfig):
@@ -141,6 +148,20 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, h0=None):
     return y.reshape(Bb, S, H, P), h
 
 
+def _ssd(xh, dt, A, Bm, Cm, cfg: ModelConfig, use_kernel: bool):
+    """(y, final state) of the SSD scan: the CUDA kernel, or the plain
+    chunked path, on each rank's rows and heads under a mesh."""
+    if use_kernel:
+        return kernel_adapters.ssd_scan(xh, dt, A, Bm, Cm,
+                                        chunk=cfg.ssm_chunk)
+    fn = lambda x, dt, A, Bm, Cm: ssd_chunked(x, dt, A, Bm, Cm,
+                                              cfg.ssm_chunk)
+    mesh = sharding.current_mesh()
+    if mesh is None:
+        return fn(xh, dt, A, Bm, Cm)
+    return kernel_adapters.heads_region(mesh, fn, xh, dt, A, Bm, Cm)
+
+
 def ssm_block(x, p, cfg: ModelConfig, *, return_state: bool = False,
               use_kernel: bool = False):
     """Full Mamba-2 block: in_proj -> conv -> SSD -> gated norm ->
@@ -148,20 +169,15 @@ def ssm_block(x, p, cfg: ModelConfig, *, return_state: bool = False,
     decode continuation."""
     d_in, H, N = _dims(cfg)
     B, S, _ = x.shape
-    zxbcdt = x @ p.in_proj
+    zxbcdt = sharding.unshard_model(x @ p.in_proj)
     z, xbc, dt = torch.split(zxbcdt, [d_in, d_in + 2 * N, H], dim=-1)
-    xbc_act = F.silu(_causal_conv(xbc, p.conv_w, p.conv_b))
+    xbc_act = F.silu(sharding.rows_region(_causal_conv, (xbc,),
+                                          (p.conv_w, p.conv_b)))
     xs, Bm, Cm = torch.split(xbc_act, [d_in, N, N], dim=-1)
     dt = F.softplus(dt.float() + p.dt_bias)
     A = -torch.exp(p.A_log)
     xh = xs.reshape(B, S, H, cfg.ssm_head_dim)
-    if use_kernel:
-        from repro_torch.kernels import ops
-        y, state = ops.ssd_scan(xh.contiguous(), dt.contiguous(), A,
-                                Bm.contiguous(), Cm.contiguous(),
-                                chunk=cfg.ssm_chunk)
-    else:
-        y, state = ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm_chunk)
+    y, state = _ssd(xh, dt, A, Bm, Cm, cfg, use_kernel)
     y = y + p.D[None, None, :, None].to(y.dtype) * xh
     y = y.reshape(B, S, d_in)
     y = layers.rms_norm(y * F.silu(z), p.norm_scale, cfg.norm_eps)
@@ -170,10 +186,32 @@ def ssm_block(x, p, cfg: ModelConfig, *, return_state: bool = False,
         # conv tail: the last (W-1) pre-conv inputs, for decode
         # continuation (the JAX block recomputes x @ in_proj for it; the
         # port keeps the slice it already has)
-        W = cfg.conv_width
-        conv_buf = F.pad(xbc, (0, 0, max(0, W - 1 - S), 0))[:, -(W - 1):, :]
-        return out, (conv_buf, state)
+        return out, (layers.conv_tail(xbc, cfg.conv_width), state)
     return out
+
+
+def _decode_core(conv_buf, xbc, dt, h, conv_w, conv_b, dt_bias, A_log, D,
+                 *, cfg: ModelConfig):
+    """One step of the conv and the SSM recurrence on the rows given:
+    -> (y (B, d_in) f32, the new conv buffer, the new state)."""
+    d_in, H, N = _dims(cfg)
+    B = xbc.shape[0]
+    # causal conv over the rolling buffer
+    seq = torch.cat(layers.promoted(conv_buf, xbc[:, None, :]), dim=1)
+    conv_out = torch.einsum("bwc,wc->bc",
+                            *layers.promoted(seq, conv_w)) + conv_b
+    xbc_t = F.silu(conv_out)
+    xs, Bm, Cm = torch.split(xbc_t, [d_in, N, N], dim=-1)
+    dt_t = F.softplus(dt.float() + dt_bias)                       # (B, H)
+    A = -torch.exp(A_log)
+    xh = xs.reshape(B, H, cfg.ssm_head_dim).float()
+    decay = torch.exp(dt_t * A[None, :])                          # (B, H)
+    upd = (dt_t[..., None, None] * Bm[:, None, None, :]
+           * xh[..., :, None])                                    # (B,H,P,N)
+    h = decay[..., None, None] * h + upd
+    y = torch.einsum("bhpn,bn->bhp", *layers.promoted(h, Cm))
+    y = y + D[None, :, None] * xh
+    return y.reshape(B, d_in), seq[:, 1:, :], h
 
 
 def ssm_decode_step(x, p, cfg: ModelConfig, state):
@@ -181,25 +219,12 @@ def ssm_decode_step(x, p, cfg: ModelConfig, state):
     h (B,H,P,N)).  Returns (out (B,1,d), (conv_buf, h)), both new."""
     d_in, H, N = _dims(cfg)
     conv_buf, h = state
-    B = x.shape[0]
-    zxbcdt = x[:, 0, :] @ p.in_proj
+    zxbcdt = sharding.unshard_model(x[:, 0, :] @ p.in_proj)
     z, xbc, dt = torch.split(zxbcdt, [d_in, d_in + 2 * N, H], dim=-1)
-    # causal conv over the rolling buffer
-    seq = torch.cat(layers.promoted(conv_buf, xbc[:, None, :]), dim=1)
-    conv_out = torch.einsum("bwc,wc->bc",
-                            *layers.promoted(seq, p.conv_w)) + p.conv_b
-    xbc_t = F.silu(conv_out)
-    xs, Bm, Cm = torch.split(xbc_t, [d_in, N, N], dim=-1)
-    dt_t = F.softplus(dt.float() + p.dt_bias)                     # (B, H)
-    A = -torch.exp(p.A_log)
-    xh = xs.reshape(B, H, cfg.ssm_head_dim).float()
-    decay = torch.exp(dt_t * A[None, :])                          # (B, H)
-    upd = (dt_t[..., None, None] * Bm[:, None, None, :]
-           * xh[..., :, None])                                    # (B,H,P,N)
-    h = decay[..., None, None] * h + upd
-    y = torch.einsum("bhpn,bn->bhp", *layers.promoted(h, Cm))
-    y = y + p.D[None, :, None] * xh
-    y = y.reshape(B, d_in).to(x.dtype)
+    y, conv_buf, h = sharding.rows_region(
+        lambda *a: _decode_core(*a, cfg=cfg), (conv_buf, xbc, dt, h),
+        (p.conv_w, p.conv_b, p.dt_bias, p.A_log, p.D), n_out=3)
+    y = y.to(x.dtype)
     y = layers.rms_norm(y * F.silu(z), p.norm_scale, cfg.norm_eps)
     out = (y @ p.out_proj)[:, None, :]
-    return out, (seq[:, 1:, :], h)
+    return out, (conv_buf, h)

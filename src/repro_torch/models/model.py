@@ -13,6 +13,13 @@ and gradients on, each layer runs under `torch.utils.checkpoint` (the
 reference's `jax.checkpoint`): its activations are recomputed in the
 backward pass instead of kept.
 
+Under an ambient mesh (`dist.sharding.use_mesh`; the parameters DTensors
+by `dist.sharding.param_shardings`, the tokens a DTensor with their rows
+over the data axes) the model runs as DTensor ops, with the reference's
+constraint sites: the embeddings, every layer's input and the logits are
+re-pinned to the batch layout (`constrain_batch_dim`: rows over the dp
+axes, replicated over "model").
+
 Public entry points:
   LM(cfg, device=None, generator=None) / init_params(cfg, generator, device)
   forward(cfg, params, tokens, frontend_embeds=None, collect_cache=False,
@@ -23,12 +30,15 @@ Public entry points:
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
+from repro_torch.dist import sharding
 from repro_torch.models import layers, mamba2, moe, rglru
 
 
@@ -158,6 +168,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
 def _layer_fwd(x, p, cfg: ModelConfig, kind: str, positions, *,
                collect_cache: bool, use_kernels: bool):
     """Returns (x, aux_loss, cache_entry)."""
+    x = sharding.constrain_batch_dim(x)
     if kind == "attn":
         h = layers.rms_norm(x, p.norm1, cfg.norm_eps)
         a, k, v = p.attn(h, positions, window=cfg.window,
@@ -215,20 +226,25 @@ def forward(cfg: ModelConfig, params: LM, tokens, frontend_embeds=None, *,
     layers' router losses (0.0 without MoE)."""
     B, S = tokens.shape
     x = layers.embed(tokens, params.embed, cfg, frontend_embeds)
-    x = x.to(layers.dtype_of(cfg.compute_dtype))
+    x = sharding.constrain_batch_dim(x.to(layers.dtype_of(cfg.compute_dtype)))
     positions = layers.default_positions(cfg, B, S, device=tokens.device)
     remat = _remat(cfg, params)
+    mesh = sharding.current_mesh()
+    kw = {} if mesh is None else {"context_fn": lambda: (
+        contextlib.nullcontext(), sharding.use_mesh(mesh))}
     auxs, cache = [], []
     for p, kind in zip(params.blocks, cfg.layer_kinds()):
         fwd = lambda x, p=p, kind=kind: _layer_fwd(
             x, p, cfg, kind, positions, collect_cache=collect_cache,
             use_kernels=use_kernels)
-        x, aux, c = (checkpoint(fwd, x, use_reentrant=False) if remat
+        # the recomputation runs in the backward pass (on the card, in
+        # the autograd engine's own thread): under the forward's mesh
+        x, aux, c = (checkpoint(fwd, x, use_reentrant=False, **kw) if remat
                      else fwd(x))
         auxs.append(aux)
         cache.append(c)
     x = layers.rms_norm(x, params.final_norm, cfg.norm_eps)
-    logits = layers.unembed(x, params.embed, cfg)
+    logits = sharding.constrain_batch_dim(layers.unembed(x, params.embed, cfg))
     out = {"logits": logits, "aux_loss": sum(auxs, 0.0)}
     if collect_cache:
         out["cache"] = cache
@@ -296,7 +312,8 @@ def decode_step(cfg: ModelConfig, params: LM, token, cache: list, pos: int):
     """token (B, 1) ids, pos an int -> (logits (B,1,V), new cache).  The
     attention entries of `cache` are updated in place
     (`layers.attention_decode`)."""
-    x = params.embed.tok[token].to(layers.dtype_of(cfg.compute_dtype))
+    x = layers.embed(token, params.embed, cfg).to(
+        layers.dtype_of(cfg.compute_dtype))
     new_cache = []
     for p, kind, c in zip(params.blocks, cfg.layer_kinds(), cache):
         x, c = _layer_decode(x, p, cfg, kind, c, pos)

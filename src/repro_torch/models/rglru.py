@@ -11,6 +11,11 @@ carries (conv_buf, h).  The residual block is Griffin's "recurrent block":
 two input linears -> (gelu gate | temporal conv -> RG-LRU) -> elementwise
 merge -> output linear.  `jax.nn.gelu` is the tanh approximation, and so
 is the port's.
+
+Under an ambient mesh (`dist.sharding.use_mesh`) the projections and
+gates are DTensor ops; the convolution runs on each rank's rows, and the
+scan on its rows and (when the width divides "model") its channels, in
+per-shard regions (exact: the scan is elementwise across channels).
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import sharding
 from repro_torch.models import layers
 
 _C = 8.0
@@ -103,36 +109,53 @@ def rglru_scan(xi, p, h0=None):
         # fold the carry into the first step: h_1 = a_1 h_0 + gin_1
         gin = torch.cat([gin[:, :1] + a[:, :1] * h0[:, None], gin[:, 1:]],
                         dim=1)
-    h_seq = _linear_scan(a, gin)
+    h_seq = _scan_local(a, gin)
     return h_seq.to(xi.dtype), h_seq[:, -1, :]
+
+
+def _scan_local(a, b):
+    """`_linear_scan` on each rank's rows and, when the width divides
+    "model", its channels."""
+    mesh = sharding.current_mesh()
+    if mesh is None:
+        return _linear_scan(a, b)
+    split = a.shape[-1] % sharding.axis_size(mesh, "model") == 0
+    pl = sharding.placements_for(mesh, batch=a.shape[0],
+                                 model_dim=2 if split else None)
+    return sharding.region(_linear_scan, mesh, (pl, pl), pl)(a, b)
 
 
 def rec_block(x, p, cfg: ModelConfig, *, return_state: bool = False):
     """Griffin recurrent block.  x (B, S, d)."""
     gate = F.gelu((x @ p.in_gate).float(), approximate="tanh")
-    xi = x @ p.in_x
-    xi_conv = _conv(xi, p)
+    xi = sharding.unshard_model(x @ p.in_x)
+    xi_conv = sharding.rows_region(_conv, (xi,), (p.conv_w, p.conv_b))
     h_seq, h_fin = rglru_scan(xi_conv, p)
     merged = (h_seq.float() * gate).to(x.dtype)
     out = merged @ p.out
     if return_state:
-        W = cfg.conv_width
-        conv_buf = F.pad(xi, (0, 0, max(0, W - 1 - xi.shape[1]), 0))[
-            :, -(W - 1):, :]
-        return out, (conv_buf, h_fin.float())
+        return out, (layers.conv_tail(xi, cfg.conv_width), h_fin.float())
     return out
 
 
-def _conv(xi, p):
+def _conv(xi, conv_w, conv_b):
     """Depthwise causal conv over the sequence: sum_i x_{t-W+1+i} w_i +
     b, the terms added in the reference's order."""
-    W = p.conv_w.shape[0]
+    W = conv_w.shape[0]
     S = xi.shape[1]
     xp = F.pad(xi, (0, 0, W - 1, 0))
     out = 0
     for i in range(W):
-        out = out + xp[:, i:i + S, :] * p.conv_w[i]
-    return out + p.conv_b
+        out = out + xp[:, i:i + S, :] * conv_w[i]
+    return out + conv_b
+
+
+def _decode_conv(conv_buf, xi, conv_w, conv_b):
+    """One step of the conv over the rolling buffer: (conv output (B, w),
+    the buffer with `xi` appended)."""
+    seq = torch.cat(layers.promoted(conv_buf, xi[:, None, :]), dim=1)
+    xi_c = torch.einsum("bwc,wc->bc", *layers.promoted(seq, conv_w))
+    return xi_c + conv_b, seq
 
 
 def rec_decode_step(x, p, cfg: ModelConfig, state):
@@ -141,10 +164,9 @@ def rec_decode_step(x, p, cfg: ModelConfig, state):
     conv run in f32 (JAX's promotion)."""
     conv_buf, h = state
     gate = F.gelu((x[:, 0, :] @ p.in_gate).float(), approximate="tanh")
-    xi = x[:, 0, :] @ p.in_x
-    seq = torch.cat(layers.promoted(conv_buf, xi[:, None, :]), dim=1)
-    xi_c = torch.einsum("bwc,wc->bc", *layers.promoted(seq, p.conv_w))
-    xi_c = xi_c + p.conv_b
+    xi = sharding.unshard_model(x[:, 0, :] @ p.in_x)
+    xi_c, seq = sharding.rows_region(_decode_conv, (conv_buf, xi),
+                                     (p.conv_w, p.conv_b), n_out=2)
     a, gin = _gates(xi_c[:, None, :], p)
     h = a[:, 0, :] * h + gin[:, 0, :]
     merged = (h * gate).to(x.dtype)

@@ -9,6 +9,12 @@ reference returns new trees; the port updates the parameters, the moments
 and (in `clip_by_global_norm`) the gradients in place, under
 `torch.no_grad()`, which keeps one copy of each in device memory.  The
 scalars (bias corrections, lr) are the reference's float32 values.
+
+On a device mesh the parameters, gradients and moments are DTensors of
+one layout (the moments are made like their parameters): the update is
+elementwise on each rank's block, and `global_norm` sums every leaf's
+squares across its shards (DTensor reductions), so it is the norm of the
+whole model wherever its leaves are model- or data-sharded.
 """
 from __future__ import annotations
 
@@ -33,8 +39,7 @@ def named(params) -> dict:
 
 
 def init(params) -> AdamState:
-    zeros = lambda: {n: torch.zeros(p.shape, dtype=torch.float32,
-                                    device=p.device)
+    zeros = lambda: {n: torch.zeros_like(p, dtype=torch.float32)
                      for n, p in named(params).items()}
     return AdamState(mu=zeros(), nu=zeros(), count=0)
 
@@ -63,7 +68,8 @@ def update(grads: dict, state: AdamState, params, *, lr,
 
 
 def global_norm(tree: dict) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in float32."""
+    """sqrt of the sum of squares of every leaf, in float32 (a replicated
+    DTensor scalar when the leaves are DTensors)."""
     return torch.sqrt(sum(torch.sum(t.float() ** 2)
                           for t in tree.values()))
 

@@ -20,13 +20,23 @@ before its `ppermute`s (the combines are elementwise: the bits are those
 of a tensor-by-tensor exchange).  Only the sums of squares of the
 residual norms and the consensus diagnostic depend on the packing, by
 their summation order.
+
+On a device mesh a replica's tensors are DTensors over its sub-mesh (the
+"model" axis, sharded as the policy says): every exchange carries each
+rank's own block (`sharding.local`) to the peer at the same model
+coordinate, and the sums of squares behind the residual norms and the
+diagnostic add the blocks over the sub-mesh too, each replicated block
+counted once (by the ranks at coordinate 0 of the axes it is replicated
+over).
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.core.engine import residual_balanced_rho
-from repro_torch.dist import collectives
+from repro_torch.dist import collectives, sharding
 from repro_torch.dist.collectives import MeshExecutor
 
 
@@ -39,15 +49,53 @@ def _groups(tree: dict) -> dict:
 
 
 def _flat(tree: dict, names: list, dtype=None) -> torch.Tensor:
-    return torch.cat([tree[n].detach().reshape(-1).to(dtype or tree[n].dtype)
-                      for n in names])
+    """This rank's blocks of the named tensors, flattened into one."""
+    return torch.cat([sharding.local(tree[n]).detach().reshape(-1).to(
+        dtype or tree[n].dtype) for n in names])
+
+
+def _sizes(tree: dict, names: list) -> list:
+    return [sharding.local(tree[n]).numel() for n in names]
 
 
 @torch.no_grad()
 def _write(tree: dict, names: list, flat: torch.Tensor) -> None:
     """Copy the flat buffer back into the tree's tensors (cast to each)."""
-    for n, chunk in zip(names, flat.split([tree[n].numel() for n in names])):
-        tree[n].copy_(chunk.view(tree[n].shape))
+    for n, chunk in zip(names, flat.split(_sizes(tree, names))):
+        t = sharding.local(tree[n])
+        t.copy_(chunk.view(t.shape))
+
+
+def _counted(t) -> float:
+    """1.0 where this rank counts `t`'s block in a sum over the
+    replica's sub-mesh, else 0.0: a DTensor's block is counted by the
+    ranks at coordinate 0 of each mesh axis it is replicated over."""
+    if not isinstance(t, DTensor):
+        return 1.0
+    coord = t.device_mesh.get_coordinate()
+    return float(all(c == 0 for c, p in zip(coord, t.placements)
+                     if not isinstance(p, Shard)))
+
+
+def _leaf_sums(sq: torch.Tensor, tree: dict, names: list) -> torch.Tensor:
+    """Each named tensor's sum of the flat `sq`, zero where this rank
+    does not count its block (`_counted`)."""
+    sums = torch.segment_reduce(sq, "sum", lengths=torch.tensor(
+        _sizes(tree, names), device=sq.device))
+    return sums * torch.tensor([_counted(tree[n]) for n in names],
+                               device=sq.device)
+
+
+def _sub_mesh_sum(x: torch.Tensor, tree: dict) -> torch.Tensor:
+    """`x` summed over the sub-mesh the tree's DTensors span (as it is
+    for plain tensors)."""
+    t = next(iter(tree.values()))
+    if isinstance(t, DTensor):
+        x = x.clone()
+        for d in range(t.device_mesh.ndim):
+            if t.device_mesh.size(d) > 1:
+                dist.all_reduce(x, group=t.device_mesh.get_group(d))
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -69,7 +117,7 @@ def diffusion_combine(params: dict, ex: MeshExecutor,
 # dVB-ADMM consensus (Eqs. 38a / 39 on a ring; deg_i = 2)
 # ---------------------------------------------------------------------------
 def admm_init_duals(params: dict) -> dict:
-    return {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    return {n: torch.zeros_like(p, dtype=torch.float32)
             for n, p in params.items()}
 
 
@@ -106,13 +154,12 @@ def admm_step(params_star: dict, params_prev: dict, duals: dict,
         _write(params_star, names, new)
         del lam, new
         if return_residuals:
-            r, s = _residual_sums(resid, pf, prev, rho)
+            r, s = _residual_sums(resid, pf, prev, rho, params_star, names)
             r_sq, s_sq = r_sq + r, s_sq + s
         del prev, resid, pf
     if not return_residuals:
         return params_star, duals
-    return params_star, duals, _rms_norms(r_sq, s_sq,
-                                          _numel(params_star), ex)
+    return params_star, duals, _rms_norms(r_sq, s_sq, params_star, ex)
 
 
 # ---------------------------------------------------------------------------
@@ -127,23 +174,23 @@ def _ring_residual(new: torch.Tensor, ex: MeshExecutor):
     return 2.0 * pf - left - right, pf
 
 
-def _residual_sums(resid, pf, prev, rho):
+def _residual_sums(resid, pf, prev, rho, tree: dict, names: list):
     """The group's sums of squares of r and of Boyd's dual residual
-    s = rho (p^t - p^{t-1}) (`pf`, `prev` in float32)."""
+    s = rho (p^t - p^{t-1}) (`pf`, `prev` in float32), over the blocks
+    this rank counts."""
     s = rho * (pf - prev)
-    return torch.sum(resid * resid), torch.sum(s * s)
+    return (_leaf_sums(resid * resid, tree, names).sum(),
+            _leaf_sums(s * s, tree, names).sum())
 
 
-def _numel(tree: dict) -> int:
-    return sum(t.numel() for t in tree.values())
-
-
-def _rms_norms(r_sq, s_sq, n: int, ex: MeshExecutor):
+def _rms_norms(r_sq, s_sq, tree: dict, ex: MeshExecutor):
     """Global RMS norms from this rank's sums of squares of r and s over
-    its `n` entries (one psum of the two sums and the count)."""
-    tot = collectives.psum(torch.stack([
-        r_sq, s_sq, torch.tensor(float(n), dtype=torch.float32,
-                                 device=r_sq.device)]), ex)
+    the entries of `tree` it counts (one psum of the two sums and the
+    count over the replica's sub-mesh and the ring)."""
+    n = sum(sharding.local(t).numel() * _counted(t) for t in tree.values())
+    tot = torch.stack([r_sq, s_sq, torch.tensor(
+        float(n), dtype=torch.float32, device=r_sq.device)])
+    tot = collectives.psum(_sub_mesh_sum(tot, tree), ex)
     return torch.sqrt(tot[0] / tot[2]), torch.sqrt(tot[1] / tot[2])
 
 
@@ -159,9 +206,10 @@ def admm_residual_norms(params_new: dict, params_prev: dict,
     for names in _groups(params_new).values():
         resid, pf = _ring_residual(_flat(params_new, names), ex)
         r, s = _residual_sums(resid, pf,
-                              _flat(params_prev, names, torch.float32), rho)
+                              _flat(params_prev, names, torch.float32), rho,
+                              params_new, names)
         r_sq, s_sq = r_sq + r, s_sq + s
-    return _rms_norms(r_sq, s_sq, _numel(params_new), ex)
+    return _rms_norms(r_sq, s_sq, params_new, ex)
 
 
 def adapt_rho(rho, r_norm, s_norm, *, mu: float = 10.0,
@@ -184,21 +232,20 @@ def consensus_residual(params: dict, ex: MeshExecutor,
     """mean over leaves of mean((phi_i - mean_j phi_j)^2).  `leaf_of`
     maps a parameter name to its leaf of the reference's params tree
     (a homogeneous stack's layers share one stacked leaf: see
-    `training.train_step`); default, each tensor is a leaf."""
+    `training.train_step`); default, each tensor is a leaf.  A DTensor
+    leaf's mean is over all its shards (`numel` is the whole tensor's)."""
     sums, sizes, leaves = [], [], []
     for names in _groups(params).values():
         pf = _flat(params, names, torch.float32)
         sq = (pf - collectives.pmean(pf, ex)) ** 2
-        lengths = torch.tensor([params[n].numel() for n in names],
-                               device=pf.device)
-        sums.append(torch.segment_reduce(sq, "sum", lengths=lengths))
+        sums.append(_leaf_sums(sq, params, names))
         sizes += [params[n].numel() for n in names]
         leaves += [n if leaf_of is None else leaf_of(n) for n in names]
     index = {leaf: i for i, leaf in enumerate(dict.fromkeys(leaves))}
     seg = torch.tensor([index[leaf] for leaf in leaves],
                        device=sums[0].device)
     num = torch.zeros(len(index), device=seg.device).index_add_(
-        0, seg, torch.cat(sums))
+        0, seg, _sub_mesh_sum(torch.cat(sums), params))
     den = torch.zeros(len(index), device=seg.device).index_add_(
         0, seg, torch.tensor(sizes, dtype=torch.float32, device=seg.device))
     return (num / den).mean()

@@ -28,10 +28,10 @@ import hashlib
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from repro_torch import device as device_lib
 from repro_torch import telemetry
+from repro_torch.dist import collectives
 from repro_torch.dist.collectives import MeshExecutor, check_device
 
 # Arrays at or under this many bytes are signed by content digest in
@@ -234,10 +234,7 @@ def data_axis_mesh(axis: str = "data", device=None):
     `device` (None = the card), gloo for the CPU.  A group that fails to
     initialise raises."""
     dev = device_lib.resolve(device)
-    if not dist.is_initialized():
-        dist.init_process_group(
-            "nccl" if dev.type == "cuda" else "gloo",
-            store=dist.HashStore(), rank=0, world_size=1)
+    collectives.ensure_group(dev)
     ex = MeshExecutor(None, axis)
     check_device(ex, dev)
     return ex

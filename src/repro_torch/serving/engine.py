@@ -6,27 +6,65 @@
 them (right-aligned padding) with the kernels when `use_kernels`, then
 decodes until every request has its tokens.  A config with a modality
 frontend prefills with zero stub embeddings in its first `frontend_len`
-positions, as the reference does.  Meshes and cache shardings are not
-ported (ROADMAP Queue 1 item 16: LM sharding).
+positions, as the reference does.
+
+`Engine(mesh=)` serves over a device mesh (`launch.mesh`): the
+parameters are DTensors by `dist.sharding.param_shardings` (no fsdp when
+serving), each wave's rows go over the data axes, the decode cache is
+laid out by `cache_shardings` and written in place slot by slot, and
+prefill and decode run under `dist.sharding.use_mesh`.  Every rank runs
+the same requests and gets the tokens whole.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
+from repro_torch.dist import sharding
 from repro_torch.models import model as model_lib
 from repro_torch.serving import admission
 from repro_torch.serving.driver import ArrivalQueue, DriverStats, SlotTable
 
 
-def cache_shardings(*args, **kwargs):
-    raise NotImplementedError("cache shardings over a device mesh are not "
-                              "ported (ROADMAP Queue 1 item 16: LM "
-                              "sharding)")
+def cache_shardings(cache, cfg: ModelConfig, mesh) -> list:
+    """The decode cache's specs, leaf for leaf the reference's: the batch
+    over the dp axes ("pod", "data") that divide it (`long_500k` has
+    B = 1), and the last trailing dim (after the batch) that divides
+    "model" over it (head_dim, or the kv heads, or the state channels).
+    The port's cache is a list of per-layer tuples where the reference
+    stacks a homogeneous model's layers: a layer's spec is the stacked
+    leaf's with the layer entry dropped.  `mesh` may be a `DeviceMesh` or
+    a {name: size} mapping."""
+    sizes = sharding.axis_sizes(mesh)
+    model_ax = sizes.get("model", 1)
+    dp_axes = tuple(a for a in ("pod", "data") if a in sizes)
+    lead = 1 if model_lib._homogeneous(cfg) else 0   # the layer axis
+
+    def one(leaf) -> tuple:
+        shape = (1,) * lead + tuple(leaf.shape)
+        rank = len(shape)
+        spec: list = [None] * rank
+        if rank > lead:
+            ok, rem = [], shape[lead]
+            for a in dp_axes:
+                if rem % sizes[a] == 0 and sizes[a] > 1:
+                    ok.append(a)
+                    rem //= sizes[a]
+            spec[lead] = sharding.axes_entry(ok)
+        for ax in range(rank - 1, lead, -1):
+            if model_ax > 1 and shape[ax] % model_ax == 0 \
+                    and shape[ax] >= 2 * model_ax:
+                spec[ax] = "model"
+                break
+        return tuple(spec[lead:])
+
+    return [tuple(one(t) for t in entry) for entry in cache]
 
 
 def frontend_stub(cfg: ModelConfig, batch: int, device):
@@ -94,14 +132,19 @@ class Engine:
                  max_batch: Optional[int] = None,
                  bucket: Optional[str | float] = None,
                  bucket_min: int = 8, mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError("a device mesh is not ported "
-                                      "(ROADMAP Queue 1 item 16: LM "
-                                      "sharding)")
         self.device = resolve(device)
         if params.device.type != self.device.type:
             raise ValueError(f"params are on {params.device}, the engine "
                              f"runs on {self.device}")
+        if mesh is not None:
+            if mesh.device_type != self.device.type:
+                raise ValueError(f"the mesh is on {mesh.device_type}, the "
+                                 f"engine runs on {self.device}")
+            params = sharding.distribute_copy(
+                params, mesh, sharding.param_shardings(
+                    dict(params.named_parameters()), mesh,
+                    scanned=model_lib._homogeneous(cfg)))
+        self.mesh = mesh
         self.cfg, self.params = cfg, params
         self.max_seq = max_seq
         self.max_batch = max_batch
@@ -161,10 +204,33 @@ class Engine:
                                          growth=self._bucket_growth,
                                          min_size=self.bucket_min)
 
-    @torch.inference_mode()
+    def context(self):
+        """The mode the engine's steps run in: inference mode; under a
+        mesh, no_grad (DTensor views of parameters cannot be made in
+        inference mode) and the ambient mesh."""
+        if self.mesh is None:
+            return torch.inference_mode()
+        stack = contextlib.ExitStack()
+        stack.enter_context(torch.no_grad())
+        stack.enter_context(sharding.use_mesh(self.mesh))
+        return stack
+
     def _generate_wave(self, requests: list[Request],
                        temperature: float,
                        rung: Optional[int] = None) -> list[np.ndarray]:
+        with self.context():
+            return self._wave(requests, temperature, rung)
+
+    def _rows(self, t):
+        """A host-made batch tensor with its rows over the data axes (as
+        it is without a mesh)."""
+        if self.mesh is None or t is None:
+            return t
+        return sharding.to_dtensor(t, self.mesh, sharding.placements_for(
+            self.mesh, batch=t.shape[0]))
+
+    def _wave(self, requests: list[Request], temperature: float,
+              rung: Optional[int]) -> list[np.ndarray]:
         cfg = self.cfg
         B = len(requests)
         plen = rung if rung is not None else max(
@@ -179,12 +245,11 @@ class Engine:
 
         self._shapes.add(("prefill", B, plen))
         logits, cache = self._prefill(
-            self.params, torch.as_tensor(toks, dtype=torch.int64,
-                                         device=self.device),
-            frontend_stub(cfg, B, self.device))
+            self.params, self._rows(torch.as_tensor(
+                toks, dtype=torch.int64, device=self.device)),
+            self._rows(frontend_stub(cfg, B, self.device)))
         # re-home the prefill cache into a full-length f32 decode cache
-        full = model_lib.init_cache(cfg, B, total, torch.float32,
-                                    device=self.device)
+        full = self._decode_cache(B, total)
         cache = _splice_cache(cfg, full, cache, plen)
         out = [toks]
         cur = _sample(logits, temperature, self.generator)
@@ -195,13 +260,40 @@ class Engine:
             self._steps += 1
             self._occ_active += active
             self._occ_slots += B
-            out.append(cur.cpu().numpy().astype(np.int32))
+            out.append(sharding.full(cur).cpu().numpy().astype(np.int32))
             self._shapes.add(("decode", B, total))
             logits, cache = self._decode(self.params, cur, cache, t)
+            cache = self._at_rest(cache, full)
             cur = _sample(logits, temperature, self.generator)
         seq = np.concatenate(out, axis=1)
         return [seq[i, plen - len(r.prompt):plen + r.max_new_tokens]
                 for i, r in enumerate(requests)]
+
+    def _decode_cache(self, B: int, total: int) -> list:
+        """The empty f32 decode cache; under a mesh each rank allocates
+        its block of every leaf (`cache_shardings`)."""
+        if self.mesh is None:
+            return model_lib.init_cache(self.cfg, B, total, torch.float32,
+                                        device=self.device)
+        shapes = model_lib.init_cache(self.cfg, B, total, torch.float32,
+                                      device="meta")
+        specs = cache_shardings(shapes, self.cfg, self.mesh)
+        return [tuple(sharding.zeros(t.shape, t.dtype, self.device,
+                                     self.mesh,
+                                     sharding.placements(sp, self.mesh))
+                      for t, sp in zip(entry, spec))
+                for entry, spec in zip(shapes, specs)]
+
+    def _at_rest(self, cache: list, like: list) -> list:
+        """A decode step's cache back in the layout of `like` (under a
+        mesh the recurrent states come back from their per-row regions
+        replicated over "model"; the attention entries are written in
+        place and keep theirs)."""
+        if self.mesh is None:
+            return cache
+        return [tuple(sharding.relayout(t, self.mesh, d.placements)
+                      for t, d in zip(entry, ref))
+                for entry, ref in zip(cache, like)]
 
     def stats(self) -> DriverStats:
         """The VB driver's counters, LM flavour: slices = decode steps,
@@ -218,8 +310,10 @@ class Engine:
 
 
 def _sample(logits, temperature: float, generator: torch.Generator):
-    """(B, 1) next tokens: argmax, or argmax of logits / T + Gumbel noise."""
-    last = logits[:, -1, :]
+    """(B, 1) next tokens: argmax, or argmax of logits / T + Gumbel noise
+    (under a mesh a DTensor with the rows over the data axes; every rank
+    draws the same noise)."""
+    last = sharding.constrain_batch_dim(logits[:, -1, :])
     if temperature <= 0.0:
         return last.argmax(dim=-1, keepdim=True)
     tiny = torch.finfo(torch.float32).tiny
@@ -237,8 +331,20 @@ def _splice_cache(cfg: ModelConfig, full: list, prefill: list,
     for kind, dst, src in zip(cfg.layer_kinds(), full, prefill):
         if kind == "attn":
             for d, s in zip(dst, src):
+                if isinstance(d, DTensor):      # each rank its own block
+                    s = sharding.relayout(s, d.device_mesh, d.placements)
+                    d, s = d.to_local(), s.to_local()
                 d[:, :s.shape[1]] = s.to(d.dtype)
             out.append(dst)
         else:
-            out.append(tuple(s.to(d.dtype) for d, s in zip(dst, src)))
+            out.append(tuple(_relaid(s.to(d.dtype), d)
+                             for d, s in zip(dst, src)))
     return out
+
+
+def _relaid(t, like):
+    """`t` in the layout of `like` (a DTensor's placements; a tensor as
+    it is)."""
+    if isinstance(like, DTensor):
+        return sharding.relayout(t, like.device_mesh, like.placements)
+    return t

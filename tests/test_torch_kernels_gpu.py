@@ -31,6 +31,9 @@ launched on a row slice (a rank's block of nodes) bit-equal to the same
 rows of the whole launch, on each of the kernel's three paths.  The LM
 families: flash_attention at head_dim 256 (RecurrentGemma-2B's MQA), and
 one bf16 train step of the MoE and rec smoke configs against the CPU.
+The LM sharding: on a (1, 1) mesh over a one-rank NCCL group the bf16
+smoke configs' prefill logits bit-equal to no mesh (the kernels launched
+once a layer on their shards) and `Engine(mesh=)`'s tokens equal.
 """
 import json
 
@@ -818,6 +821,57 @@ def test_one_rank_nccl_executor_bit_equal(cuda):
             out = svc.run()
             phis.append([out[r].phi for r in rids])
         assert all(torch.equal(u, v) for u, v in zip(*phis))
+    finally:
+        if made:
+            dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ["yi_6b", "mamba2_370m", "recurrentgemma_2b",
+                                  "granite_moe_3b_a800m"])
+def test_one_rank_mesh_lm_bit_equal(cuda, arch):
+    """The LM sharding's DTensor path on a (1, 1) mesh over a one-rank
+    NCCL group, bf16 smoke configs with the kernels: the prefill logits
+    bit-equal to no mesh, each kernel launched once a layer on its
+    shard, and the greedy tokens of `Engine(mesh=)` equal."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.dist import sharding
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import model as lm_model
+    from repro_torch.serving import engine as lm_engine
+
+    made = not dist.is_initialized()
+    mesh = mesh_lib.make_test_mesh(1, 1, device=cuda)
+    try:
+        cfg = get_smoke_config(arch).replace(param_dtype="bfloat16",
+                                             compute_dtype="bfloat16")
+        lm = lm_model.init_params(cfg, torch.Generator(cuda).manual_seed(0),
+                                  device=cuda)
+        toks = torch.randint(0, cfg.vocab_size, (4, 64), device=cuda,
+                             generator=torch.Generator(cuda).manual_seed(1))
+        with torch.no_grad():
+            want = lm_model.forward(cfg, lm, toks, use_kernels=True)
+        dl = sharding.distribute_copy(lm, mesh, sharding.param_shardings(
+            dict(lm.named_parameters()), mesh,
+            scanned=lm_model._homogeneous(cfg)))
+        for fn in (ops.flash_attention, ops.ssd_scan):
+            fn.launches = 0
+        with torch.no_grad(), sharding.use_mesh(mesh):
+            got = lm_model.forward(cfg, dl, sharding.to_dtensor(
+                toks, mesh, sharding.placements_for(mesh, batch=4)),
+                use_kernels=True)
+        kinds = cfg.layer_kinds()
+        assert ops.flash_attention.launches == kinds.count("attn")
+        assert ops.ssd_scan.launches == kinds.count("ssm")
+        assert torch.equal(got["logits"].full_tensor(), want["logits"])
+        rng = np.random.default_rng(0)
+        reqs = [lm_engine.Request(rng.integers(0, cfg.vocab_size, 32)
+                                  .astype(np.int32), 8) for _ in range(4)]
+        outs = [lm_engine.Engine(cfg, lm, max_seq=48, use_kernels=True,
+                                 device=cuda, mesh=m).generate(reqs)
+                for m in (None, mesh)]
+        assert all(np.array_equal(a, b) for a, b in zip(*outs))
     finally:
         if made:
             dist.destroy_process_group()

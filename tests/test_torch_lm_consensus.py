@@ -4,7 +4,8 @@ in a subprocess (`("data",)`, the mesh its own
 `test_admm_adaptive_rho_is_dynamic_state` runs on; never the 2-D mesh of
 ROADMAP R2).  The f32 yi_6b smoke config, the reference's initial
 parameters carried to every rank, three steps on the same global batches
-(rank r takes rows 2r, 2r+1, as the reference's batch sharding does).
+on the port's (4, 1) ("data", "model") mesh (replica r takes rows 2r,
+2r+1, as the reference's batch sharding does).
 
 Bars: each replica's parameters at 1e-4 relative L2 error per tensor
 (tests/test_torch_lm_train.py's reason), the rho trajectory equal, the
@@ -71,18 +72,23 @@ np.savez(sys.argv[2], **out)
 
 PORT = r'''
 from repro_torch.configs.base import get_smoke_config
+from repro_torch.dist import sharding
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.optim import adamw
 from repro_torch.training import train_step as ts
 cfg = get_smoke_config("yi_6b")
+MESH = mesh_lib.make_test_mesh(WORLD, 1, device="cpu")
 init = {k[5:]: v for k, v in INPUTS.items() if k.startswith("init/")}
-rows = slice(RANK * BATCH // WORLD, (RANK + 1) * BATCH // WORLD)
 for name, mode, kw in CASES:
     hyper = eval(f"ts.TrainHyper(HYPER, {kw})")
     params = ts.train_state_from_arrays(cfg, init, device="cpu").params
-    state = ts.init_state(cfg, dp_mode=mode, hyper=hyper, params=params)
-    step = ts.make_train_step(cfg, EX, dp_mode=mode, hyper=hyper)
+    state = ts.init_state(cfg, dp_mode=mode, hyper=hyper, params=params,
+                          mesh=MESH, consensus_axis="data")
+    step = ts.make_train_step(cfg, MESH, dp_mode=mode,
+                              consensus_axis="data", hyper=hyper)
     for i in range(STEPS):
-        batch = ts.batch_to({"tokens": INPUTS[f"tokens{i}"]}, "cpu", rows)
+        # the global batch: the step takes the replica's rows
+        batch = ts.batch_to({"tokens": INPUTS[f"tokens{i}"]}, "cpu")
         state, m = step(state, batch)
         for k, v in m.items():
             put((f"rank/{name}/m{i}/{k}" if k == "consensus_residual"
@@ -91,7 +97,7 @@ for name, mode, kw in CASES:
             put(f"{name}/rho{i}", state.rho)
     assert state.step == STEPS
     for n, p in adamw.named(state.params).items():
-        put(f"rank/{name}/params/{n}", p)
+        put(f"rank/{name}/params/{n}", sharding.full(p))
 
 # admm_residual_norms gives admm_step's norms from the same iterates
 import torch
@@ -109,24 +115,25 @@ put("admm_step_norms", torch.stack(norms))
 put("residual_norms", torch.stack(consensus.admm_residual_norms(
     new, prev, EX, rho=torch.tensor(0.7))))
 
-# a consensus Trainer's checkpoint: the replicas gathered, rank 0 writes,
-# every rank restores its own replica
+# a consensus Trainer's checkpoint: the replicas gathered, the mesh's
+# first rank writes, every rank restores its own replica
 from repro_torch.training.trainer import Trainer
 kw = dict(dp_mode="admm", global_batch=8, seq_len=16, device="cpu",
           ckpt_dir=os.path.join(os.path.dirname(os.environ["MESH_OUT"]),
                                 "ckpt"))
-a = Trainer(cfg, EX, **kw)
+a = Trainer(cfg, MESH, **kw)
 a.run(2, log_every=1)
 path = a.save(2)
 assert (path is not None) == (RANK == 0)
-b = Trainer(cfg, EX, seed=1, **kw)
+b = Trainer(cfg, MESH, seed=1, **kw)
 b.restore(2)
 assert b.state.step == 2 and float(b.state.rho) == float(a.state.rho)
-same = all(torch.equal(x, y) for x, y in zip(a.state.params.parameters(),
-                                             b.state.params.parameters()))
-same &= all(torch.equal(a.state.duals[k], b.state.duals[k])
+full = sharding.full
+same = all(torch.equal(full(x), full(y)) for x, y in zip(
+    a.state.params.parameters(), b.state.params.parameters()))
+same &= all(torch.equal(full(a.state.duals[k]), full(b.state.duals[k]))
             for k in a.state.duals)
-same &= all(torch.equal(a.state.opt.nu[k], b.state.opt.nu[k])
+same &= all(torch.equal(full(a.state.opt.nu[k]), full(b.state.opt.nu[k]))
             for k in a.state.opt.nu)
 put("restored_equal", same)
 '''.replace("CASES", CASES_SRC).replace("HYPER", HYPER).replace(

@@ -270,8 +270,9 @@ def test_param_count(arch):
 
 def test_unported_configs_raise():
     """The rec, MoE and frontend configs build since their families were
-    ported (tests/test_torch_lm_families.py holds them against JAX); what
-    still raises naming item 16 is the LM sharding."""
+    ported (tests/test_torch_lm_families.py holds them against JAX), and
+    the LM sharding (ROADMAP Queue 1 item 16), which raised, gives specs:
+    on a one-rank layout every dim is replicated."""
     from repro_torch.serving import engine
     from repro_torch.training import train_step
     for arch in ("recurrentgemma_2b", "granite_moe_3b_a800m", "qwen2_vl_2b",
@@ -282,7 +283,12 @@ def test_unported_configs_raise():
         # scales are not in the formula)
         actual = sum(p.numel() for p in lm.parameters())
         assert abs(actual - tmodel.param_count(cfg)) / actual < 0.01
-    for fn in (train_step.state_shardings, train_step.batch_sharding,
-               engine.cache_shardings):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            fn()
+        one = {"data": 1, "model": 1}
+        state = train_step.init_state(cfg, device="cpu", params=lm)
+        specs = train_step.state_shardings(state, cfg, one,
+                                           dp_mode="allreduce")
+        cache = tmodel.init_cache(cfg, 2, 8, device="meta")
+        for spec in list(specs.params.values()) + [
+                sp for entry in engine.cache_shardings(cache, cfg, one)
+                for sp in entry]:
+            assert set(spec) <= {None}, (arch, spec)

@@ -8,6 +8,7 @@ one wave, in `max_batch=2` waves and with pow2 prompt bucketing, and
 import os
 import subprocess
 import sys
+import types
 
 import jax
 import numpy as np
@@ -83,11 +84,14 @@ def test_temperature_sampling_is_seeded(pair):
 
 
 def test_unported_engine_options_raise(pair):
+    """Every engine option is ported (the mesh since ROADMAP Queue 1 item
+    16; tests/test_torch_lm_sharding_mesh.py runs it): a mesh on another
+    device than the engine's raises, nothing falls back."""
     cfg, tcfg, params, tlm = pair
-    with pytest.raises(NotImplementedError, match="item 16"):
-        engine.Engine(tcfg, tlm, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        engine.cache_shardings([], tcfg, None)
+    with pytest.raises(ValueError, match="the mesh is on cuda"):
+        engine.Engine(tcfg, tlm, mesh=types.SimpleNamespace(
+            device_type="cuda"), device="cpu")
+    assert engine.cache_shardings([], tcfg, {"data": 1, "model": 1}) == []
 
 
 def test_launch_serve_cpu():

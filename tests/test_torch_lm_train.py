@@ -250,11 +250,17 @@ def test_use_kernels_with_gradients_raises():
 
 
 def test_sharding_is_the_next_item():
+    """The LM sharding (ROADMAP Queue 1 item 16) is ported: the state's
+    specs on a one-rank layout replicate everything, and a consensus mode
+    needs a device mesh."""
     cfg = tbase.get_smoke_config("yi_6b")
-    for fn in (ts.state_shardings, ts.batch_sharding):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            fn(None, cfg)
-    with pytest.raises(ValueError, match="mesh executor"):
+    state = ts.init_state(cfg, dp_mode="admm", device="cpu")
+    spec = ts.state_shardings(state, cfg, {"data": 1, "model": 1},
+                              dp_mode="admm", consensus_axis="data")
+    assert spec.params.keys() == spec.duals.keys() == spec.opt.mu.keys()
+    assert all(set(sp) <= {None} for sp in spec.params.values())
+    assert spec.step == spec.rho == spec.opt.count == ()
+    with pytest.raises(ValueError, match="device mesh"):
         ts.make_train_step(cfg, dp_mode="admm")
 
 
@@ -346,9 +352,10 @@ def test_launch_train_cpu():
     assert [ln.split()[:2] for ln in lines] == [["step", str(i)]
                                                 for i in (1, 2, 3)]
     assert "resid" in lines[0]
+    # a mesh whose size is not the number of ranks raises
     for flags in (["--model_axis", "2"], ["--host_devices", "4"]):
         bad = subprocess.run(
             [sys.executable, "-m", "repro_torch.launch.train", "--arch",
              "yi_6b", "--smoke", "--device", "cpu", *flags],
             env=env, cwd=REPO, capture_output=True, text=True, timeout=300)
-        assert bad.returncode != 0 and "item 16" in bad.stderr
+        assert bad.returncode != 0 and "must equal" in bad.stderr
