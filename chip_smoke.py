@@ -205,6 +205,20 @@ never JAX or the JAX package, and prints one JSON line per phase:
    bit-equal to the unsharded Trainer's, ms a step of both; then a
    save/restore round trip of a mesh Trainer in both modes, on the bf16
    smoke config: the whole model's compressed file takes minutes);
+11. launch_dryrun (after lm_mesh_serve_yi_6b) — the allocation-free dry
+   run (`launch.dryrun`, in a worker process started with the script,
+   each case as rank 0 of a fake world of 256 or 512 ranks on a
+   card-typed mesh): launch_dryrun_case lines for Yi-6B train_4k on
+   (16, 16) in allreduce and ADMM, Yi-6B and Mamba-2 370M prefill_32k on
+   (16, 16) with the kernels, Grok-1 314B train_4k on (2, 16, 16) (Tc,
+   Tm, Tcoll against H100 peaks, the bottleneck, useful FLOPs, argument
+   and temp GiB a card, collective counts); then Yi-6B's prefill at
+   lm_mesh_serve's shape on a fake (1, 1) world against the real
+   `Engine(mesh=)` prefill: parameter bytes equal, FLOPs equal to the
+   same counting mode over the real prefill, the kernels' op counts
+   equal to its launches, no card memory allocated by the dry run; the
+   measured prefill ms against max(Tc, Tm) and the predicted temp bytes
+   against the prefill's peak memory;
 
 then the kernels line, the card's name and power limit and, last,
 {"ok": true, "device": {...}}.  Each path runs with every launch count set
@@ -247,6 +261,7 @@ from repro_torch.experiments import paper_figures, streaming  # noqa: E402
 from repro_torch.experiments import topology_scale  # noqa: E402
 from repro_torch.kernels import build, gmm_estep, ops  # noqa: E402
 from repro_torch.kernels import flash_attention, ssd_scan  # noqa: E402
+from repro_torch.launch import hlo_analysis  # noqa: E402
 from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.models import hmm, mamba2, ppca  # noqa: E402
 from repro_torch.models import model as lm_model  # noqa: E402
@@ -255,13 +270,14 @@ from repro_torch.serving import vb_service  # noqa: E402
 from repro_torch.training import train_step  # noqa: E402
 from repro_torch.training.trainer import Trainer  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, f32 outside the
-# tensor cores, bf16 on the tensor cores (dense), f64 on the tensor cores
-# (DMMA, the wide gmm_estep path's log rho and statistics)
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOP_PER_S = 67e12
-PEAK_BF16_FLOP_PER_S = 989e12
-PEAK_F64_TC_FLOP_PER_S = 67e12
+# H100 SXM peaks (NVIDIA data sheet; one source, launch.hlo_analysis): HBM
+# bandwidth, f32 outside the tensor cores, bf16 on the tensor cores
+# (dense), f64 on the tensor cores (DMMA, the wide gmm_estep path's log
+# rho and statistics)
+PEAK_BYTES_PER_S = hlo_analysis.HBM_BW
+PEAK_F32_FLOP_PER_S = hlo_analysis.PEAK_F32_FLOPS
+PEAK_BF16_FLOP_PER_S = hlo_analysis.PEAK_FLOPS
+PEAK_F64_TC_FLOP_PER_S = hlo_analysis.PEAK_F64_TC_FLOPS
 
 KERNELS = ("gmm_estep", "flash_attention", "ssd_scan")
 
@@ -2808,36 +2824,30 @@ PR12_FLASH_MS = 9.156639862060548
 PR12_SSD_MS = 3.5714752197265627
 
 
-def _flash_bound(B, S, Hq, Hkv, hd, window, elem):
-    """(bound ms, by, flops, bytes) of one flash launch: the keys each
-    query row reaches (causal, within the window), 4 hd flops per (row,
-    key) (QK^T and PV); q, k, v read once, o written once."""
-    i = np.arange(S)
-    lo = np.maximum(0, i - window + 1) if window else np.zeros_like(i)
-    flops = 4 * B * Hq * hd * int((i - lo + 1).sum())
-    n_bytes = elem * (2 * B * S * Hq * hd + 2 * B * S * Hkv * hd)
+def _bound(flops, n_bytes, elem):
+    """(bound ms, by): the larger of the bytes over HBM's rate and the
+    operations over the peak for their type (bf16 on the tensor cores,
+    f32 outside them)."""
     peak = PEAK_BF16_FLOP_PER_S if elem == 2 else PEAK_F32_FLOP_PER_S
     bound = {"bytes": n_bytes / PEAK_BYTES_PER_S * 1e3,
              "operations": flops / peak * 1e3}
     by = max(bound, key=bound.get)
-    return bound[by], by, flops, n_bytes
+    return bound[by], by
+
+
+def _flash_bound(B, S, Hq, Hkv, hd, window, elem):
+    """(bound ms, by, flops, bytes) of one flash launch: the kernel
+    module's count (`flash_attention.op_count`, its FLOP formula too)."""
+    flops, n_bytes = flash_attention.op_count(B, S, Hq, Hkv, hd, window,
+                                              elem)
+    return (*_bound(flops, n_bytes, elem), flops, n_bytes)
 
 
 def _ssd_bound(B, S, H, P, N, elem):
-    """(bound ms, by, flops, bytes) of one ssd_scan launch at the kernel's
-    own chunk L: per chunk and head, the causal half of C B^T (N each) and
-    of the intra product (P each), C state and B^T x (N P each); x, Bm,
-    Cm, dt, A read once, y and the final f32 state written once."""
-    L = ssd_scan.KERNEL_CHUNK
-    tri = L * (L + 1) // 2
-    flops = B * H * (-(-S // L)) * 2 * (tri * N + tri * P + 2 * L * N * P)
-    n_bytes = (elem * (2 * B * S * H * P + 2 * B * S * N) + 4 * B * S * H
-               + 4 * H + 4 * B * H * P * N)
-    peak = PEAK_BF16_FLOP_PER_S if elem == 2 else PEAK_F32_FLOP_PER_S
-    bound = {"bytes": n_bytes / PEAK_BYTES_PER_S * 1e3,
-             "operations": flops / peak * 1e3}
-    by = max(bound, key=bound.get)
-    return bound[by], by, flops, n_bytes
+    """(bound ms, by, flops, bytes) of one ssd_scan launch: the kernel
+    module's count (`ssd_scan.op_count`, its FLOP formula too)."""
+    flops, n_bytes = ssd_scan.op_count(B, S, H, P, N, elem)
+    return (*_bound(flops, n_bytes, elem), flops, n_bytes)
 
 
 def _sdpa(q, k, v, window=0):
@@ -3406,19 +3416,23 @@ def _engine_steps(eng, toks) -> dict:
     `eng`'s own step functions and layout (host clock, synchronised; each
     decode step ends in the host read of its token): prefill ms, ms a
     decode step, the prefill's last-position logits (whole), and the
-    kernel launches of the prefill alone."""
+    kernel launches and peak device memory (above what was allocated
+    before it) of the prefill alone."""
     cfg, B = eng.cfg, toks.shape[0]
     end = LM_PROMPT + LM_NEW
     with eng.context():
         rows = eng._rows(toks)
         frontend = eng._rows(engine.frontend_stub(cfg, B, toks.device))
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
         zero_launches()
         t0 = time.perf_counter()
         logits, cache = eng._prefill(eng.params, rows, frontend)
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t0) * 1e3
         launches = read_launches()
+        prefill_peak = torch.cuda.max_memory_allocated() - before
         # a copy: a view would hold the whole (B, S, V) logits alive
         last = sharding.full(logits)[:, -1].float().clone()
         full = eng._decode_cache(B, end)
@@ -3435,16 +3449,33 @@ def _engine_steps(eng, toks) -> dict:
         decode_ms = (time.perf_counter() - t0) * 1e3 / LM_NEW
         del cache, full
     return {"prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
-            "launches_per_prefill": launches, "last_logits": last}
+            "launches_per_prefill": launches,
+            "prefill_peak_bytes": prefill_peak, "last_logits": last}
 
 
-def phase_lm_mesh_serve(arch: str, dev, mesh) -> dict:
+def _counted_prefill(eng, toks) -> dict:
+    """The mesh engine's prefill of `toks` once more, under the dry
+    run's counting mode (`hlo_analysis.count`): its FLOPs, the kernels'
+    op calls, the parameters' local bytes."""
+    with eng.context():
+        c = hlo_analysis.count(
+            lambda params, tokens: eng._prefill(params, tokens, None),
+            {"params": eng.params, "tokens": eng._rows(toks)})
+        torch.cuda.synchronize()
+    return {"flops": c.flops, "kernel_calls": c.kernel_calls,
+            "param_bytes": hlo_analysis.local_bytes(eng.params),
+            "temp_bytes": c.temp_bytes}
+
+
+def phase_lm_mesh_serve(arch: str, dev, mesh, count_prefill=False) -> dict:
     """`Engine(mesh=)` on a published config at full width and depth
     (bf16, the kernels) against the unsharded `Engine` on the same
     parameters: the greedy tokens equal, the last prefill logits
     bit-equal, one kernel launch a layer in each prefill (on the rank's
     local shards under the mesh), and each engine's generate window
-    (launches, s, peak memory), prefill ms and ms a decode step."""
+    (launches, s, peak memory), prefill ms and ms a decode step.  With
+    `count_prefill`, the mesh engine's prefill counted as the dry run
+    counts (`_counted_prefill`, for `launch_dryrun`)."""
     cfg = get_config(arch)
     lm = lm_model.init_params(cfg, torch.Generator(dev).manual_seed(0),
                               device=dev)
@@ -3482,6 +3513,8 @@ def phase_lm_mesh_serve(arch: str, dev, mesh) -> dict:
         out[name] = {"launches": launches, "generate_s": gen_s,
                      "generate_tokens_per_s": LM_BATCH * LM_NEW / gen_s,
                      "max_memory_allocated_gb": peak / 1e9, **steps}
+        if count_prefill and m is not None:
+            out[name]["counted"] = _counted_prefill(eng, toks)
         del eng
         torch.cuda.empty_cache()
     out["tokens_equal"] = all(np.array_equal(a, b) for a, b in
@@ -3807,18 +3840,154 @@ def phase_mesh_sparse(inst, gd, ex, dev) -> dict:
     return {"launches": launches["gmm_estep_nodes"]}
 
 
+# ---------------------------------------------------------------------------
+# 11. the allocation-free dry run of the production meshes (launch.dryrun)
+# ---------------------------------------------------------------------------
+# (arch, shape, multi_pod, dp_mode, use_kernels) at published width
+DRYRUN_CASES = (("yi_6b", "train_4k", False, "allreduce", False),
+                ("yi_6b", "train_4k", False, "admm", False),
+                ("yi_6b", "prefill_32k", False, "allreduce", True),
+                ("mamba2_370m", "prefill_32k", False, "allreduce", True),
+                ("grok_1_314b", "train_4k", True, "allreduce", False))
+# the dry run's worker: a process of its own, since its fake world of 256
+# or 512 ranks is a default process group (as the reference's dry run
+# sets its device count in a process of its own).  It prints one JSON
+# line a production case, then Yi-6B's prefill at lm_mesh_serve's shape
+# on a fake (1, 1) world with the kernels, then its seconds and the
+# card's memory it allocated (none: the tensors are on meta)
+_DRYRUN_WORKER = r"""
+import json, sys, time
+import torch
+from repro_torch.configs.base import ShapeConfig, get_config
+from repro_torch.launch import dryrun, hlo_analysis, specs
+from repro_torch.launch.mesh import make_test_mesh
+from repro_torch.models.model import param_count
+t0 = time.perf_counter()
+torch.set_num_threads(1)
+cases, (batch, prompt) = json.loads(sys.argv[1]), json.loads(sys.argv[2])
+for arch, shape, multi_pod, dp_mode, kern in cases:
+    with dryrun.fake_world(512 if multi_pod else 256):
+        rep = dryrun.run_one(arch, shape, multi_pod=multi_pod,
+                             dp_mode=dp_mode, use_kernels=kern,
+                             verbose=False)
+    print(json.dumps({"case": rep}), flush=True)
+with dryrun.fake_world(1):
+    mesh = make_test_mesh(1, 1, device=dryrun.mesh_device())
+    cfg = get_config("yi_6b")
+    fn, inputs = specs.build_step(
+        cfg, ShapeConfig("lm_mesh_serve", prompt, batch, "prefill"), mesh,
+        use_kernels=True)
+    c = hlo_analysis.count(fn, inputs)
+    mf = 2.0 * param_count(cfg, active_only=True) * batch * prompt
+    print(json.dumps({"mesh11": {
+        **hlo_analysis.roofline(c, 1, mf).as_dict(),
+        "kernel_calls": c.kernel_calls, "temp_bytes": c.temp_bytes,
+        "param_bytes": hlo_analysis.local_bytes(inputs["params"]),
+        "mesh_device": mesh.device_type, "count_s": c.seconds}}),
+        flush=True)
+print(json.dumps({"done": {
+    "seconds": time.perf_counter() - t0,
+    "cuda_allocated": (torch.cuda.memory_allocated()
+                       if torch.cuda.is_available() else 0)}}), flush=True)
+"""
+# the (1, 1) dry run's FLOPs against the model's 2 N_active tokens: the
+# matmuls plus the attention (~4% at 2048 tokens) and no embedding
+# lookup; outside this range the counting mode missed ops or counted an
+# op twice on both sides (which the equality alone cannot show)
+DRYRUN_FLOPS_VS_MODEL = (0.9, 1.3)
+DRYRUN_TIMEOUT_S = 300
+
+
+def start_dryrun():
+    """The dry run's worker (`_DRYRUN_WORKER`), started early so that
+    its host time overlaps the card's phases; its stdout is read by
+    `phase_launch_dryrun`."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
+               OMP_NUM_THREADS="1")
+    cases = json.dumps([list(c) for c in DRYRUN_CASES])
+    return subprocess.Popen(
+        [sys.executable, "-c", _DRYRUN_WORKER, cases,
+         json.dumps([LM_BATCH, LM_PROMPT])], stdout=subprocess.PIPE,
+        text=True, env=env)
+
+
+def phase_launch_dryrun(worker, real: dict) -> None:
+    """The production cases' per-card rooflines (H100 peaks), and Yi-6B's
+    prefill at lm_mesh_serve's shape dry-run on a (1, 1) mesh against the
+    real `Engine(mesh=mesh11)` run (`real`, phase_lm_mesh_serve's "mesh"
+    entry): parameter bytes equal, FLOPs equal to the same counting mode
+    over the real prefill, the kernels' op counts equal to its launches;
+    the measured prefill ms against max(Tc, Tm) and the predicted temp
+    bytes against the prefill's peak memory (written down, not gated).
+    A dry run that raises fails the worker, and this phase."""
+    try:
+        out, _ = worker.communicate(timeout=DRYRUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        worker.kill()
+        worker.wait()
+        raise
+    if worker.returncode != 0:
+        raise RuntimeError(f"the dry-run worker failed: rc "
+                           f"{worker.returncode}")
+    lines = [json.loads(line) for line in out.splitlines()
+             if line.startswith("{")]
+    cases = [d["case"] for d in lines if "case" in d]
+    m11 = next(d["mesh11"] for d in lines if "mesh11" in d)
+    done = next(d["done"] for d in lines if "done" in d)
+    for rep in cases:
+        mem = rep["memory_analysis"]
+        emit("launch_dryrun_case", **{k: rep[k] for k in (
+            "arch", "shape", "mesh", "mesh_device", "dp_mode",
+            "use_kernels", "t_compute_s", "t_memory_s", "t_collective_s",
+            "bottleneck", "useful_flops_ratio", "coll_counts",
+            "kernel_calls", "compile_s")},
+            argument_gib=mem["argument_size_in_bytes"] / 2**30,
+            temp_gib=mem["temp_size_in_bytes"] / 2**30)
+    counted = real["counted"]
+    want_calls = {k: v for k, v in real["launches_per_prefill"].items()
+                  if v}
+    roof_ms = max(m11["t_compute_s"], m11["t_memory_s"]) * 1e3
+    ratio = m11["flops"] / m11["model_flops"]
+    checks = {
+        "param_bytes_equal": m11["param_bytes"] == counted["param_bytes"],
+        "flops_equal": m11["flops"] == counted["flops"],
+        "kernel_calls_equal_launches": (m11["kernel_calls"] == want_calls
+                                        == counted["kernel_calls"]),
+        "flops_vs_model_in_range": (DRYRUN_FLOPS_VS_MODEL[0] <= ratio
+                                    <= DRYRUN_FLOPS_VS_MODEL[1]),
+        "five_cases": len(cases) == len(DRYRUN_CASES),
+        "no_card_memory": done["cuda_allocated"] == 0}
+    emit("launch_dryrun", **checks, mesh_device=m11["mesh_device"],
+         dry_flops=m11["flops"], real_counted_flops=counted["flops"],
+         flops_over_model=ratio, dry_param_bytes=m11["param_bytes"],
+         real_param_bytes=counted["param_bytes"],
+         dry_kernel_calls=m11["kernel_calls"], real_launches=want_calls,
+         t_compute_ms=m11["t_compute_s"] * 1e3,
+         t_memory_ms=m11["t_memory_s"] * 1e3,
+         roofline_ms=roof_ms, measured_prefill_ms=real["prefill_ms"],
+         roofline_share=roof_ms / real["prefill_ms"],
+         predicted_temp_bytes=m11["temp_bytes"],
+         real_counted_temp_bytes=counted["temp_bytes"],
+         prefill_peak_bytes=real["prefill_peak_bytes"],
+         worker_seconds=done["seconds"], count_s=m11["count_s"])
+    if not all(checks.values()):
+        raise AssertionError(f"launch_dryrun: {checks}")
+
+
 def main():
     dev_info = phase_device()
     worker = start_sparse_data()
+    dry = start_dryrun()
     try:
-        run(dev_info, worker)
+        run(dev_info, worker, dry)
     finally:
-        if worker.poll() is None:            # a phase before it failed
-            worker.kill()
-            worker.wait()
+        for w in (worker, dry):
+            if w.poll() is None:            # a phase before it failed
+                w.kill()
+                w.wait()
 
 
-def run(dev_info, worker):
+def run(dev_info, worker, dry):
     ptxas = phase_build()
     dev = torch.device("cuda")
     t0 = time.perf_counter()
@@ -3880,9 +4049,12 @@ def run(dev_info, worker):
     mesh11 = mesh_lib.make_test_mesh(1, 1, device=dev)
     ssd_launches = mb["launches"]["ssd_scan"]
     for arch in ("yi_6b", "mamba2_370m"):
-        ms = phase_lm_mesh_serve(arch, dev, mesh11)["mesh"]["launches"]
-        flash_launches += ms["flash_attention"]
-        ssd_launches += ms["ssd_scan"]
+        served = phase_lm_mesh_serve(arch, dev, mesh11,
+                                     count_prefill=arch == "yi_6b")["mesh"]
+        flash_launches += served["launches"]["flash_attention"]
+        ssd_launches += served["launches"]["ssd_scan"]
+        if arch == "yi_6b":
+            phase_launch_dryrun(dry, served)
     phase_lm_train_yi_6b(dev)
     data1 = mesh_lib.data_mesh(device=dev)
     phase_lm_train_mamba2_370m(dev, data1)

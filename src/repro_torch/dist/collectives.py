@@ -19,6 +19,14 @@ the collectives are issued in the same order on every rank.
   `batch_isend_irecv`; a rank that is its own peer (a one-rank group)
   copies locally, since NCCL has no send to self.
 
+On meta tensors (the allocation-free dry run, `launch.dryrun`) `psum`
+and `ppermute` make no c10d call: they return the result's shape and
+dtype through the custom ops `repro_torch::meta_all_reduce` and
+`repro_torch::meta_collective_permute`, whose only result is their meta
+shape rule (a real tensor raises), so a dispatch mode (`launch.hlo_analysis`) sees each collective
+as one op with its result bytes.  Nothing changes for CPU or CUDA
+tensors.
+
 `axis_executor(mesh, axis)` is the executor over one axis of a
 `torch.distributed.device_mesh.DeviceMesh` (the LM mesh's consensus
 axis).
@@ -119,9 +127,34 @@ def all_gather(x: torch.Tensor, ex: MeshExecutor,
     return out.movedim(0, dim).reshape(shape)
 
 
+@torch.library.custom_op("repro_torch::meta_all_reduce", mutates_args=())
+def _meta_all_reduce(x: torch.Tensor) -> torch.Tensor:
+    """`psum`'s meta path: its result's shape and dtype (`register_fake`
+    below), no c10d call.  A real tensor never takes it."""
+    raise NotImplementedError("meta_all_reduce is psum's path on meta")
+
+
+@torch.library.custom_op("repro_torch::meta_collective_permute",
+                         mutates_args=())
+def _meta_collective_permute(x: torch.Tensor) -> torch.Tensor:
+    """`ppermute`'s meta path: its result's shape and dtype
+    (`register_fake` below), no c10d call.  A real tensor never takes
+    it."""
+    raise NotImplementedError("meta_collective_permute is ppermute's path "
+                              "on meta")
+
+
+@_meta_all_reduce.register_fake
+@_meta_collective_permute.register_fake
+def _meta_result(x):
+    return torch.empty(x.shape, dtype=x.dtype, device=x.device)
+
+
 def psum(x: torch.Tensor, ex: MeshExecutor) -> torch.Tensor:
     """The sum of every rank's `x` (a new tensor)."""
     _require_group(ex)
+    if x.is_meta:
+        return _meta_all_reduce(x)
     out = x.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=ex.group)
     return out
@@ -141,6 +174,8 @@ def ppermute(x: torch.Tensor, ex: MeshExecutor, perm) -> torch.Tensor:
     src = [s for s, d in perm if d == rank]
     if dst == [rank] and src == [rank]:
         return x.clone(memory_format=torch.contiguous_format)
+    if x.is_meta:
+        return _meta_collective_permute(x)
     x = x.contiguous()
     out = torch.zeros_like(x)
     ops = [dist.P2POp(dist.isend, x, _peer(ex, d), ex.group) for d in dst]

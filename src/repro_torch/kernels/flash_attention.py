@@ -9,11 +9,16 @@ CUDA-core kernel; their designs and bound are in the source's header
 note.  The kernels read kv head `hq // (Hq / Hkv)` for query head `hq`:
 the GQA repeat is an index, never a copy.
 
-`flash_attention` is the wrapper: it validates the inputs, then launches
-the kernel for CUDA tensors and runs the plain PyTorch version
-(`flash_attention_plain`, materialised f32 logits) for CPU tensors.
-Nothing falls back: a CUDA tensor launches the kernel or raises.
-`flash_attention.launches` counts the kernel launches.
+`flash_attention` is the wrapper: it validates the inputs, then calls
+the custom op `repro_torch::flash_attention` (`flash_attention_op`),
+which launches the kernel for CUDA tensors, runs the plain PyTorch
+version (`flash_attention_plain`, materialised f32 logits) for CPU
+tensors and gives meta tensors the output's shape (the dry run,
+`launch.dryrun`).  Nothing falls back: a CUDA tensor launches the kernel
+or raises.  `flash_attention.launches` counts the kernel launches (real
+ones only).  `op_count` is the launch's operation and byte count: the
+op's FLOP formula (`torch.utils.flop_counter`) and `chip_smoke.py`'s
+bound.
 
 Contracts, shared by the kernel and the plain version:
 * f32 or bf16 in and out (q, k, v one dtype); logits, softmax and the
@@ -28,7 +33,9 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 #: head dims the kernel is instantiated for (tests/test_kernels.py's sweep,
 #: Yi-6B's 128 and RecurrentGemma-2B's 256)
@@ -111,14 +118,33 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """q (B, S, Hq, hd), k/v (B, S, Hkv, hd) -> (B, S, Hq, hd), logits
     scaled by 1/sqrt(hd).
 
-    CUDA tensors launch the kernel; CPU tensors run the plain version.
+    CUDA tensors launch the kernel; CPU tensors run the plain version;
+    meta tensors get the output's shape (`flash_attention_op`).
     """
     _check(q, k, v, window)
+    return flash_attention_op(q, k, v, causal, int(window))
+
+
+flash_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The launch as a custom op: a kernel a device
+# ---------------------------------------------------------------------------
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cpu")
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool, window: int) -> torch.Tensor:
+    """The wrapper's launch (validated inputs): the plain version on the
+    CPU, the kernel on the card (`_launch`), the output's shape on meta
+    (`_fake`).  A dispatch mode sees the call as one op
+    (`launch.hlo_analysis` counts it with `op_count`'s formula)."""
+    return flash_attention_plain(q, k, v, causal=causal, window=window)
+
+
+@flash_attention_op.register_kernel("cuda")
+def _launch(q, k, v, causal, window):
     B, S, Hq, hd = q.shape
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash_attention kernel for device {q.device}")
     out = torch.empty_like(q)
     if B * S:
         err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -133,7 +159,29 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     return out
 
 
-flash_attention.launches = 0
+@flash_attention_op.register_fake
+def _fake(q, k, v, causal, window):
+    return torch.empty_like(q)
+
+
+def op_count(B, S, Hq, Hkv, hd, window=0, elem=2, causal=True) -> tuple:
+    """(flops, bytes) of one launch: 4 hd flops per (query row, key it
+    reaches) (QK^T and PV; a causal row reaches the keys up to itself,
+    within the window), q, k, v read once and o written once at `elem`
+    bytes an element."""
+    i = np.arange(S)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros_like(i)
+    hi = i + 1 if causal else np.full_like(i, S)
+    flops = 4 * B * Hq * hd * int((hi - lo).sum())
+    n_bytes = elem * (2 * B * S * Hq * hd + 2 * B * S * Hkv * hd)
+    return flops, n_bytes
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flops(q_shape, k_shape, v_shape, causal, window, *, out_shape=None,
+           **kwargs) -> int:
+    B, S, Hq, hd = q_shape
+    return op_count(B, S, Hq, k_shape[2], hd, window, causal=causal)[0]
 
 
 # ---------------------------------------------------------------------------

@@ -12,12 +12,16 @@ passing and chunk scan, through an f32 scratch of per-chunk states that
 the wrapper allocates; their design and bound are in the source's header
 note.
 
-`ssd_scan` is the wrapper: it validates the inputs, then launches the
-kernel for CUDA tensors and runs the plain PyTorch version
+`ssd_scan` is the wrapper: it validates the inputs, then calls the
+custom op `repro_torch::ssd_scan` (`ssd_scan_op`), which launches the
+kernels for CUDA tensors, runs the plain PyTorch version
 (`ssd_scan_plain`, the chunked algorithm of `models.mamba2.ssd_chunked`)
-for CPU tensors.  Nothing falls back: a CUDA tensor launches the kernel or
-raises.  `ssd_scan.launches` counts the wrapper's launches of the
-kernels (one per call, the three passes together).
+for CPU tensors and gives meta tensors the outputs' shapes (the dry run,
+`launch.dryrun`).  Nothing falls back: a CUDA tensor launches the kernel
+or raises.  `ssd_scan.launches` counts the wrapper's launches of the
+kernels (one per call, the three passes together; real ones only).
+`op_count` is the launch's operation and byte count: the op's FLOP
+formula (`torch.utils.flop_counter`) and `chip_smoke.py`'s bound.
 
 Contracts, shared by the kernel and the plain version:
 * x (and y) f32 or bf16, Bm/Cm in x's dtype, dt and A f32; everything is
@@ -35,6 +39,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 #: the CUDA kernel's internal chunk (kL in the source)
 KERNEL_CHUNK = 64
@@ -117,13 +122,33 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 128):
     """x (B,S,H,P), dt (B,S,H), A (H,), Bm/Cm (B,S,N) -> (y (B,S,H,P),
     final_state (B,H,P,N) f32).
 
-    CUDA tensors launch the kernel; CPU tensors run the plain version.
+    CUDA tensors launch the kernel; CPU tensors run the plain version;
+    meta tensors get the outputs' shapes (`ssd_scan_op`).
     """
     _check(x, dt, A, Bm, Cm, chunk)
-    if x.device.type == "cpu":
-        return ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)
-    if x.device.type != "cuda":
-        raise ValueError(f"no ssd_scan kernel for device {x.device}")
+    return ssd_scan_op(x, dt, A, Bm, Cm, int(chunk))
+
+
+ssd_scan.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The launch as a custom op: a kernel a device
+# ---------------------------------------------------------------------------
+@torch.library.custom_op("repro_torch::ssd_scan", mutates_args=(),
+                         device_types="cpu")
+def ssd_scan_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                Bm: torch.Tensor, Cm: torch.Tensor,
+                chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The wrapper's launch (validated inputs): the plain version on the
+    CPU, the kernels on the card (`_launch`), the outputs' shapes on meta
+    (`_fake`).  A dispatch mode sees the call as one op
+    (`launch.hlo_analysis` counts it with `op_count`'s formula)."""
+    return ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)
+
+
+@ssd_scan_op.register_kernel("cuda")
+def _launch(x, dt, A, Bm, Cm, chunk):
     B, S, H, P = x.shape
     N = Bm.shape[-1]
     nc = -(-S // KERNEL_CHUNK)
@@ -143,7 +168,32 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 128):
     return y, h
 
 
-ssd_scan.launches = 0
+@ssd_scan_op.register_fake
+def _fake(x, dt, A, Bm, Cm, chunk):
+    B, S, H, P = x.shape
+    return (torch.empty_like(x),
+            x.new_empty((B, H, P, Bm.shape[-1]), dtype=torch.float32))
+
+
+def op_count(B, S, H, P, N, elem=2) -> tuple:
+    """(flops, bytes) of one launch at the kernel's own chunk L: per
+    chunk and head, the causal half of C B^T (N each) and of the intra
+    product (P each), C state and B^T x (N P each); x, Bm, Cm (`elem`
+    bytes an element), dt and A (f32) read once, y and the final f32
+    state written once."""
+    L = KERNEL_CHUNK
+    tri = L * (L + 1) // 2
+    flops = B * H * (-(-S // L)) * 2 * (tri * N + tri * P + 2 * L * N * P)
+    n_bytes = (elem * (2 * B * S * H * P + 2 * B * S * N) + 4 * B * S * H
+               + 4 * H + 4 * B * H * P * N)
+    return flops, n_bytes
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan)
+def _flops(x_shape, dt_shape, A_shape, Bm_shape, Cm_shape, chunk, *,
+           out_shape=None, **kwargs) -> int:
+    B, S, H, P = x_shape
+    return op_count(B, S, H, P, Bm_shape[-1])[0]
 
 
 # ---------------------------------------------------------------------------

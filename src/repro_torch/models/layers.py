@@ -193,12 +193,21 @@ def attn_params(cfg: ModelConfig, dtype, *, generator, device) -> Attention:
     return p
 
 
+def _heads(t, n: int, hd: int):
+    """(B, S, n hd) -> (B, S, n, hd).  Under a mesh whose "model" axis
+    does not divide the n heads, a projection left model-sharded is
+    replicated there first: DTensor cannot split a head over ranks."""
+    mesh = sharding.current_mesh()
+    if mesh is not None and n % sharding.axis_size(mesh, "model"):
+        t = sharding.unshard_model(t)
+    return t.reshape(t.shape[0], t.shape[1], n, hd)
+
+
 def _qkv(x, p, cfg: ModelConfig, positions):
-    B, S, _ = x.shape
     hd = cfg.hd
-    q = (x @ p.wq).reshape(B, S, cfg.n_heads, hd)
-    k = (x @ p.wk).reshape(B, S, cfg.n_kv_heads, hd)
-    v = (x @ p.wv).reshape(B, S, cfg.n_kv_heads, hd)
+    q = _heads(x @ p.wq, cfg.n_heads, hd)
+    k = _heads(x @ p.wk, cfg.n_kv_heads, hd)
+    v = _heads(x @ p.wv, cfg.n_kv_heads, hd)
     q = apply_rope(q, positions, cfg)
     k = apply_rope(k, positions, cfg)
     return q, k, v

@@ -312,8 +312,10 @@ def decode_step(cfg: ModelConfig, params: LM, token, cache: list, pos: int):
     """token (B, 1) ids, pos an int -> (logits (B,1,V), new cache).  The
     attention entries of `cache` are updated in place
     (`layers.attention_decode`)."""
-    x = layers.embed(token, params.embed, cfg).to(
-        layers.dtype_of(cfg.compute_dtype))
+    # the batch layout at once, as `forward` pins it (under a mesh a
+    # vocab-sharded table leaves the lookup a masked partial sum)
+    x = sharding.constrain_batch_dim(layers.embed(token, params.embed, cfg).to(
+        layers.dtype_of(cfg.compute_dtype)))
     new_cache = []
     for p, kind, c in zip(params.blocks, cfg.layer_kinds(), cache):
         x, c = _layer_decode(x, p, cfg, kind, c, pos)

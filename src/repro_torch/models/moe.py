@@ -119,7 +119,7 @@ def _route(xt, router, cfg: ModelConfig, cap: int, base_fn=None):
     flat_e = expert_idx.reshape(T * k)
     pos = _positions(flat_e, E)
     if base_fn is not None:
-        pos = pos + base_fn(torch.bincount(flat_e, minlength=E))[flat_e]
+        pos = pos + base_fn(F.one_hot(flat_e, E).sum(0))[flat_e]
     keep = pos < cap
     dest = torch.where(keep, flat_e * cap + pos,
                        torch.full_like(pos, E * cap))            # drop slot

@@ -32,7 +32,6 @@ over).
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.core.engine import residual_balanced_rho
@@ -91,10 +90,10 @@ def _sub_mesh_sum(x: torch.Tensor, tree: dict) -> torch.Tensor:
     for plain tensors)."""
     t = next(iter(tree.values()))
     if isinstance(t, DTensor):
-        x = x.clone()
         for d in range(t.device_mesh.ndim):
             if t.device_mesh.size(d) > 1:
-                dist.all_reduce(x, group=t.device_mesh.get_group(d))
+                x = collectives.psum(x, MeshExecutor(
+                    t.device_mesh.get_group(d)))
     return x
 
 

@@ -3,6 +3,7 @@ memory goes.
 
     python3 tools/lm_mesh_check.py            # the phases
     python3 tools/lm_mesh_check.py --memory   # allocator peaks (~1 min)
+    python3 tools/lm_mesh_check.py --dryrun   # the dry run's phase
 
 Run on a machine with the card, from the repository root.  Without
 `--memory` it runs `chip_smoke.py`'s `lm_mesh_serve_{yi_6b,mamba2_370m}`
@@ -12,7 +13,10 @@ Mamba-2 370M at published width cut to 4 layers (4 x 2048-token
 prompts, 4 new tokens), once through the unsharded `Engine` and once
 through `Engine(mesh=)`, and prints for each the transient peak of the
 generate call and the allocations live at that peak by source line
-(`chip_smoke._peak_sites`, from the allocator's history).
+(`chip_smoke._peak_sites`, from the allocator's history).  With
+`--dryrun` it starts the dry run's worker (`chip_smoke.start_dryrun`),
+serves Yi-6B through both engines with the mesh engine's prefill counted,
+and runs `launch_dryrun` against it.
 """
 import json
 import os
@@ -53,6 +57,16 @@ def main():
     mesh = mesh_lib.make_test_mesh(1, 1, device=dev)
     if "--memory" in sys.argv[1:]:
         memory(dev, mesh)
+    elif "--dryrun" in sys.argv[1:]:
+        dry = cs.start_dryrun()
+        try:
+            served = cs.phase_lm_mesh_serve("yi_6b", dev, mesh,
+                                            count_prefill=True)["mesh"]
+            cs.phase_launch_dryrun(dry, served)
+        finally:
+            if dry.poll() is None:
+                dry.kill()
+                dry.wait()
     else:
         for arch in ("yi_6b", "mamba2_370m"):
             cs.phase_lm_mesh_serve(arch, dev, mesh)
