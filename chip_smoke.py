@@ -43,8 +43,8 @@ never JAX or the JAX package, and prints one JSON line per phase:
    interleaved), device kernels and copies per iteration over 20
    profiled iterations (in the loop and over the run), CUDA-runtime
    synchronise calls and device-to-host copies inside the loop, the
-   count of kernel_wall_seconds{kernel="gmm_estep_nodes"} beside the
-   launches and its mean beside the profiler's device time per call;
+   count of kernel/gmm_estep_nodes spans beside the launches and their
+   mean host time;
    phi bit-equal in the three modes, equal kernels in the loop off and
    host-enabled, vb_run/kl_mean equal to the run's kl_mean, no
    synchronise call or device-to-host copy added in the loop;
@@ -966,7 +966,10 @@ def profile_window(fn, named=(), counts=False) -> dict:
     count (kernels, copies, sets): a host op such as aten::mm reports its
     kernels' time as its own device time too, and CUPTI's "Command Buffer
     Full" marks the host waiting on a full launch queue, not device
-    work.  Kernels whose name holds one of the strings in `named` are
+    work, nor is the device-side mirror of a host range (a user
+    annotation: the port's telemetry spans are profiler ranges while
+    the profiler records).  Kernels whose name holds one of the strings
+    in `named` are
     also listed on their own, whatever their rank; `counts` adds every
     device event's count by name."""
     from torch.autograd import DeviceType
@@ -980,6 +983,7 @@ def profile_window(fn, named=(), counts=False) -> dict:
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA
               and e.self_device_time_total > 0
+              and not e.is_user_annotation
               and e.key != "Command Buffer Full"]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     top = sorted(events, key=lambda e: e.self_device_time_total,
@@ -1080,8 +1084,11 @@ def _profile_loop(fn) -> dict:
     d_lo, d_hi = span_of(dev_marks)
     host = [e for e in events if e.device_type == DeviceType.CPU
             and lo <= e.time_range.start <= hi]
+    # the device-side mirrors of host ranges (the iteration marks, the
+    # telemetry spans) are no device work
     device = [e for e in events if e.device_type == DeviceType.CUDA
-              and e.name not in ("Command Buffer Full", "vb_iteration")]
+              and not e.is_user_annotation
+              and e.name != "Command Buffer Full"]
     in_loop = [e for e in device if d_lo <= e.time_range.start <= d_hi]
     kernels = [e for e in device if not _is_copy(e)]
     gmm = [e for e in kernels if "gmm_estep" in e.name]
@@ -1173,12 +1180,6 @@ def phase_telemetry_main_path(inst, dev) -> dict:
                "kernel_call_host_us_runs": call_us[mode],
                "launches": launched}
         if mode != "off":
-            hist = [r for r in telemetry.snapshot()
-                    if r["name"] == "kernel_wall_seconds"
-                    and r["labels"] == {"kernel": "gmm_estep_nodes"}]
-            rec["kernel_wall_count"] = hist[0]["count"] if hist else 0
-            rec["kernel_wall_mean_ms"] = (hist[0]["sum"] / hist[0]["count"]
-                                          * 1e3 if hist else None)
             ts, kl = telemetry.taps.series("vb_run/kl_mean")
             rec["series_kl_bit_equal"] = bool(np.array_equal(
                 kl, res.kl_mean.cpu().numpy())) and ts.tolist() == list(
@@ -1188,7 +1189,9 @@ def phase_telemetry_main_path(inst, dev) -> dict:
             spans = [e["dur"] for e in
                      telemetry.tracer().to_chrome()["traceEvents"]
                      if e["name"] == "kernel/gmm_estep_nodes"]
-            rec["kernel_span_mean_ms"] = sum(spans) / len(spans) / 1e3
+            rec["kernel_span_count"] = len(spans)
+            rec["kernel_span_mean_ms"] = (sum(spans) / len(spans) / 1e3
+                                          if spans else None)
         telemetry.reset()
         prof = _profile_loop(lambda: run(TELEMETRY_PROFILE_ITERS))
         telemetry.reset()
@@ -1233,10 +1236,10 @@ def phase_telemetry_main_path(inst, dev) -> dict:
             misses.append(f"{mode}: synchronise calls or device-to-host "
                           f"copies in the loop {rec['sync_calls_in_loop']}, "
                           f"{rec['d2h_copies_in_loop']}")
-        if mode != "off" and (rec["kernel_wall_count"] != rec["launches"]
+        if mode != "off" and (rec["kernel_span_count"] != rec["launches"]
                               or not rec["series_kl_bit_equal"]):
-            misses.append(f"{mode}: kernel_wall_seconds count "
-                          f"{rec['kernel_wall_count']} for "
+            misses.append(f"{mode}: kernel/gmm_estep_nodes spans "
+                          f"{rec['kernel_span_count']} for "
                           f"{rec['launches']} launches, vb_run/kl_mean "
                           f"bit-equal {rec['series_kl_bit_equal']}")
     if out["host"]["kernels_in_loop"] != off["kernels_in_loop"]:
@@ -1665,7 +1668,8 @@ def _fleet_telemetry(reqs, run_off, out_off, dev) -> list:
                                     for e in evs),
           "gauges": {g: rows[g]["value"] for g in DRIVER_GAUGES
                      if g in rows},
-          "kernel_wall_count": rows["kernel_wall_seconds"]["count"],
+          "kernel_span_count": sum(e["name"] == "kernel/gmm_estep_nodes"
+                                   for e in evs),
           "gmm_estep_launches": launched,
           "span_names": telemetry.tracer().span_names(),
           "vs_off_bit_equal": bit_equal}
@@ -1696,9 +1700,9 @@ def _fleet_telemetry(reqs, run_off, out_off, dev) -> list:
         misses.append(f"fleet C telemetry: {on['driver_slice_spans']} "
                       f"slice spans for {st.slices} slices, gauges "
                       f"{sorted(on['gauges'])}")
-    if on["kernel_wall_count"] != launched:
-        misses.append(f"fleet C: kernel_wall_seconds count "
-                      f"{on['kernel_wall_count']} for {launched} launches")
+    if on["kernel_span_count"] != launched:
+        misses.append(f"fleet C: kernel/gmm_estep_nodes spans "
+                      f"{on['kernel_span_count']} for {launched} launches")
     if not n_events or on["vb_serve_admitted"] != 4.0:
         misses.append(f"vb_serve --trace/--metrics: {n_events} events, "
                       f"{on['vb_serve_admitted']} admitted")

@@ -1551,7 +1551,6 @@ def _vb_run_body(state, ses, n_iters):
                 consensus_diag=stacked)
     if telemetry.enabled():
         _file_run_series(run, state.t, n_iters)
-        telemetry.resolve_device_times()    # the loop's work is done
     return state_new, run
 
 

@@ -1,7 +1,7 @@
 """Public wrappers around the port's kernels (`repro.kernels.ops`).
 
 `gmm_estep_nodes`, `gmm_estep`, `flash_attention` and `ssd_scan` wrap
-the kernel modules' wrappers with the reference's kernel telemetry
+the kernel modules' wrappers with a `kernel/<name>` span a call
 (`_instrument`); `ops.<name>.launches` (and `gmm_estep_nodes`'
 `variant_launches`) read and write the kernel's own launch count: a
 plain integer that a run can zero and read to show that the main path
@@ -14,7 +14,6 @@ the JAX wrapper repeats k and v to the query heads.
 from __future__ import annotations
 
 import functools
-import time
 
 from repro_torch import telemetry
 from repro_torch.kernels import flash_attention as _fa
@@ -23,21 +22,21 @@ from repro_torch.kernels import ssd_scan as _ss
 
 
 class _instrument:
-    """Kernel wall-time telemetry: a `kernel_wall_seconds{kernel=...}`
-    histogram plus a `kernel/<name>` trace span per call, one bool check
-    when telemetry is disabled.  On the card the histogram gets the
-    device time between two CUDA events recorded around the launch on
-    the current stream (never waited on here: `telemetry` resolves them
-    when the registry is read); the span covers the host's call.  On the
-    CPU both time the plain version with `time.perf_counter`.
+    """A `kernel/<name>` trace span per call while telemetry records
+    (host telemetry on, or a torch profiler recording: then the span is
+    also a profiler range around the launch, beside the kernel's device
+    time); one bool check and one profiler-state check otherwise.  The
+    span covers the host's call, not the kernel: its device time is the
+    profiler's to read.
 
-    The reference times only eager calls (the engine's jitted calls pass
+    The reference spans only eager calls (the engine's jitted calls pass
     through); every call of the port is eager, so every launch on the
-    hot path is timed.  Errors propagate: nothing is caught."""
+    hot path has its span.  Errors propagate: nothing is caught."""
 
     def __init__(self, name: str, fn):
         functools.update_wrapper(self, fn, updated=())
         self.name = name
+        self._span = f"kernel/{name}"
 
     # the kernel's own counters, read and written through the wrapper
     @property
@@ -54,23 +53,8 @@ class _instrument:
         return getattr(self.__wrapped__, attr)
 
     def __call__(self, *args, **kwargs):
-        if not telemetry.enabled():
+        with telemetry.span(self._span):
             return self.__wrapped__(*args, **kwargs)
-        name = self.name
-        with telemetry.span(f"kernel/{name}"):
-            if args[0].is_cuda:
-                start, end = telemetry.event_pair()
-                start.record()
-                out = self.__wrapped__(*args, **kwargs)
-                end.record()
-                telemetry.observe_events("kernel_wall_seconds", start, end,
-                                         kernel=name)
-            else:
-                t0 = time.perf_counter()
-                out = self.__wrapped__(*args, **kwargs)
-                telemetry.observe("kernel_wall_seconds",
-                                  time.perf_counter() - t0, kernel=name)
-        return out
 
 
 gmm_estep_nodes = _instrument("gmm_estep_nodes", _ge.gmm_estep_nodes)

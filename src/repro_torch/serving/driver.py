@@ -58,18 +58,29 @@ t, conv, budget and delta are the same on every rank, so every decision
 files are rank 0's alone (`save_session`, the autosaves): the ranks hold
 the same state, and ranks sharing a directory would race on one file.
 
-Telemetry (`repro_torch.telemetry`, the reference's catalogue): spans
-`driver/slice{k,slots}` (with `driver/compile` nested in the first slice
-of each (capacity, k) shape), `driver/sync` and `driver/checkpoint`
-(from the writer thread); counters `driver_admitted_total`,
-`driver_evicted_total`, `driver_rebucket_total`, `driver_requeue_total`,
+Telemetry (`repro_torch.telemetry`: recorded with host telemetry on or
+under a torch profiler, where each span is also a profiler range).  The
+reference's catalogue: spans `driver/slice{k,slots}` (with
+`driver/compile` nested in the first slice of each (capacity, k)
+shape), `driver/sync` and `driver/checkpoint` (from the writer thread);
+counters `driver_admitted_total`, `driver_evicted_total`,
+`driver_rebucket_total`, `driver_requeue_total`,
 `driver_checkpoints_total`, `driver_checkpoint_errors_total`; the
 histogram `driver_checkpoint_write_seconds`; gauges
 `driver_queue_depth`, `driver_active`, `driver_capacity`,
-`driver_occupancy`, `driver_padding_waste` at every slice boundary; and
-instants `driver/admit`, `driver/evict`, `driver/rebucket`,
-`driver/requeue`.  With taps on, a slice's taps go to a window of k
-records read in `fetch_flags`.
+`driver_occupancy`, `driver_padding_waste` at every slice boundary
+(host telemetry only); `driver/admit{rid,slot,waited}` and
+`driver/evict{rid,slot}` (spans around the slot write and the state
+snapshot; instants in the reference), instants `driver/rebucket`,
+`driver/requeue`.  The port's own: spans `driver/tick` (slice, sync,
+admit and evict nest in it), `driver/submit{rid}` and
+`driver/status{rid}`; the counter `driver_fleet_iterations_total` (k a
+group stepped); the histograms `driver_queue_wait_slices` and
+`driver_queue_wait_seconds`, one observation an admission: the slice
+boundaries and seconds from `submit` (or a re-queue; a deferred
+arrival's deferral included) to it, 0 slices where a slot was free.
+With taps on, a slice's taps go to a window of k records read in
+`fetch_flags`.
 """
 from __future__ import annotations
 
@@ -532,15 +543,14 @@ class FleetGroup:
         self._shapes.clear()            # the capacity is a new shape
 
     # -- join / leave -----------------------------------------------------
-    def admit(self, rid: str, record: dict) -> Optional[int]:
-        """Place one session record into a free slot; None if the fleet
-        is full (fixed capacity): the caller keeps it queued."""
+    def admit(self, rid: str, record: dict) -> int:
+        """Place one session record into a free slot, growing a fleet
+        without `max_fleet`; the caller keeps a session queued while the
+        fleet is `full`."""
         if self.slots is None:
             self._alloc(record)
         slot = self.slots.alloc(rid)
-        if slot is None:
-            if self.max_fleet is not None:
-                return None
+        if slot is None:                # not `full`: the fleet may grow
             self._grow()
             slot = self.slots.alloc(rid)
         self.load_state_tree(slot, record)
@@ -550,6 +560,12 @@ class FleetGroup:
         self.host_delta[slot] = float(record["delta"])
         self.host_tol[slot] = float(record["tol"])
         return slot
+
+    @property
+    def full(self) -> bool:
+        """No free slot, and the fleet may not grow (`max_fleet`)."""
+        return (self.slots is not None and self.max_fleet is not None
+                and self.slots.n_occupied == self.slots.capacity)
 
     def evict(self, slot: int) -> dict:
         """Snapshot a slot's resumable state and mark the slot free
@@ -645,7 +661,7 @@ class FleetGroup:
 
     def fetch_flags(self) -> None:
         """Sync the small per-slot flag vectors device -> host (and read
-        the slice's taps and kernel times, whose work is then done)."""
+        the slice's taps, whose work is then done)."""
         with telemetry.span("driver/sync"):
             self.host_t = self.t.cpu().numpy().astype(np.int64)
             self.host_conv = self.conv.cpu().numpy().astype(bool)
@@ -653,8 +669,6 @@ class FleetGroup:
         if self._taps is not None:
             self._taps.flush()
             self._taps = None
-        if telemetry.enabled():
-            telemetry.resolve_device_times()
 
     # -- host-side views --------------------------------------------------
     def done_mask(self) -> np.ndarray:
@@ -860,6 +874,14 @@ class VBDriver:
         must describe the same shapes), resuming it exactly."""
         if req.n_iters < 1:
             raise ValueError(f"n_iters must be >= 1: {req.n_iters}")
+        with telemetry.span("driver/submit") as span_args:
+            rid = self._submit(req, arrive_at, restore_from)
+            if span_args is not None:
+                span_args["rid"] = rid
+        self._wake.set()
+        return rid
+
+    def _submit(self, req, arrive_at, restore_from) -> str:
         data, bucket = self._bucket_plan(req)
         state = engine.vb_init(
             req.model, data, req.topology, schedule=req.schedule,
@@ -887,20 +909,22 @@ class VBDriver:
             self._counter += 1
             self._order.append(rid)
             at = self._clock if arrive_at is None else int(arrive_at)
-            self._meta[rid] = dict(submitted=time.monotonic(),
-                                   finished=None, arrive_at=at,
-                                   bucket=bucket)
+            now = time.monotonic()
+            self._meta[rid] = dict(submitted=now, finished=None,
+                                   arrive_at=at, bucket=bucket,
+                                   queued=(self._clock, now))
             entry = dict(rid=rid, key=key, session=state.session,
                          record=record, bucket=bucket)
             self._queued[rid] = entry
             self._queue.push(entry, at)
             self._try_admit()
-        self._wake.set()
         return rid
 
     def _try_admit(self) -> None:
         """Admit every ready arrival that a fleet slot can take (lock
-        held).  Fleet-full entries go back on the queue in FIFO order."""
+        held).  Fleet-full entries go back on the queue in FIFO order.
+        An admission records its slice clock and time in `_meta[rid]`
+        ("admitted") and observes the wait since "queued"."""
         for at, seq, entry in self._queue.pop_ready(self._clock):
             rid, rec = entry["rid"], entry["record"]
             if bool(rec["conv"]) or int(rec["t"]) >= int(rec["budget"]):
@@ -918,16 +942,26 @@ class VBDriver:
                                                     else None),
                                    executor=self.executor)
                 self._groups[entry["key"]] = group
-            slot = group.admit(rid, rec)
-            if slot is None:
+            if group.full:
                 self._queue.push_entry((at, seq, entry))
                 continue
+            meta = self._meta[rid]
+            clock0, t0 = meta["queued"]
+            waited = self._clock - clock0
+            with telemetry.span("driver/admit", rid=rid,
+                                waited=waited) as span_args:
+                slot = group.admit(rid, rec)
+                if span_args is not None:
+                    span_args["slot"] = slot
+            now = time.monotonic()
+            meta["admitted"] = (self._clock, now)
             self._queued.pop(rid, None)
             self._where[rid] = (entry["key"], slot)
             self._n_admitted += 1
             group.n_admitted += 1
             telemetry.inc("driver_admitted_total")
-            telemetry.instant("driver/admit", rid=rid, slot=slot)
+            telemetry.observe("driver_queue_wait_slices", waited)
+            telemetry.observe("driver_queue_wait_seconds", now - t0)
             if bucket is not None:
                 group.pad_frac_sum += (bucket[1] - bucket[0]) / bucket[1]
 
@@ -943,7 +977,7 @@ class VBDriver:
         queued before the slice) and hand them to the writer while the
         device runs, then sync flags, evict finished sessions and advance
         the clock.  Returns #sessions still open."""
-        with self._lock:
+        with telemetry.span("driver/tick"), self._lock:
             self._try_admit()
             stepped = [g for g in self._groups.values()
                        if g.active_count() > 0]
@@ -961,6 +995,8 @@ class VBDriver:
                 g.occ_active += n_act
                 g.occ_slots += g.capacity
                 g.step_slice(self.slice_iters)      # queued on the device
+                telemetry.inc("driver_fleet_iterations_total",
+                              self.slice_iters)
             if stepped:
                 self._slices += 1
             for rid, tree in snaps:     # writer overlaps the device slice
@@ -994,11 +1030,11 @@ class VBDriver:
             done = group.done_mask()
             for slot, rid in group.slots.occupied():
                 if done[slot]:
-                    record = group.evict(slot)
+                    with telemetry.span("driver/evict", rid=rid, slot=slot):
+                        record = group.evict(slot)
                     del self._where[rid]
                     self._n_evicted += 1
                     telemetry.inc("driver_evicted_total")
-                    telemetry.instant("driver/evict", rid=rid, slot=slot)
                     self._retire(rid, dict(record=record, key=key,
                                            session=group.session))
 
@@ -1054,7 +1090,7 @@ class VBDriver:
 
     # -- observation ------------------------------------------------------
     def status(self, rid: str) -> SessionStatus:
-        with self._lock:
+        with telemetry.span("driver/status", rid=rid), self._lock:
             meta = self._meta.get(rid)
             if meta is None:
                 raise KeyError(f"unknown session {rid!r}")
@@ -1283,6 +1319,7 @@ class VBDriver:
             return
         del self._finished[rid]
         self._meta[rid]["finished"] = None
+        self._meta[rid]["queued"] = (self._clock, time.monotonic())
         telemetry.inc("driver_requeue_total")
         telemetry.instant("driver/requeue", rid=rid)
         entry = dict(rid=rid, key=fin["key"], session=fin["session"],

@@ -15,16 +15,19 @@ Port of `repro.telemetry`.  One switch, three layers:
   reference: a tap adds a device copy per iteration; host telemetry
   alone adds no device work inside an iteration.
 
-**Kernel time on the card** (`event_pair`, `observe_events`):
-`kernels/ops.py` records a pair of CUDA events around each launch on the
-current stream and never waits on them there.  The pending pairs are
-resolved into their histogram when the registry is read (`registry()`,
-`snapshot()`, the exports) or at a sync the caller makes anyway (after
-`vb_run`'s loop, the driver's `fetch_flags`).
+**Recording**: the helpers record while host telemetry is enabled OR a
+`torch.profiler` is recording.  Under the profiler a span also opens
+`torch.profiler.record_function(name)`, so the port's layers land on the
+profiler's host timeline, on the clock of the device events, and the
+`Tracer` holds the same spans (each with its `parent`) for
+`Tracer.summary()`.  `enabled()` stays the explicit switch: the code
+it guards (the `vb_run/*` series, the driver's per-tick gauges) does not
+run because a profiler does.  Kernel time on the card is the profiler's
+to measure; the port keeps no timer of its own on the device.
 
-Disabled (the default) must be free: every helper below is a single
-module-bool check before touching any registry/tracer state — no tensor
-op, no CUDA event, no allocation.
+Off (the default, no profiler) must be free: every helper below is one
+module-bool check and one profiler-state check before touching any
+registry/tracer state: no tensor op, no CUDA event, nothing retained.
 
 Typical use::
 
@@ -38,8 +41,10 @@ Typical use::
 """
 from __future__ import annotations
 
-import threading
 from contextlib import contextmanager, nullcontext
+
+from torch.autograd import _profiler_enabled
+from torch.profiler import record_function
 
 from . import taps
 from .metrics import DEFAULT_BUCKETS, MetricsRegistry
@@ -49,8 +54,7 @@ __all__ = [
     "MetricsRegistry", "Tracer", "DEFAULT_BUCKETS", "taps",
     "enable", "disable", "enabled", "enabled_scope", "reset",
     "registry", "tracer",
-    "inc", "set_gauge", "observe", "event_pair", "observe_events",
-    "resolve_device_times",
+    "inc", "set_gauge", "observe",
     "span", "instant",
     "snapshot", "to_jsonl", "to_prometheus", "export_chrome_trace",
     "warn_once",
@@ -61,11 +65,6 @@ _REGISTRY = MetricsRegistry()
 _TRACER = Tracer()
 _NULL_CONTEXT = nullcontext()
 _WARNED: set = set()
-# CUDA event pairs recorded around launches and not yet read:
-# (start, end, histogram name, labels); finished pairs go back to the pool
-_PENDING: list = []
-_EVENT_POOL: list = []
-_DEVICE_LOCK = threading.Lock()
 
 
 def enable() -> None:
@@ -97,10 +96,7 @@ def enabled_scope():
 
 
 def reset() -> None:
-    """Clear metrics, trace events, tap buffers, pending kernel times and
-    warn-once state."""
-    with _DEVICE_LOCK:
-        _PENDING.clear()
+    """Clear metrics, trace events, tap buffers and warn-once state."""
     _REGISTRY.clear()
     _TRACER.clear()
     taps.clear()
@@ -108,7 +104,6 @@ def reset() -> None:
 
 
 def registry() -> MetricsRegistry:
-    resolve_device_times()
     return _REGISTRY
 
 
@@ -116,68 +111,44 @@ def tracer() -> Tracer:
     return _TRACER
 
 
-# -- fast-path recording helpers (no-ops when disabled) -------------------
+# -- fast-path recording helpers (no-ops when not recording) --------------
 def inc(name: str, value: float = 1.0, **labels) -> None:
-    if _ENABLED:
+    if _ENABLED or _profiler_enabled():
         _REGISTRY.counter(name, **labels).inc(value)
 
 
 def set_gauge(name: str, value: float, **labels) -> None:
-    if _ENABLED:
+    if _ENABLED or _profiler_enabled():
         _REGISTRY.gauge(name, **labels).set(value)
 
 
 def observe(name: str, value: float, **labels) -> None:
-    if _ENABLED:
+    if _ENABLED or _profiler_enabled():
         _REGISTRY.histogram(name, **labels).observe(value)
 
 
-def event_pair():
-    """Two timing CUDA events (from a pool) to record around a device
-    interval; hand them to `observe_events` once both are recorded.
-    Only for enabled telemetry (the caller checks)."""
-    import torch
-
-    with _DEVICE_LOCK:
-        if _EVENT_POOL:
-            return _EVENT_POOL.pop()
-    return (torch.cuda.Event(enable_timing=True),
-            torch.cuda.Event(enable_timing=True))
-
-
-def observe_events(name: str, start, end, **labels) -> None:
-    """Observe the elapsed time between two recorded CUDA events, in
-    seconds, into histogram `name` when the registry is next read (the
-    events are not waited on here)."""
-    with _DEVICE_LOCK:
-        _PENDING.append(((start, end), name, labels))
-
-
-def resolve_device_times() -> None:
-    """Observe every pending event pair into its histogram (waiting for
-    the work they bracket, which a reader has to) and return the events
-    to the pool."""
-    with _DEVICE_LOCK:
-        pending = list(_PENDING)
-        _PENDING.clear()
-    for (start, end), name, labels in pending:
-        end.synchronize()
-        _REGISTRY.histogram(name, **labels).observe(
-            start.elapsed_time(end) / 1e3)
-    with _DEVICE_LOCK:
-        _EVENT_POOL.extend(pair for pair, _, _ in pending)
-
-
 def span(name: str, **args):
-    """Context manager: a Chrome-trace complete event, or a shared null
-    context when disabled (one bool check, zero allocation)."""
-    if _ENABLED:
-        return _TRACER.span(name, **args)
+    """Context manager: a Chrome-trace complete event (and, under the
+    profiler, a `record_function` range) that yields its args dict, so
+    the block can add what it learns (`args["slot"] = ...`); or a shared
+    null context yielding None when not recording."""
+    if _ENABLED or _profiler_enabled():
+        return _recorded_span(name, args)
     return _NULL_CONTEXT
 
 
+@contextmanager
+def _recorded_span(name: str, args: dict):
+    with _TRACER.span(name, **args) as a:
+        if _profiler_enabled():
+            with record_function(name):
+                yield a
+        else:
+            yield a
+
+
 def instant(name: str, **args) -> None:
-    if _ENABLED:
+    if _ENABLED or _profiler_enabled():
         _TRACER.instant(name, **args)
 
 

@@ -23,8 +23,8 @@ gmm_estep once a fleet iteration over (S N, T, D), the kernel at that
 shape within the bars above; each tenant bit-equal to its solo run on
 the ring, within 1e-9 on the matmul combines; a checkpoint snapshot
 holds the slice boundary while the next slice overwrites the fleet.
-Telemetry: `kernel_wall_seconds` counts one observation a launch, timed
-by CUDA events that are not waited on when recorded.  The mesh
+Telemetry: one `kernel/<name>` span a launch, recorded without waiting
+for the device and with no CUDA event.  The mesh
 executor: under a one-rank NCCL group (`admission.data_axis_mesh`) runs
 and a serving fleet bit-equal to the single-array executor; gmm_estep
 launched on a row slice (a rank's block of nodes) bit-equal to the same
@@ -724,15 +724,18 @@ def test_checkpoint_snapshot_while_next_slice_overwrites(cuda, tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# Telemetry: kernel wall time by CUDA events
+# Telemetry: a span a launch, no device timer
 # ---------------------------------------------------------------------------
 def test_kernel_wall_time_counts_launches_without_syncing(cuda):
     """With telemetry on, each gmm_estep_nodes launch is one
-    `kernel_wall_seconds{kernel="gmm_estep_nodes"}` observation (the
-    histogram's count equals the launches), timed by CUDA events that
-    are not waited on when recorded: behind a ~0.2 s device sleep the
-    calls return while their end events are still pending, and the
-    histogram is filled only when the registry is read."""
+    `kernel/gmm_estep_nodes` span (the spans equal the launches) and no
+    metric, recorded without waiting: behind a ~0.2 s device sleep the
+    calls return while the stream still has work, and no CUDA event is
+    made.  Under the profiler (telemetry off) each launch is also a
+    `kernel/gmm_estep_nodes` range whose device-side mirror is marked a
+    user annotation, beside the kernel itself."""
+    from torch.profiler import ProfilerActivity, profile
+
     from repro_torch import telemetry
     args = _args(64, 512, 3, 2, cuda)
     telemetry.disable()
@@ -740,22 +743,46 @@ def test_kernel_wall_time_counts_launches_without_syncing(cuda):
     ops.gmm_estep_nodes(*args)                  # built and warm
     torch.cuda.synchronize()
     before = ops.gmm_estep_nodes.launches
+    made = []
+    event_init = torch.cuda.Event.__init__
+
+    def counted(self, *a, **kw):
+        made.append(1)
+        event_init(self, *a, **kw)
+
     try:
+        torch.cuda.Event.__init__ = counted
         telemetry.enable()
         torch.cuda._sleep(int(2e8))             # ~0.1-0.2 s on the card
         for _ in range(5):
             ops.gmm_estep_nodes(*args)
-        pending = list(telemetry._PENDING)
-        assert len(pending) == 5
-        assert not any(end.query() for (_, end), _, _ in pending)
+        assert not torch.cuda.current_stream().query()
         launched = ops.gmm_estep_nodes.launches - before
-        (row,) = [r for r in telemetry.snapshot()
-                  if r["name"] == "kernel_wall_seconds"]
-        assert row["labels"] == {"kernel": "gmm_estep_nodes"}
-        assert row["count"] == launched == 5
-        assert 0 < row["sum"] < 1.0
+        spans = [e for e in telemetry.tracer().events
+                 if e["name"] == "kernel/gmm_estep_nodes"]
+        assert len(spans) == launched == 5
         assert telemetry.tracer().span_names() == ["kernel/gmm_estep_nodes"]
+        assert len(telemetry.registry()) == 0 and not made
+        torch.cuda.synchronize()
+        telemetry.disable()
+        telemetry.reset()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                ops.gmm_estep_nodes(*args)
+            torch.cuda.synchronize()
+        ranges = [e for e in prof.events()
+                  if e.name == "kernel/gmm_estep_nodes"]
+        host = [e for e in ranges if e.device_type.name == "CPU"]
+        mirrors = [e for e in ranges if e.device_type.name == "CUDA"]
+        assert len(host) == 3 and not made
+        assert all(getattr(e, "is_user_annotation", True) for e in mirrors)
+        assert sum(1 for e in prof.events() if e.device_type.name == "CUDA"
+                   and "gmm_estep" in e.name
+                   and not getattr(e, "is_user_annotation", False)) == 3
+        assert len(telemetry.tracer()) == 3
     finally:
+        torch.cuda.Event.__init__ = event_init
         telemetry.disable()
         telemetry.reset()
 

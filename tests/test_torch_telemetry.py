@@ -4,7 +4,8 @@ on the CPU.
 * Registry and tracer: the same records applied to the reference's and
   the port's `MetricsRegistry` give equal `snapshot()`, `to_jsonl()` and
   `to_prometheus()` text; thread safety; the facade helpers are no-ops
-  when disabled; Chrome-trace nesting.
+  when disabled; Chrome-trace nesting, each event's `parent` beside the
+  reference's events, and the tracer's self times.
 * Series and taps: `vb_run/*` series (host telemetry) and `vb/*` taps
   (taps on) of dSVB and adaptive dVB-ADMM at 8 nodes x 20 points in f64
   against the reference's, at the engine parity bar of
@@ -14,7 +15,7 @@ on the CPU.
   phi is bit-equal and the extra ops per iteration are exactly the tap
   copies.
 * The backend fallback warns once and counts every fallback; the kernel
-  wrappers' `kernel_wall_seconds` and `kernel/<name>` spans; the
+  wrappers' `kernel/<name>` spans (and no histogram of their own); the
   `vb_serve` launcher's `--trace` / `--metrics` files.
 """
 import collections
@@ -169,8 +170,31 @@ def test_helpers_noop_when_disabled():
     assert len(telemetry.registry()) == 0
     assert len(telemetry.tracer()) == 0
     assert taps.names() == []
-    # the disabled span is one shared null context: nothing is allocated
+    # the disabled span is one shared null context that yields None, and
+    # a run of disabled sites leaves nothing allocated behind it
     assert telemetry.span("a") is telemetry.span("b")
+    with telemetry.span("a") as args:
+        assert args is None
+    import tracemalloc
+
+    def sites():
+        for i in range(2000):
+            with telemetry.span("s", rid=i):
+                telemetry.instant("i", slot=i)
+                telemetry.inc("x_total", 2.0)
+                telemetry.observe("h", 0.5)
+
+    sites()
+    tracemalloc.start()
+    try:
+        before = tracemalloc.take_snapshot()
+        sites()
+        after = tracemalloc.take_snapshot()
+    finally:
+        tracemalloc.stop()
+    grown = [d for d in after.compare_to(before, "filename")
+             if "telemetry" in str(d.traceback) and d.size_diff > 0]
+    assert not grown, grown
     with telemetry.enabled_scope():
         telemetry.inc("x_total")
         with telemetry.span("s"):
@@ -181,17 +205,25 @@ def test_helpers_noop_when_disabled():
 
 
 def _events(tr):
-    return [(e["name"], e["ph"], e.get("args")) for e in
-            tr.to_chrome()["traceEvents"]]
+    """(name, phase, args but the port's `parent`) of each event."""
+    out = []
+    for e in tr.to_chrome()["traceEvents"]:
+        args = {k: v for k, v in e.get("args", {}).items() if k != "parent"}
+        out.append((e["name"], e["ph"], args or None))
+    return out
 
 
 def test_tracer_chrome_nesting_matches_reference(tmp_path):
+    """The reference's events, and the port's each name its parent (the
+    innermost span open on its thread; none at the top level)."""
     trs = (telemetry.Tracer(), jtel.Tracer())
     for tr in trs:
         with tr.span("outer", k=8):
             with tr.span("inner"):
                 tr.instant("mark", rid="s0")
     assert _events(trs[0]) == _events(trs[1])
+    assert {e["name"]: e["args"].get("parent") for e in trs[0].events} == {
+        "outer": None, "inner": "outer", "mark": "inner"}
     assert trs[0].span_names() == trs[1].span_names()
     doc = json.load(open(trs[0].export_chrome_trace(
         str(tmp_path / "trace.json"))))
@@ -203,8 +235,82 @@ def test_tracer_chrome_nesting_matches_reference(tmp_path):
     assert outer["ts"] <= inner["ts"] <= mark["ts"]
     assert inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"] + 1e-6
     assert outer["args"] == {"k": 8}
+    assert mark["args"] == {"rid": "s0", "parent": "inner"}
     trs[0].clear()
-    assert len(trs[0]) == 0
+    assert len(trs[0]) == 0 and trs[0].summary() == {}
+
+
+def test_tracer_self_time_is_duration_less_children():
+    """A hand-built nest (a with two children, one with a child of its
+    own, on this thread; b on another thread, not a's child): each
+    name's self time is its duration less its children's, and the
+    late args a span's block adds are recorded with it."""
+    import time
+    tr = telemetry.Tracer()
+
+    def leaf():
+        with tr.span("b"):
+            time.sleep(0.002)
+
+    with tr.span("a") as args:
+        time.sleep(0.002)
+        with tr.span("c"):
+            time.sleep(0.003)
+            with tr.span("d"):
+                time.sleep(0.002)
+        with tr.span("c"):
+            time.sleep(0.001)
+        th = threading.Thread(target=leaf)
+        th.start()
+        th.join()
+        args["slot"] = 3
+    dur = collections.defaultdict(list)
+    for e in tr.events:
+        dur[e["name"]].append(e["dur"])
+    got = tr.summary()
+    assert {n: v[0] for n, v in got.items()} == {"a": 1, "b": 1, "c": 2,
+                                                 "d": 1}
+    for n, v in dur.items():
+        assert got[n][1] == pytest.approx(sum(v), rel=1e-12)
+    assert got["d"][2] == pytest.approx(dur["d"][0], rel=1e-12)
+    assert got["b"][2] == pytest.approx(dur["b"][0], rel=1e-12)
+    assert got["c"][2] == pytest.approx(sum(dur["c"]) - dur["d"][0],
+                                        rel=1e-9)
+    assert got["a"][2] == pytest.approx(
+        dur["a"][0] - sum(dur["c"]), rel=1e-9)
+    assert got["a"][2] >= 1.5e3            # its own 2 ms sleep
+    by = {e["name"]: e for e in tr.events}
+    assert by["a"]["args"] == {"slot": 3}
+    assert "args" not in by["b"]           # another thread: no parent
+    assert by["d"]["args"] == {"parent": "c"}
+
+
+def test_helpers_record_under_the_profiler():
+    """Telemetry off, a torch profiler recording: span, instant, inc and
+    observe record, each span also a profiler range; `enabled()` stays
+    False; outside the profiler nothing records again."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        assert not telemetry.enabled()
+        with telemetry.span("outer", k=1):
+            with telemetry.span("inner") as args:
+                telemetry.instant("mark")
+                telemetry.inc("n_total", 2)
+                telemetry.observe("h", 0.5)
+                args["late"] = True
+    names = [e.name for e in prof.events()]
+    assert names.count("outer") == names.count("inner") == 1
+    assert telemetry.tracer().span_names() == ["inner", "mark", "outer"]
+    rows = {r["name"]: r for r in telemetry.snapshot()}
+    assert rows["n_total"]["value"] == 2.0 and rows["h"]["count"] == 1
+    by = {e["name"]: e for e in telemetry.tracer().events}
+    assert by["inner"]["args"] == {"parent": "outer", "late": True}
+    n = len(telemetry.tracer())
+    with telemetry.span("after"):
+        telemetry.inc("n_total")
+    assert len(telemetry.tracer()) == n
+    assert {r["name"]: r for r in telemetry.snapshot()}["n_total"][
+        "value"] == 2.0
 
 
 def test_taps_record_series_ordering_and_windows():
@@ -438,13 +544,22 @@ def _gmm_args(lib, rng):
     return [conv(a) for a in (x, mask, lp, Wn, b, c)]
 
 
+def _kernel_spans(tel) -> dict:
+    """{kernel name: [span durations in us]} of the `kernel/<name>`
+    spans recorded."""
+    out = collections.defaultdict(list)
+    for e in tel.tracer().to_chrome()["traceEvents"]:
+        if e["name"].startswith("kernel/"):
+            out[e["name"][len("kernel/"):]].append(e["dur"])
+    return dict(out)
+
+
 def test_kernel_wrappers_record_wall_time_and_spans():
-    """Each instrumented wrapper, called with telemetry on, adds one
-    `kernel_wall_seconds{kernel=<name>}` observation and one
-    `kernel/<name>` span a call (CPU: the plain version, timed by
-    perf_counter); the gmm names and counts equal the reference's
-    (its eager calls); the launch counters stay readable and writable
-    through the wrappers."""
+    """Each instrumented wrapper, called with telemetry on, records one
+    `kernel/<name>` span a call (the host's call; the card's kernel time
+    is the profiler's) and no metric of its own; the gmm names and span
+    counts equal the reference's (its eager calls); the launch counters
+    stay readable and writable through the wrappers."""
     rng = np.random.default_rng(0)
     names = ("gmm_estep_nodes", "gmm_estep", "gmm_estep_from_posterior")
     counts = {}
@@ -457,13 +572,12 @@ def test_kernel_wrappers_record_wall_time_and_spans():
         prior = (jx if lib == "jax" else tx).noninformative_prior(K, D)
         mod.gmm_estep_from_posterior(x[0], mask[0], prior)
         tel.disable()
-        counts[lib] = {r["labels"]["kernel"]: r["count"]
-                       for r in tel.snapshot()
-                       if r["name"] == "kernel_wall_seconds"}
+        counts[lib] = {n: len(d) for n, d in _kernel_spans(tel).items()}
         assert tel.tracer().span_names() == sorted(f"kernel/{n}"
                                                    for n in names)
     assert counts["torch"] == counts["jax"] == {
         "gmm_estep_nodes": 2, "gmm_estep": 1, "gmm_estep_from_posterior": 1}
+    assert len(telemetry.registry()) == 0
     # the LM kernels' wrappers (plain versions on the CPU)
     g = torch.Generator().manual_seed(0)
     q = torch.randn(1, 8, 2, 16, generator=g)
@@ -476,10 +590,11 @@ def test_kernel_wrappers_record_wall_time_and_spans():
     with telemetry.enabled_scope():
         ops.flash_attention(q, kv, kv)
         ops.ssd_scan(xs, dt, A, Bm, Bm, chunk=4)
-    rows = {r["labels"]["kernel"]: r for r in telemetry.snapshot()}
-    assert {k: r["count"] for k, r in rows.items()} == {
+    spans = _kernel_spans(telemetry)
+    assert {k: len(d) for k, d in spans.items()} == {
         "flash_attention": 1, "ssd_scan": 1}
-    assert all(r["sum"] > 0 for r in rows.values())
+    assert all(d[0] > 0 for d in spans.values())
+    assert len(telemetry.registry()) == 0
     before = ops.gmm_estep_nodes.launches
     ops.gmm_estep_nodes.launches = before + 3
     assert ops.gmm_estep_nodes.__wrapped__.launches == before + 3

@@ -3,12 +3,14 @@ the JAX driver (8 nodes x 10 points, K=3, D=2, f64).
 
 * A traced fleet run (tests/test_telemetry.py's `_run_fleet`: 3 ring
   sessions, `max_fleet=2`, slices of 8, a checkpoint every 2 slices):
-  its counters and gauges (name, labels, value), its histogram counts
-  and its span-name set equal the JAX driver's run; one `driver/slice`
-  span a slice; `driver/compile` nested in the first slice.
+  its counters and gauges (name, labels, value), its histogram counts,
+  its span-name set and its event counts equal the JAX driver's run
+  plus the port's own names (`NEW_SPANS`, `NEW_COUNTERS`, `NEW_HISTS`),
+  which are checked on their own; one `driver/slice` span a slice;
+  `driver/compile` nested in the first slice, the slice in its tick.
 * A push that overflows a bucketed session's rung and a budget extended
   after eviction: the rebucket, requeue, admission and eviction counters
-  and instants equal the JAX driver's.
+  and events equal the JAX driver's, the port's own names apart.
 * A disabled run leaves the registry and the tracer empty; telemetry
   does not move a tenant's result.
 * A failing checkpoint write is counted (`driver_checkpoint_errors_total`,
@@ -17,6 +19,7 @@ the JAX driver (8 nodes x 10 points, K=3, D=2, f64).
   one (S,) record per iteration (`stream/epoch`, the SVRG refresh), each
   slot's values those of its solo run at the same t.
 """
+import collections
 import os
 
 import jax
@@ -42,6 +45,16 @@ from repro_torch.telemetry import taps
 K, D, N = 3, 2, 8
 GAUGES = ("driver_queue_depth", "driver_active", "driver_capacity",
           "driver_occupancy", "driver_padding_waste")
+# the port's names beyond the JAX driver's catalogue
+NEW_SPANS = {"driver/tick", "driver/submit", "driver/status"}
+NEW_COUNTERS = {"driver_fleet_iterations_total"}
+NEW_HISTS = {"driver_queue_wait_slices", "driver_queue_wait_seconds"}
+
+
+def _shared(d: dict, new: set) -> dict:
+    """`d` without the keys (or (name, labels) keys) named in `new`."""
+    return {k: v for k, v in d.items()
+            if (k[0] if isinstance(k, tuple) else k) not in new}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -134,10 +147,18 @@ def test_traced_fleet_run_equals_reference(models, tmp_path):
     assert tst.compiles == jst.compiles == 1
     assert tst.slices == jst.slices and tst.evicted == 3
     assert tst.checkpoints == jst.checkpoints > 0
-    assert tsc == jsc
-    assert th == jh
-    assert tnames == jnames
-    assert tev == jev
+    assert _shared(tsc, NEW_COUNTERS) == jsc
+    assert _shared(th, NEW_HISTS) == jh
+    assert tnames == jnames | NEW_SPANS and not jnames & NEW_SPANS
+    assert _shared(tev, NEW_SPANS) == jev
+    # the port's own: a tick span a tick (here one slice each), a submit
+    # and a status span a session, k iterations a slice, a wait an
+    # admission
+    assert tev["driver/tick"] == tst.slices == 4
+    assert tev["driver/submit"] == tev["driver/status"] == 3
+    assert tsc[("driver_fleet_iterations_total", ())] == tst.slices * 8
+    assert th[("driver_queue_wait_slices", ())] == th[
+        ("driver_queue_wait_seconds", ())] == tst.admitted == 3
     assert {"driver/slice", "driver/compile", "driver/sync",
             "driver/checkpoint", "driver/admit", "driver/evict"} <= tnames
     assert tev["driver/slice"] == tst.slices and tev["driver/compile"] == 1
@@ -150,7 +171,15 @@ def test_traced_fleet_run_equals_reference(models, tmp_path):
     (comp,) = [e for e in evs if e["name"] == "driver/compile"]
     assert first["ts"] <= comp["ts"]
     assert comp["ts"] + comp["dur"] <= first["ts"] + first["dur"] + 1e-6
-    assert first["args"] == comp["args"] == {"k": 8, "slots": 2}
+    assert first["args"] == {"k": 8, "slots": 2, "parent": "driver/tick"}
+    assert comp["args"] == {"k": 8, "slots": 2, "parent": "driver/slice"}
+    parents = {(e["name"], e.get("args", {}).get("parent")) for e in evs
+               if e["name"] in ("driver/sync", "driver/evict",
+                                "driver/admit")}
+    assert parents == {("driver/sync", "driver/tick"),
+                       ("driver/evict", "driver/tick"),
+                       ("driver/admit", "driver/submit"),
+                       ("driver/admit", "driver/tick")}
 
 
 def _push_scenario(pkg, models):
@@ -180,10 +209,18 @@ def test_rebucket_and_requeue_counted_as_reference(models):
         tel.disable()
         got[pkg] = (st, *_recorded(tel))
         tel.reset()
-    (jst, jsc, _, jnames, jev), (tst, tsc, _, tnames, tev) = (
+    (jst, jsc, jh, jnames, jev), (tst, tsc, th, tnames, tev) = (
         got["jax"], got["torch"])
-    assert tsc == jsc
-    assert tnames == jnames and tev == jev
+    assert _shared(tsc, NEW_COUNTERS) == jsc
+    assert _shared(th, NEW_HISTS) == jh
+    assert tnames == jnames | NEW_SPANS
+    assert _shared(tev, NEW_SPANS) == jev
+    assert tev["driver/submit"] == 2 and tev["driver/status"] == 4
+    assert tev["driver/tick"] >= tst.slices
+    # k iterations a group stepped: here two groups share some ticks
+    assert tsc[("driver_fleet_iterations_total", ())] == \
+        tev["driver/slice"] * 5 > tst.slices * 5
+    assert th[("driver_queue_wait_slices", ())] == tst.admitted
     assert tsc[("driver_rebucket_total", ())] == 1.0
     assert tsc[("driver_requeue_total", ())] == 2.0
     assert tsc[("driver_admitted_total", ())] == tst.admitted == 4
@@ -290,8 +327,8 @@ def test_fleet_taps_per_slot_match_solo_runs(models):
 
 def test_fused_fleet_times_one_kernel_call_per_fleet_iteration(models):
     """On the fused backend a fleet calls the kernel wrapper once a fleet
-    iteration; each call is one `kernel_wall_seconds` observation and
-    one `kernel/gmm_estep_nodes` span."""
+    iteration; each call is one `kernel/gmm_estep_nodes` span, nested in
+    its slice's, and no metric of its own."""
     prior = expfam.noninformative_prior(K, D, beta0=0.1, w0_scale=10.0,
                                         device="cpu")
     mdl = model_lib.GMMModel(prior, K, D, backend="fused", device="cpu")
@@ -302,9 +339,11 @@ def test_fused_fleet_times_one_kernel_call_per_fleet_iteration(models):
                              topology=engine.RingDiffusion(), n_iters=8))
     svc.run()
     st = svc.stats()
-    (row,) = [r for r in telemetry.snapshot()
-              if r["name"] == "kernel_wall_seconds"]
-    assert row["labels"] == {"kernel": "gmm_estep_nodes"}
-    assert row["count"] == st.slices * 4 == 8
-    evs = telemetry.tracer().to_chrome()["traceEvents"]
-    assert sum(e["name"] == "kernel/gmm_estep_nodes" for e in evs) == 8
+    assert not [r for r in telemetry.snapshot()
+                if r["name"].startswith("kernel")]
+    evs = [e for e in telemetry.tracer().to_chrome()["traceEvents"]
+           if e["name"] == "kernel/gmm_estep_nodes"]
+    assert len(evs) == st.slices * 4 == 8
+    # the first slice's calls nest in its `driver/compile`
+    assert collections.Counter(e["args"]["parent"] for e in evs) == {
+        "driver/compile": 4, "driver/slice": 4}

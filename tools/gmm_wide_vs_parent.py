@@ -154,7 +154,7 @@ def worker(root: str, only: str) -> dict:
         for e in prof.key_averages():
             us = getattr(e, "device_time_total",
                          getattr(e, "cuda_time_total", 0.0))
-            if us > 0:
+            if us > 0 and not getattr(e, "is_user_annotation", False):
                 kernels[e.key[:60]] = us / 20 / 1e3
         node.append({"shape": [N, T, K, D],
                      "ms": graph_time_ms(lambda: call(None), 20),

@@ -100,7 +100,8 @@ def _device_events(fn, n: int = 20) -> dict:
         torch.cuda.synchronize()
     return {e.key[:60]: e.count / n for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0}
+            and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)}
 
 
 def probe_collectives(ex) -> None:
