@@ -222,6 +222,12 @@ class BlockModel:
 
     blocks: tuple = ()
     prior: Any = None
+    #: `local_optimum` on a fleet launches nothing that waits for the host,
+    #: so a serving fleet may replay its iteration as a CUDA graph
+    #: (serving/driver.py).  False unless a model says so: LinReg and PPCA
+    #: call `torch.linalg.inv` / `solve`, which read their error flags back
+    #: on the host; the HMM's step has not been captured on the card
+    sync_free_step = False
 
     @property
     def flat_dim(self) -> int:

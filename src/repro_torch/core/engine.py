@@ -374,6 +374,20 @@ class _CombineTopology:
 
     uses_schedule = True
     emits_diagnostics = False
+    #: the type's fleet step launches nothing that waits for the host (no
+    #: `.item()`, `.tolist()` or error flag read back), so a serving fleet
+    #: may replay it as a CUDA graph (serving/driver.py); False keeps the
+    #: fleet on its eager loop
+    sync_free_step = False
+
+    def sync_free(self) -> bool:
+        """`sync_free_step`, unless this instance has a parity hook
+        (`link_mask_fn`, `active_mask_fn`): `_given_masks` reads each
+        slot's t on the host with `t.tolist()`."""
+        links = getattr(self, "links", None)
+        hooked = ((links is not None and links.link_mask_fn is not None)
+                  or getattr(self, "active_mask_fn", None) is not None)
+        return self.sync_free_step and not hooked
 
     def to(self, device) -> "_CombineTopology":
         """Copy with every tensor and `SparseGraph` attribute on `device`
@@ -423,6 +437,8 @@ class FusionCenter(_CombineTopology):
     [[1.0, 3.0], [1.0, 3.0]]
     """
 
+    sync_free_step = True
+
     def combine(self, varphi, *, axis=None, local=None, t=None):
         mean = varphi.mean(-2, keepdim=True)
         if axis is not None:
@@ -432,6 +448,8 @@ class FusionCenter(_CombineTopology):
 
 class Isolated(_CombineTopology):
     """No communication (noncoop-VB): every node keeps its own iterate."""
+
+    sync_free_step = True
 
     def combine(self, varphi, *, axis=None, local=None, t=None):
         return varphi
@@ -458,6 +476,8 @@ class Diffusion(_CombineTopology):
     >>> dead.combine(torch.tensor([[0.0], [4.0]]), t=0).tolist()
     [[0.0], [4.0]]
     """
+
+    sync_free_step = True
 
     def __init__(self, weights, *, link_drop: float = 0.0,
                  link_seed: int = 0, link_mask_fn=None):
@@ -528,6 +548,8 @@ class RingDiffusion(_CombineTopology):
     (k, k+1 mod N), the coin order of `ring_link_keep`, so the sparse path
     replays the same link failures as the roll-based one.
     """
+
+    sync_free_step = True
 
     def __init__(self, w_self: float = 1.0 / 3.0, *, link_drop: float = 0.0,
                  link_seed: int = 0, link_mask_fn=None, graph=None):
@@ -617,6 +639,8 @@ class PairwiseGossip(_CombineTopology):
     [[6.0], [6.0], [6.0]]
     """
 
+    sync_free_step = True
+
     def __init__(self, graph, *, p_activate: float = 0.5, seed: int = 0,
                  active_mask_fn=None):
         if not 0.0 < p_activate <= 1.0:
@@ -680,6 +704,8 @@ class HierarchicalFusion(_CombineTopology):
     >>> h.combine(torch.tensor([[0.0], [2.0], [4.0], [6.0]])).tolist()
     [[3.0], [3.0], [3.0], [3.0]]
     """
+
+    sync_free_step = True
 
     def __init__(self, gateway_of, region_of, *, w_self: float = 1.0 / 3.0,
                  w_gateway: float = 1.0 / 3.0):
@@ -807,6 +833,10 @@ class ADMMConsensus(_CombineTopology):
 
     uses_schedule = False
     emits_diagnostics = True
+    # stays on the fleet's eager loop: the Eq. 38b projection (on by
+    # default) calls `torch.linalg.eigh`, which reads its error flags back
+    # on the host (`aten::any`, `_local_scalar_dense`) every iteration
+    sync_free_step = False
 
     def __init__(self, adj, rho: float = 0.5, xi: float = 0.05,
                  project: bool = True, lam_max: float | None = None,

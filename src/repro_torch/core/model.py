@@ -73,6 +73,9 @@ class GMMModel(blocks.BlockModel):
 
     #: capability tag consumed by `backends.Backend.supports`
     kernel_family = "gmm"
+    #: both backends' steps are device work alone (`inv_ex`, `slogdet`,
+    #: the kernel launched on the current stream): see `BlockModel`
+    sync_free_step = True
 
     def __init__(self, prior: GMMPosterior, K: int | None = None,
                  D: int | None = None, backend=None, *, device=None):

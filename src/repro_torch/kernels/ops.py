@@ -5,7 +5,9 @@ the kernel modules' wrappers with a `kernel/<name>` span a call
 (`_instrument`); `ops.<name>.launches` (and `gmm_estep_nodes`'
 `variant_launches`) read and write the kernel's own launch count: a
 plain integer that a run can zero and read to show that the main path
-went through the kernel.
+went through the kernel.  `launch_counts`, `set_launch_counts` and
+`add_launch_counts` keep them counting what the device runs across a
+CUDA graph's capture and replays (serving/driver.py).
 
 `flash_attention` takes the GQA layout of `repro.kernels.ops` directly
 (q (B,S,Hq,hd), k/v (B,S,Hkv,hd)): the kernel indexes the kv head, where
@@ -61,6 +63,38 @@ gmm_estep_nodes = _instrument("gmm_estep_nodes", _ge.gmm_estep_nodes)
 gmm_estep = _instrument("gmm_estep", _ge.gmm_estep)
 flash_attention = _instrument("flash_attention", _fa.flash_attention)
 ssd_scan = _instrument("ssd_scan", _ss.ssd_scan)
+
+#: the kernels that keep a launch counter (`gmm_estep` counts through
+#: `gmm_estep_nodes`)
+_COUNTED = (gmm_estep_nodes, flash_attention, ssd_scan)
+
+
+def launch_counts() -> dict:
+    """Every kernel's launch counters: {name: launches} and, for
+    `gmm_estep_nodes`, {(name, variant): launches}.  A CUDA graph capture
+    launches nothing: a caller takes the counts before it, puts them back
+    after (`set_launch_counts`), and adds what the graph holds at each
+    replay (`add_launch_counts`), so the counters read what the device
+    ran."""
+    out = {}
+    for k in _COUNTED:
+        out[k.name] = k.launches
+        for variant, n in getattr(k, "variant_launches", {}).items():
+            out[(k.name, variant)] = n
+    return out
+
+
+def set_launch_counts(counts: dict) -> None:
+    for k in _COUNTED:
+        k.launches = counts[k.name]
+        for variant in getattr(k, "variant_launches", {}):
+            k.variant_launches[variant] = counts[(k.name, variant)]
+
+
+def add_launch_counts(delta: dict, times: int) -> None:
+    """Add `times` x `delta` (a difference of two `launch_counts`)."""
+    now = launch_counts()
+    set_launch_counts({key: n + times * delta[key] for key, n in now.items()})
 
 
 def _gmm_estep_from_posterior(x, mask, q, *, block_t: int = 512,

@@ -7,8 +7,16 @@ scheduling model applied to sensor-network VB sessions.
   group allocates its fleet buffers once per (capacity, slice length)
   shape, and sessions join and leave by in-place writes into a slot
   (`FleetGroup.compiles` counts the shapes: the analogue of the
-  reference's slice-function traces, and where a CUDA-graph capture of
-  the slice would be made).
+  reference's slice-function traces).
+* **CUDA graph** — on the card a fleet captures one gated iteration as a
+  `torch.cuda.CUDAGraph` in the first slice at each capacity and replays
+  it k times a slice (`FleetGroup._run_graphed`), so the host launches
+  one graph an iteration instead of queueing each of its ~330 ops; the
+  state buffers are written in place, so join and leave need no
+  recapture.  A slice takes the graph only where `_graph_eligible` says
+  so (CUDA, no mesh executor, full batch, taps closed, a model and
+  topology whose step never waits for the host); every other slice runs
+  the eager loop.
 * **Active mask for free** — a free or evicted slot is written as
   `conv=True, budget=0`: the per-session budget/early-stop gate of
   `_gated_step` is the driver's active mask, and frozen slots stay bit
@@ -78,7 +86,9 @@ admit and evict nest in it), `driver/submit{rid}` and
 group stepped); the histograms `driver_queue_wait_slices` and
 `driver_queue_wait_seconds`, one observation an admission: the slice
 boundaries and seconds from `submit` (or a re-queue; a deferred
-arrival's deferral included) to it, 0 slices where a slot was free.
+arrival's deferral included) to it, 0 slices where a slot was free; the
+counters `driver_graph_replays_total` (fleet iterations run as a graph
+replay, 0 added by an eager slice) and `driver_graph_captures_total`.
 With taps on, a slice's taps go to a window of k records read in
 `fetch_flags`.
 """
@@ -102,6 +112,7 @@ from repro_torch.checkpoint import ckpt
 from repro_torch.core import engine
 from repro_torch.data import stream as stream_lib
 from repro_torch.dist import collectives, sharding
+from repro_torch.kernels import ops
 from repro_torch.serving import admission
 from repro_torch.telemetry import taps
 
@@ -408,6 +419,28 @@ def _redraw_possible(t0, budget, conv, tol, j: int, n_chunks: int) -> bool:
     return False
 
 
+#: eager iterations a slice runs on the capture stream before it captures
+#: its graph: the first call of each library (cuBLAS and its workspace on
+#: that stream, the kernel's module) must not fall inside a capture
+GRAPH_WARMUP = 2
+
+
+def _graph_eligible(device, executor, minibatch, tap_window, model,
+                    topology) -> bool:
+    """Whether a fleet's slice replays one captured iteration as a CUDA
+    graph (`FleetGroup._run_graphed`), from what the slice can observe:
+    buffers on a CUDA device, the single-array executor (the mesh's
+    collectives are not captured), full batch (a minibatch's
+    `may_redraw` is decided on the host every iteration), taps closed
+    (a tap copies each iteration out), and a (model, topology) whose
+    step launches nothing that waits for the host (`sync_free_step` on
+    the model's type, `sync_free()` on the topology's)."""
+    return (torch.device(device).type == "cuda" and executor is None
+            and minibatch is None and tap_window is None
+            and getattr(model, "sync_free_step", False)
+            and topology.sync_free())
+
+
 # ---------------------------------------------------------------------------
 # FleetGroup: one fixed-capacity fleet of same-shape sessions
 # ---------------------------------------------------------------------------
@@ -427,7 +460,9 @@ class FleetGroup:
     `budget` (S,) int64; `tol` and `delta` (S,) in phi's dtype; `hyper`
     {name: (S,)}.  Nothing re-stacks or re-casts the data per iteration.
     With an `executor` a slice runs on this rank's block of the node axis
-    (`_run_slice`).
+    (`_run_slice`).  On the graph path (`_run_graphed`) `phi`, `carry`,
+    `stream`, `t`, `conv` and `delta` are written in place, never rebound,
+    while the group holds a graph.
     """
 
     def __init__(self, session: engine.VBSession,
@@ -466,6 +501,9 @@ class FleetGroup:
         self._local_data = None     # this rank's rows of data/stream_data
         self._shapes: set = set()       # (capacity, k) stepped at
         self._compiles = 0
+        # the captured iteration at this capacity: (CUDAGraph, the kernel
+        # launches it holds), or None (`_run_graphed`)
+        self._graph = None
         self._taps: Optional[taps.Window] = None    # the slice's taps
         # per-bucket accounting (read by VBDriver.stats)
         self.n_admitted = 0
@@ -541,6 +579,7 @@ class FleetGroup:
             [self.host_tol, np.zeros((new - old,), np.float64)])
         self.slots.grow(new)
         self._shapes.clear()            # the capacity is a new shape
+        self._graph = None              # it read the old buffers
 
     # -- join / leave -----------------------------------------------------
     def admit(self, rid: str, record: dict) -> int:
@@ -626,6 +665,78 @@ class FleetGroup:
                      for s in (data, data, phi, carry, stream))
 
     def _run_slice(self, k: int) -> None:
+        if self._taps is None:
+            self._taps = taps.open_window(k)    # None unless taps are on
+        ses = self.session
+        if _graph_eligible(self.phi.device, self.executor, ses.minibatch,
+                           self._taps, ses.model, ses.topology):
+            replays = self._run_graphed(k)
+        else:
+            # the loop below rebinds the state: a graph captured on the
+            # old tensors is stale
+            self._graph = None
+            self._run_eager(k)
+            replays = 0
+        telemetry.inc("driver_graph_replays_total", replays)
+
+    def _iterate_in_place(self) -> None:
+        """One gated fleet iteration, its state written back into the
+        group's buffers (the graph path's iteration: what a capture
+        records and each replay repeats, reading and writing the same
+        tensors)."""
+        state = (self.phi, self.carry, self.stream, self.t, self.conv,
+                 self.delta)
+        new = self._step(self.data, self.stream_data, self.phi, self.carry,
+                         self.stream, self.t, self.conv, self.budget,
+                         self.tol, self.delta, self.hyper, False)
+        for buf, val in zip(_tree_leaves(state), _tree_leaves(new)):
+            if val is not buf:
+                buf.copy_(val)
+
+    def _run_graphed(self, k: int) -> int:
+        """k iterations on the CUDA graph path; returns the replays.  The
+        first slice at a capacity runs `GRAPH_WARMUP` iterations eagerly
+        on the capture stream, then captures one (a capture runs
+        nothing), and replays the rest; later slices replay all k.  Join,
+        leave, checkpoints and flag reads write or read the buffers in
+        place on the current stream, so they need no recapture; `_grow`
+        drops the graph."""
+        done = 0
+        if self._graph is None:
+            cur = torch.cuda.current_stream(self.phi.device)
+            side = torch.cuda.Stream(self.phi.device)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                done = min(k, GRAPH_WARMUP)
+                for _ in range(done):
+                    self._iterate_in_place()
+                before = ops.launch_counts()
+                graph = torch.cuda.CUDAGraph()
+                # thread_local: the checkpoint writer's copies on its own
+                # thread may run meanwhile
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    self._iterate_in_place()
+                except BaseException:
+                    try:        # the step's error is the one to report
+                        graph.capture_end()
+                    except RuntimeError:
+                        pass
+                    raise
+                graph.capture_end()
+                after = ops.launch_counts()
+                ops.set_launch_counts(before)
+            cur.wait_stream(side)
+            self._graph = (graph, {key: after[key] - n
+                                   for key, n in before.items()})
+            telemetry.inc("driver_graph_captures_total")
+        graph, launches = self._graph
+        for _ in range(k - done):
+            graph.replay()
+        ops.add_launch_counts(launches, k - done)
+        return k - done
+
+    def _run_eager(self, k: int) -> None:
         mb = self.session.minibatch
         n_chunks = None
         if mb is not None:
@@ -643,8 +754,6 @@ class FleetGroup:
             data, stream_data = self._local_data
             phi, carry, st = (sharding.local_tree(v, s, ex, self._n_local)
                               for v, s in zip((phi, carry, st), specs[2:]))
-        if self._taps is None:
-            self._taps = taps.open_window(k)    # None unless taps are on
         with taps.collecting(self._taps):
             for j in range(k):
                 may_redraw = n_chunks is not None and _redraw_possible(
@@ -685,8 +794,9 @@ class FleetGroup:
         """The (capacity, k) shapes the fleet's buffers have been stepped
         at, over the group's life: 1 for a fixed-capacity fleet through
         any number of joins and leaves; each `_grow` adds one at its next
-        slice.  The analogue of the reference's slice-function traces
-        (and where a CUDA-graph capture of the slice would be made)."""
+        slice.  The analogue of the reference's slice-function traces; on
+        the graph path the first slice of a capacity captures its
+        iteration (`_run_graphed`)."""
         return self._compiles
 
     def state_tree(self, i: int) -> dict:

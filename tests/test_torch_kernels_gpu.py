@@ -23,6 +23,11 @@ gmm_estep once a fleet iteration over (S N, T, D), the kernel at that
 shape within the bars above; each tenant bit-equal to its solo run on
 the ring, within 1e-9 on the matmul combines; a checkpoint snapshot
 holds the slice boundary while the next slice overwrites the fleet.
+The fleet's CUDA graph: on nine topologies and both GMM backends the
+graphed fleet (join, leave, mixed taus and budgets, an early stop)
+equals the eager loop bit for bit with as many kernel launches, one
+capture per capacity (growth included) and a replay for every other
+fleet iteration; the profiler sees the replayed kernels.
 Telemetry: one `kernel/<name>` span a launch, recorded without waiting
 for the device and with no CUDA event.  The mesh
 executor: under a one-rank NCCL group (`admission.data_axis_mesh`) runs
@@ -721,6 +726,165 @@ def test_checkpoint_snapshot_while_next_slice_overwrites(cuda, tmp_path):
         t = int(auto["['t']"])
         solo = engine.run_vb(mdl, d, topo, n_iters=t, device=cuda)
         assert torch.equal(torch.as_tensor(auto["['phi']"]), solo.phi.cpu())
+    # the slices above were replays of the fleet's captured iteration
+    (g,) = svc._groups.values()
+    assert g._graph is not None
+
+
+# ---------------------------------------------------------------------------
+# The fleet's iteration as a CUDA graph (serving/driver.py `_run_graphed`)
+# ---------------------------------------------------------------------------
+def _graph_topology(name, adj):
+    g = network.SparseGraph.from_dense(adj)
+    gw, rg = network.two_level_partition(adj.shape[0], 8, 2)
+    W = network.nearest_neighbor_weights(adj)
+    return {
+        "diffusion": lambda: engine.Diffusion(W),
+        "diffusion_drop": lambda: engine.Diffusion(W, link_drop=0.2,
+                                                   link_seed=2),
+        "sparse_diffusion_drop": lambda: engine.Diffusion(
+            network.sparse_nearest_neighbor_weights(g), link_drop=0.2),
+        "ring": engine.RingDiffusion,
+        "ring_drop": lambda: engine.RingDiffusion(link_drop=0.2,
+                                                  link_seed=1),
+        "fusion": engine.FusionCenter,
+        "isolated": engine.Isolated,
+        "gossip": lambda: engine.PairwiseGossip(g, p_activate=0.5, seed=3),
+        "hierarchical": lambda: engine.HierarchicalFusion(gw, rg),
+    }[name]
+
+
+def _serve_counted(vs, mdl, topo, reqs, **kw):
+    """Serve `reqs` ((data, n_iters, tau, tol, arrive_at)) under host
+    telemetry; (service, rids, results, counters, gmm_estep launches)."""
+    from repro_torch import telemetry
+    telemetry.reset()
+    before = ops.gmm_estep_nodes.launches
+    with telemetry.enabled_scope():
+        svc = vs.VBService(device=mdl.device, **kw)
+        rids = [svc.submit(vs.VBRequest(
+            model=mdl, data=d, topology=topo, n_iters=n,
+            schedule=engine.Schedule(tau=tau), tol=tol), arrive_at=at)
+            for d, n, tau, tol, at in reqs]
+        out = svc.run()
+    rows = {r["name"]: r["value"] for r in telemetry.snapshot()
+            if "value" in r}
+    telemetry.reset()
+    return svc, rids, out, rows, ops.gmm_estep_nodes.launches - before
+
+
+@pytest.mark.parametrize("topo_name,backend", [
+    ("diffusion", "fused"), ("diffusion", "reference"),
+    ("diffusion_drop", "fused"), ("sparse_diffusion_drop", "fused"),
+    ("ring", "fused"), ("ring_drop", "fused"), ("fusion", "fused"),
+    ("isolated", "fused"), ("gossip", "fused"), ("hierarchical", "fused")])
+def test_graphed_fleet_bit_equal_eager_and_solo(cuda, monkeypatch,
+                                                topo_name, backend):
+    """Join and leave with mixed taus and budgets, one tenant stopping
+    early (tol > 0), through a 3-slot fleet: the graph path's results
+    and launch count equal the eager loop's bit for bit (the rule forced
+    off), one capture and a replay for every fleet iteration but the
+    capture slice's warm-up; each tenant against its solo run as
+    `test_fleet_matches_solo_on_card` holds it."""
+    from repro_torch.serving import driver as drv
+    vs, mdl, adj, data = _fleet_env(cuda)
+    mdl = mdl.with_backend(backend)
+    make = _graph_topology(topo_name, adj)
+    # a tol the third tenant's rms step falls under by iteration 8
+    a, b = (engine.run_vb(mdl, data[2], make(), n_iters=n,
+                          schedule=engine.Schedule(tau=0.5), device=cuda)
+            for n in (7, 8))
+    tol = 1.5 * float(torch.sqrt(((b.phi - a.phi) ** 2).mean()))
+    reqs = [(data[0], 12, 0.2, 0.0, None), (data[1], 20, 0.1, 0.0, None),
+            (data[2], 30, 0.5, tol, None), (data[3], 16, 0.2, 0.0, 1)]
+    runs = {}
+    for path in ("graph", "eager"):
+        if path == "eager":
+            monkeypatch.setattr(drv, "_graph_eligible", lambda *a: False)
+        runs[path] = _serve_counted(vs, mdl, make(), reqs, slice_iters=6,
+                                    max_fleet=3)
+    (svc, rids, out, rows, launches), (esvc, erids, eout, erows,
+                                       elaunches) = runs.values()
+    st = svc.stats()
+    iters = st.slices * 6
+    assert st.compiles == esvc.stats().compiles == 1
+    assert rows["driver_graph_captures_total"] == 1
+    assert rows["driver_graph_replays_total"] == iters - drv.GRAPH_WARMUP
+    assert erows["driver_graph_replays_total"] == 0
+    assert "driver_graph_captures_total" not in erows
+    assert launches == elaunches == (iters if backend == "fused" else 0)
+    assert out[rids[2]].converged and out[rids[2]].t <= 8
+    for (d, n, tau, _, _), rid, erid in zip(reqs, rids, erids):
+        s = out[rid]
+        assert torch.equal(s.phi, eout[erid].phi), rid
+        assert (s.t, s.converged) == (eout[erid].t, eout[erid].converged)
+        solo = engine.run_vb(mdl, d, make(), n_iters=s.t,
+                             schedule=engine.Schedule(tau=tau), device=cuda)
+        if topo_name in ("ring", "ring_drop", "isolated"):
+            assert torch.equal(solo.phi, s.phi), rid
+        else:
+            rel = float((solo.phi - s.phi).abs().max()
+                        / solo.phi.abs().max())
+            assert rel <= 1e-9, (rid, rel)
+
+
+def test_graphed_fleet_recaptures_once_per_capacity(cuda, monkeypatch):
+    """`max_fleet=None`: arrivals at slices 0, 1 and 2 grow the fleet
+    1 -> 2 -> 4; each capacity captures once (as many captures as
+    compiles), and the results equal the eager loop's bit for bit."""
+    from repro_torch.serving import driver as drv
+    vs, mdl, adj, data = _fleet_env(cuda)
+    topo = engine.Diffusion(network.nearest_neighbor_weights(adj))
+    reqs = [(data[0], 24, 0.2, 0.0, 0), (data[1], 20, 0.1, 0.0, 1),
+            (data[2], 16, 0.5, 0.0, 2), (data[3], 12, 0.2, 0.0, 2)]
+    svc, rids, out, rows, launches = _serve_counted(
+        vs, mdl, topo, reqs, slice_iters=5, max_fleet=None)
+    monkeypatch.setattr(drv, "_graph_eligible", lambda *a: False)
+    esvc, erids, eout, erows, elaunches = _serve_counted(
+        vs, mdl, topo, reqs, slice_iters=5, max_fleet=None)
+    st = svc.stats()
+    assert st.capacity == 4 and st.compiles == 3
+    assert rows["driver_graph_captures_total"] == 3
+    assert rows["driver_graph_replays_total"] == \
+        st.slices * 5 - 3 * drv.GRAPH_WARMUP
+    assert launches == elaunches == st.slices * 5
+    for rid, erid in zip(rids, erids):
+        assert torch.equal(out[rid].phi, eout[erid].phi), rid
+
+
+def test_profiler_sees_the_replayed_kernels(cuda):
+    """Under torch.profiler the replays' kernels are device events: a
+    gmm_estep kernel a fleet iteration, as many as the launch counter
+    adds, and one replay counted a fleet iteration."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import telemetry
+    vs, mdl, adj, data = _fleet_env(cuda)
+    topo = engine.Diffusion(network.nearest_neighbor_weights(adj))
+    svc = vs.VBService(slice_iters=5, max_fleet=2, device=cuda)
+    for d in data[:2]:
+        svc.submit(vs.VBRequest(model=mdl, data=d, topology=topo,
+                                n_iters=40))
+    svc.step_slice()                    # captures
+    torch.cuda.synchronize()
+    telemetry.reset()
+    before = ops.gmm_estep_nodes.launches
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            svc.step_slice()
+            svc.step_slice()
+            torch.cuda.synchronize()
+        rows = {r["name"]: r["value"] for r in telemetry.snapshot()
+                if "value" in r}
+    finally:
+        telemetry.reset()
+    kernels = sum(1 for e in prof.events() if e.device_type.name == "CUDA"
+                  and "gmm_estep" in e.name
+                  and not getattr(e, "is_user_annotation", False))
+    assert kernels == ops.gmm_estep_nodes.launches - before == 10
+    assert rows["driver_graph_replays_total"] == 10
+    assert rows["driver_fleet_iterations_total"] == 10
 
 
 # ---------------------------------------------------------------------------

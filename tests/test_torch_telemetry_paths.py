@@ -47,7 +47,8 @@ GAUGES = ("driver_queue_depth", "driver_active", "driver_capacity",
           "driver_occupancy", "driver_padding_waste")
 # the port's names beyond the JAX driver's catalogue
 NEW_SPANS = {"driver/tick", "driver/submit", "driver/status"}
-NEW_COUNTERS = {"driver_fleet_iterations_total"}
+NEW_COUNTERS = {"driver_fleet_iterations_total",
+                "driver_graph_replays_total"}
 NEW_HISTS = {"driver_queue_wait_slices", "driver_queue_wait_seconds"}
 
 
@@ -157,6 +158,9 @@ def test_traced_fleet_run_equals_reference(models, tmp_path):
     assert tev["driver/tick"] == tst.slices == 4
     assert tev["driver/submit"] == tev["driver/status"] == 3
     assert tsc[("driver_fleet_iterations_total", ())] == tst.slices * 8
+    # the CPU runs every slice on the eager loop: no replay, no capture
+    assert tsc[("driver_graph_replays_total", ())] == 0
+    assert ("driver_graph_captures_total", ()) not in tsc
     assert th[("driver_queue_wait_slices", ())] == th[
         ("driver_queue_wait_seconds", ())] == tst.admitted == 3
     assert {"driver/slice", "driver/compile", "driver/sync",
